@@ -1,0 +1,247 @@
+"""Public API of the port: ``Model`` + ``Synth`` (vosk_tts_tpu/api.py), for
+plain ``vits2`` bundles.
+
+A bundle directory holds ``config.json`` (``model_type``, ``phoneme_id_map``,
+``inference`` defaults, the ``model`` architecture block, ``sample_rate``),
+``params.npz`` (the JAX package's parameter tree) and ``dictionary``.
+
+Entry points run on the card: ``Model(path)`` means ``device="cuda"`` and
+raises where CUDA is missing; pass ``device="cpu"`` to run the plain
+versions of the kernels on the CPU.
+
+Bucket ladder: text lengths are padded to ``TEXT_BUCKETS`` and the decode
+pass runs at a frame bucket picked from the duration pass
+(``FRAME_BUCKETS``), exactly as the JAX package does. PyTorch has no static
+shapes, but the same buckets keep the two packages' shapes equal (so their
+outputs compare like with like) and bound the set of shapes a CUDA graph
+would have to be captured for.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import time
+import wave
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .models import vits2
+from .text import g2p_plain, load_dictionary
+from .utils.checkpoint import load_params
+from .utils.params import to_port_layout
+
+MODEL_DIRS = [
+    os.getenv("VOSK_TPU_MODEL_PATH"),
+    os.getenv("VOSK_MODEL_PATH"),
+    "/usr/share/vosk",
+    str(Path.home() / ".cache/vosk-tpu"),
+    str(Path.home() / ".cache/vosk"),
+]
+
+#: text-length buckets (tokens incl. blanks)
+TEXT_BUCKETS = (32, 64, 128, 256, 384, 512, 768, 1024)
+#: output frame capacity per text token (worst case; durations are clipped)
+FRAMES_PER_TOKEN = 16
+
+
+def _frame_bucket_ladder(lo: int = 128, hi: int = 16384, ratio: float = 1.25):
+    """+128 steps to 1024, then ~x1.25 quantized to 128."""
+    out = [64] + list(range(lo, 1025, 128))
+    b = 1024
+    while b < hi:
+        b = min(hi, -(-int(b * ratio) // 128) * 128)
+        out.append(b)
+    return tuple(out)
+
+
+FRAME_BUCKETS = _frame_bucket_ladder()
+
+
+def pick_frame_bucket(pred_frames: int, text_bucket: int) -> int:
+    """Smallest frame bucket holding ``pred_frames``, capped at the
+    worst-case ``text_bucket * FRAMES_PER_TOKEN`` (durations clip there)."""
+    cap = text_bucket * FRAMES_PER_TOKEN
+    for b in FRAME_BUCKETS:
+        if b >= pred_frames:
+            return min(b, cap)
+    return min(FRAME_BUCKETS[-1], cap)
+
+
+def pick_gen_frames(pred_frames: int, frame_bucket: int) -> int | None:
+    """Generator frame count for the decode pass, quantized to
+    ``max(16, frame_bucket // 16)``; None when the bucket is already tight."""
+    step = max(16, frame_bucket // 16)
+    gen = min(frame_bucket, -(-max(1, pred_frames) // step) * step)
+    return gen if gen < frame_bucket else None
+
+
+def list_models():
+    """Locally installed bundles (the model registry is not ported)."""
+    for d in MODEL_DIRS:
+        if d and Path(d).is_dir():
+            for name in sorted(os.listdir(d)):
+                if (Path(d) / name / "config.json").exists():
+                    print(name)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raises instead of falling back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class Model:
+    def __init__(self, model_path=None, model_name=None, *, device=None):
+        self.device = resolve_device(device)
+        if model_path is None:
+            model_path = self._find(model_name)
+        model_path = Path(model_path)
+        logging.info("Loading model from %s", model_path)
+
+        self.path = model_path
+        with open(model_path / "config.json", encoding="utf-8") as f:
+            self.config = json.load(f)
+        self.model_type = self.config.get("model_type", "vits2")
+        if self.model_type != "vits2":
+            raise NotImplementedError(f"model_type {self.model_type!r} is not ported")
+        dic_path = model_path / "dictionary"
+        self.dic = load_dictionary(dic_path) if dic_path.exists() else {}
+        self.model_config = vits2.VITS2Config.from_dict(self.config.get("model", {}))
+        tree = to_port_layout(load_params(model_path / "params.npz"))
+        self.synthesizer = vits2.Synthesizer(self.model_config, tree).to(self.device)
+        self.sample_rate = self.config.get("sample_rate", 22050)
+
+    @property
+    def params(self):
+        return self.synthesizer.params
+
+    @staticmethod
+    def _find(model_name):
+        for d in MODEL_DIRS:
+            if d and model_name and (Path(d) / model_name / "config.json").exists():
+                return Path(d) / model_name
+        raise FileNotFoundError(f"model {model_name!r} not found in {[d for d in MODEL_DIRS if d]}")
+
+
+def audio_float_to_int16(audio: np.ndarray, max_wav_value: float = 32767.0) -> np.ndarray:
+    return np.clip(audio * max_wav_value, -max_wav_value, max_wav_value).astype("int16")
+
+
+def encode_plain(model: Model, text: str) -> list:
+    """Text -> phoneme id sequence for plain vits2 bundles."""
+    cfg = model.config
+    flat_map = {k: (v[0] if isinstance(v, list) else v) for k, v in cfg["phoneme_id_map"].items()}
+    ids, _ = g2p_plain(text, model.dic, flat_map, None, blank=not cfg.get("no_blank", 0))
+    return ids
+
+
+class Synth:
+    def __init__(self, model: Model):
+        self.model = model
+        self.generator = torch.Generator(device=model.device)
+        self.generator.manual_seed(int(model.config.get("seed", 0)))
+
+    def _defaults(self, noise_level, speech_rate, duration_noise_level, scale):
+        inference = self.model.config.get("inference", {})
+        pick = lambda v, k, d: inference.get(k, d) if v is None else v
+        return (pick(noise_level, "noise_level", 0.8), pick(speech_rate, "speech_rate", 1.0),
+                pick(duration_noise_level, "duration_noise_level", 0.8), pick(scale, "scale", 1.0))
+
+    def _encode(self, text: str):
+        return encode_plain(self.model, re.sub("—", "-", text.strip()))
+
+    def _encode_pass(self, x, x_lengths, sid, inv_rate, dur_noise, bucket):
+        """Duration-adaptive pass one: encoder + SDP once, fetch only the
+        predicted frame count; returns (enc, frame bucket, gen_frames), or
+        (None, worst case, None) when disabled with VOSK_TTS_ADAPTIVE=0."""
+        if os.environ.get("VOSK_TTS_ADAPTIVE", "1") == "0":
+            return None, bucket * FRAMES_PER_TOKEN, None
+        enc = self.model.synthesizer.encode_for_infer(
+            x, x_lengths, sid, generator=self.generator, length_scale=inv_rate,
+            noise_scale_w=dur_noise)
+        pred = int(enc["pred_frames"].max())
+        fb = pick_frame_bucket(pred, bucket)
+        return enc, fb, pick_gen_frames(pred, fb)
+
+    @torch.inference_mode()
+    def _run(self, all_ids, speaker_ids, noise_level, speech_rate, duration_noise_level):
+        """Pad a batch to its text bucket, run both passes; returns
+        (wav (B, samples) numpy, lengths (B,) numpy)."""
+        bucket = next((b for b in TEXT_BUCKETS if b >= max(len(i) for i in all_ids)),
+                      TEXT_BUCKETS[-1])
+        n = len(all_ids)
+        x = np.zeros((n, bucket), np.int64)
+        x_lengths = np.ones((n,), np.int32)
+        for i, ids in enumerate(all_ids):
+            if len(ids) > bucket:
+                logging.warning("text too long (%d tokens), truncating to %d", len(ids), bucket)
+                ids = ids[:bucket]
+            x[i, : len(ids)] = ids
+            x_lengths[i] = len(ids)
+        dev = self.model.device
+        x = torch.as_tensor(x, device=dev)
+        x_lengths = torch.as_tensor(x_lengths, device=dev)
+        sid = torch.as_tensor([s or 0 for s in speaker_ids], dtype=torch.int64, device=dev)
+        inv_rate = 1.0 / speech_rate
+        syn = self.model.synthesizer
+        enc, max_frames, gen = self._encode_pass(x, x_lengths, sid, inv_rate,
+                                                 duration_noise_level, bucket)
+        if enc is None:
+            out = syn.infer(x, x_lengths, sid, generator=self.generator, max_frames=max_frames,
+                            noise_scale=noise_level, length_scale=inv_rate,
+                            noise_scale_w=duration_noise_level)
+        else:
+            out = syn.decode_from_durations(enc, sid, generator=self.generator,
+                                            max_frames=max_frames, noise_scale=noise_level,
+                                            gen_frames=gen)
+        return out["wav"][..., 0].cpu().numpy(), out["wav_lengths"].cpu().numpy()
+
+    def synth_audio(self, text, speaker_id=0, noise_level=None, speech_rate=None,
+                    duration_noise_level=None, scale=None):
+        noise_level, speech_rate, duration_noise_level, scale = self._defaults(
+            noise_level, speech_rate, duration_noise_level, scale)
+        ids = self._encode(text)
+        start = time.perf_counter()
+        wav, lengths = self._run([ids], [speaker_id], noise_level, speech_rate,
+                                 duration_noise_level)
+        audio = audio_float_to_int16(wav[0, : lengths[0]] * scale)
+        elapsed = time.perf_counter() - start
+        dur = len(audio) / self.model.sample_rate
+        rtf = elapsed / dur if dur > 0 else 0.0
+        logging.info("Real-time factor: %0.3f (infer=%0.3f sec, audio=%0.2f sec)", rtf, elapsed, dur)
+        return audio
+
+    def synth(self, text, oname, speaker_id=0, noise_level=None, speech_rate=None,
+              duration_noise_level=None, scale=None):
+        audio = self.synth_audio(text, speaker_id, noise_level, speech_rate,
+                                 duration_noise_level, scale)
+        with wave.open(str(oname), "w") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(self.model.sample_rate)
+            f.writeframes(audio.tobytes())
+
+    def synth_batch(self, texts, speaker_ids=None, noise_level=None, speech_rate=None,
+                    duration_noise_level=None, scale=None):
+        """Many utterances as one batch on the model's device (one encode
+        pass, one decode pass). Returns a list of int16 arrays."""
+        noise_level, speech_rate, duration_noise_level, scale = self._defaults(
+            noise_level, speech_rate, duration_noise_level, scale)
+        if speaker_ids is None:
+            speaker_ids = [0] * len(texts)
+        start = time.perf_counter()
+        wav, lengths = self._run([self._encode(t) for t in texts], speaker_ids, noise_level,
+                                 speech_rate, duration_noise_level)
+        audios = [audio_float_to_int16(wav[i, : lengths[i]] * scale) for i in range(len(texts))]
+        elapsed = time.perf_counter() - start
+        dur = sum(len(a) for a in audios) / self.model.sample_rate
+        logging.info("Real-time factor: %0.3f (batch of %d, infer=%0.3f sec, audio=%0.2f sec)",
+                     elapsed / dur if dur > 0 else 0.0, len(texts), elapsed, dur)
+        return audios

@@ -1,0 +1,85 @@
+"""Fused DDSConv stack: the CUDA kernel's wrapper and its plain version.
+
+Port of vosk_tts_tpu/ops/ddsconv_fused.py::ddsconv_fused (the Pallas
+``_kernel``), i.e. ``wn.ddsconv_apply`` without conditioning or dropout.
+Layer i (dilation K^i): depthwise conv of x * mask plus bias, LayerNorm
+(eps 1e-5), exact GELU, pointwise C x C plus bias, LayerNorm, GELU, then
+x += y; the residual is not masked between layers and the output is
+x * mask. GELU uses a true erf (the JAX kernel's Abramowitz-Stegun erf,
+|err| <= 1.5e-7, is a Mosaic workaround).
+
+``params`` is the port's stacked DDSConv tree (utils/params.py):
+sep_w (L, C, K), sep_b (L, C), pw_w (L, C_out, C_in), pw_b (L, C),
+norm1_g/norm1_b/norm2_g/norm2_b (L, C).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.cuda_build import CudaKernel, I, P
+from .conv import depthwise_conv1d
+from .norm import layer_norm
+
+KERNEL = CudaKernel("ddsconv.cu", "ddsconv_f32", [P] * 11 + [I, I, I, I, I, P])
+
+_WEIGHTS = ("sep_w", "sep_b", "pw_w", "pw_b", "norm1_g", "norm1_b", "norm2_g", "norm2_b")
+
+
+def _check_kernel_size(params, kernel_size):
+    k = params["sep_w"].shape[-1]
+    if kernel_size != k:
+        raise ValueError(f"kernel_size={kernel_size} does not match the params' kernel size {k}")
+
+
+def ddsconv_plain(x, x_mask, params, *, kernel_size: int = 3):
+    """The plain version. x: (B, T, C); x_mask: (B, T, 1)."""
+    _check_kernel_size(params, kernel_size)
+    for i in range(params["sep_w"].shape[0]):
+        dilation = kernel_size**i
+        pad = (kernel_size * dilation - dilation) // 2
+        y = depthwise_conv1d(x * x_mask, params["sep_w"][i][:, None, :], params["sep_b"][i],
+                             padding=pad, dilation=dilation)
+        y = F.gelu(layer_norm(y, params["norm1_g"][i], params["norm1_b"][i]))
+        y = F.linear(y, params["pw_w"][i], params["pw_b"][i])
+        y = F.gelu(layer_norm(y, params["norm2_g"][i], params["norm2_b"][i]))
+        x = x + y
+    return x * x_mask
+
+
+def ddsconv_fused(x, x_mask, params, *, kernel_size: int = 3):
+    """The whole DDSConv stack in one launch. x: (B, T, C); x_mask: (B, T, 1).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not x.is_cuda:
+        return ddsconv_plain(x, x_mask, params, kernel_size=kernel_size)
+    _check_kernel_size(params, kernel_size)
+    b, t, c = x.shape
+    n_layers = params["sep_w"].shape[0]
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("ddsconv kernel: x must be a contiguous float32 (B, T, C) tensor")
+    if c > 256 or c % 32 != 0:
+        raise ValueError(f"ddsconv kernel: channels must be a multiple of 32 up to 256, got {c}")
+    if tuple(x_mask.shape) != (b, t, 1) or x_mask.device != x.device:
+        raise ValueError(f"ddsconv kernel: x_mask must be ({b}, {t}, 1) on {x.device}")
+    mask = x_mask.reshape(b, t).to(torch.float32).contiguous()
+    shapes = {"sep_w": (n_layers, c, kernel_size), "pw_w": (n_layers, c, c)}
+    for name in _WEIGHTS:
+        a = params[name]
+        want = shapes.get(name, (n_layers, c))
+        if (a.device != x.device or a.dtype != torch.float32 or tuple(a.shape) != want
+                or not a.is_contiguous()):
+            raise ValueError(f"ddsconv kernel: {name} must be a contiguous float32 {want} "
+                             f"tensor on {x.device}")
+    out = torch.empty_like(x)
+    fn = KERNEL.fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), mask.data_ptr(), *(params[n].data_ptr() for n in _WEIGHTS),
+                 out.data_ptr(), b, t, c, n_layers, kernel_size, ctypes.c_void_p(stream))
+    KERNEL.check(err)
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,65 @@
+"""Gated/dilated conv stacks: WN, ResBlock1/2, DDSConv
+(vosk_tts_tpu/ops/wn.py), inference only. Weight norm is folded into the
+stored weights, as in the bundle."""
+
+from __future__ import annotations
+
+import torch
+
+from . import ddsconv_fused as ddf
+from .commons import fused_gate
+from .conv import conv1d
+
+LRELU_SLOPE = 0.1
+
+
+def leaky_relu(x, slope: float = LRELU_SLOPE):
+    return torch.where(x >= 0, x, slope * x)
+
+
+def wn_apply(params, x, x_mask, g=None, *, kernel_size: int, dilation_rate: int):
+    """x: (B, T, H), x_mask: (B, T, 1), g: (B, Tg, gin) or None -> (B, T, H)."""
+    hidden = x.shape[-1]
+    n_layers = len(params["in"])
+    if g is not None:
+        g = conv1d(g, params["cond"]["w"], params["cond"]["b"])
+    output = torch.zeros_like(x)
+    for i in range(n_layers):
+        dilation = dilation_rate**i
+        pad = (kernel_size * dilation - dilation) // 2
+        x_in = conv1d(x, params["in"][i]["w"], params["in"][i]["b"], padding=pad, dilation=dilation)
+        g_l = g[..., 2 * hidden * i: 2 * hidden * (i + 1)] if g is not None else torch.zeros_like(x_in)
+        acts = fused_gate(x_in, g_l)
+        rs = conv1d(acts, params["res_skip"][i]["w"], params["res_skip"][i]["b"])
+        if i < n_layers - 1:
+            x = (x + rs[..., :hidden]) * x_mask
+            output = output + rs[..., hidden:]
+        else:
+            output = output + rs
+    return output * x_mask
+
+
+def resblock1_apply(params, x, *, kernel_size: int = 3, dilation=(1, 3, 5)):
+    """HiFiGAN ResBlock1 (serving: no padded-frame mask)."""
+    for c1, c2, d in zip(params["convs1"], params["convs2"], dilation):
+        xt = conv1d(leaky_relu(x), c1["w"], c1["b"], padding=(kernel_size * d - d) // 2,
+                    dilation=d)
+        xt = conv1d(leaky_relu(xt), c2["w"], c2["b"], padding=(kernel_size - 1) // 2)
+        x = xt + x
+    return x
+
+
+def resblock2_apply(params, x, *, kernel_size: int = 3, dilation=(1, 3)):
+    """HiFiGAN ResBlock2 (serving: no padded-frame mask)."""
+    for c, d in zip(params["convs"], dilation):
+        x = conv1d(leaky_relu(x), c["w"], c["b"], padding=(kernel_size * d - d) // 2,
+                   dilation=d) + x
+    return x
+
+
+def ddsconv_apply(params, x, x_mask, g=None, *, kernel_size: int):
+    """DDSConv stack (x + g first). Runs through the fused CUDA kernel on the
+    card and its plain version on the CPU (ops/ddsconv_fused.py)."""
+    if g is not None:
+        x = x + g
+    return ddf.ddsconv_fused(x, x_mask, params, kernel_size=kernel_size)

@@ -1,0 +1,260 @@
+"""Weight carrier: the JAX package's parameter tree -> the port's layouts.
+
+A bundle's ``params.npz`` holds the JAX package's tree (channels-last
+weights, vosk_tts_tpu/ops/conv.py). :func:`to_port_layout` turns that tree,
+as numpy arrays, into the port's layouts once, at load:
+
+  ===============  ===========  =====================================
+  weight           JAX layout   port layout
+  ===============  ===========  =====================================
+  Conv1d           (K, I, O)    (O, I, K)   -- ``F.conv1d``
+  1x1 conv         (1, I, O)    (O, I)      -- ``F.linear``
+  Linear           (I, O)       (O, I)      -- ``F.linear``
+  ConvTranspose1d  (K, I, O)    (I, O, K)   -- ``F.conv_transpose1d``
+  DDSConv stack    per layer    stacked, see :func:`_pack_ddsconv`
+  ===============  ===========  =====================================
+
+The posterior encoder (``enc_q``) is training-only and is dropped.
+
+:func:`synthesizer_init` draws a tree in the BUNDLE layout (the JAX one)
+from the same distributions and shapes as ``vits2.synthesizer_init``, so a
+full-width bundle can be made where JAX is absent; its numbers differ from
+JAX's draws.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..models.vits2 import check_ported
+
+#: top-level subtrees the serving path does not read
+_DROPPED = ("enc_q",)
+
+
+def _pack_ddsconv(p):
+    """Per-layer DDSConv tree -> one stacked tree that both the plain
+    version and the CUDA kernel read (ops/ddsconv_fused.py):
+    sep_w (L, C, K), pw_w (L, C_out, C_in), biases and norms (L, C)."""
+    st = lambda xs: np.ascontiguousarray(np.stack(xs)).astype(np.float32)
+    return {
+        "sep_w": st([s["w"][:, 0, :].T for s in p["sep"]]),
+        "sep_b": st([s["b"] for s in p["sep"]]),
+        "pw_w": st([w["w"][0].T for w in p["pw"]]),
+        "pw_b": st([w["b"] for w in p["pw"]]),
+        "norm1_g": st([n["gamma"] for n in p["norm1"]]),
+        "norm1_b": st([n["beta"] for n in p["norm1"]]),
+        "norm2_g": st([n["gamma"] for n in p["norm2"]]),
+        "norm2_b": st([n["beta"] for n in p["norm2"]]),
+    }
+
+
+def _convert(node, path):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        if {"sep", "pw", "norm1", "norm2"} <= set(node):
+            return _pack_ddsconv(node)
+        return {k: _convert(v, path + (k,)) for k, v in node.items()
+                if not (not path and k in _DROPPED)}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, path + (str(i),)) for i, v in enumerate(node)]
+    a = np.asarray(node)
+    if path[-1] != "w":
+        return a
+    if "ups" in path:  # ConvTranspose1d (K, I, O) -> (I, O, K)
+        return np.ascontiguousarray(a.transpose(1, 2, 0))
+    if a.ndim == 2:  # Linear (I, O) -> (O, I)
+        return np.ascontiguousarray(a.T)
+    if a.shape[0] == 1:  # 1x1 conv (1, I, O) -> (O, I)
+        return np.ascontiguousarray(a[0].T)
+    return np.ascontiguousarray(a.transpose(2, 1, 0))  # (K, I, O) -> (O, I, K)
+
+
+def to_port_layout(tree):
+    """JAX bundle tree (numpy leaves) -> port-layout tree (numpy leaves)."""
+    return _convert(tree, ())
+
+
+def to_torch(tree, device, dtype=torch.float32):
+    """Port-layout numpy tree -> the same tree of tensors on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device, dtype) for v in tree]
+    t = torch.tensor(np.asarray(tree))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def perturb_zero_init(tree, seed: int):
+    """Give the zero-initialised projections random values, in place on a
+    BUNDLE-layout tree: the flow ``post`` convs (std 0.02) and the SDP
+    ConvFlow ``proj`` convs (std 0.2, which spreads the noise-free durations
+    over about 1-6 frames per token, away from the integer edges of the
+    ceil). As initialised they make the flow an identity and the durations
+    independent of every DDSConv output, so a comparison of two
+    implementations would not see attention or DDSConv in those paths."""
+    rng = np.random.default_rng(seed)
+
+    def fill(p, scale):
+        for k in ("w", "b"):
+            p[k] = (rng.standard_normal(np.shape(p[k])) * scale).astype(np.float32)
+
+    for layer in tree["flow"]["flows"]:
+        fill(layer["post"], 0.02)
+    for key in ("flows", "post_flows"):
+        for cf in tree["dp"][key][1:]:
+            fill(cf["proj"], 0.2)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Random init in the bundle layout (vosk_tts_tpu/models/vits2.py:684-695)
+# ---------------------------------------------------------------------------
+
+
+def _u(rng, shape, s):
+    return rng.uniform(-s, s, shape).astype(np.float32)
+
+
+def _conv(rng, k, c_in, c_out):
+    s = (c_in * k) ** -0.5
+    return {"w": _u(rng, (k, c_in, c_out), s), "b": _u(rng, (c_out,), s)}
+
+
+def _xavier(rng, c_in, c_out):
+    a = math.sqrt(6.0 / (c_in + c_out))
+    return {"w": _u(rng, (1, c_in, c_out), a), "b": _u(rng, (c_out,), c_in**-0.5)}
+
+
+def _norm(c):
+    return {"gamma": np.ones((c,), np.float32), "beta": np.zeros((c,), np.float32)}
+
+
+def _mha(rng, ch, out, heads, window=4):
+    d = ch // heads
+    p = {k: _xavier(rng, ch, ch) for k in ("q", "k", "v")}
+    p["o"] = _xavier(rng, ch, out)
+    for k in ("emb_rel_k", "emb_rel_v"):
+        p[k] = (rng.standard_normal((1, 2 * window + 1, d)) * d**-0.5).astype(np.float32)
+    return p
+
+
+def _encoder(rng, hidden, filt, heads, layers, k, gin=0):
+    p = {
+        "attn": [_mha(rng, hidden, hidden, heads) for _ in range(layers)],
+        "ffn": [{"c1": _conv(rng, k, hidden, filt), "c2": _conv(rng, k, filt, hidden)}
+                for _ in range(layers)],
+        "norm1": [_norm(hidden) for _ in range(layers)],
+        "norm2": [_norm(hidden) for _ in range(layers)],
+    }
+    if gin:
+        s = gin**-0.5
+        p["spk_emb"] = {"w": _u(rng, (gin, hidden), s), "b": _u(rng, (hidden,), s)}
+    return p
+
+
+def _wn(rng, hidden, k, layers, gin):
+    p = {
+        "in": [_conv(rng, k, hidden, 2 * hidden) for _ in range(layers)],
+        "res_skip": [_conv(rng, 1, hidden, 2 * hidden if i < layers - 1 else hidden)
+                     for i in range(layers)],
+    }
+    if gin:
+        p["cond"] = _conv(rng, 1, gin, 2 * hidden * layers)
+    return p
+
+
+def _ddsconv(rng, ch, k, layers):
+    return {
+        "sep": [_conv(rng, k, 1, ch) for _ in range(layers)],
+        "pw": [_conv(rng, 1, ch, ch) for _ in range(layers)],
+        "norm1": [_norm(ch) for _ in range(layers)],
+        "norm2": [_norm(ch) for _ in range(layers)],
+    }
+
+
+def _zeros_conv(c_in, c_out):
+    return {"w": np.zeros((1, c_in, c_out), np.float32), "b": np.zeros((c_out,), np.float32)}
+
+
+def _convflow(rng, fc, k, bins=10):
+    return {"pre": _conv(rng, 1, 1, fc), "convs": _ddsconv(rng, fc, k, 3),
+            "proj": _zeros_conv(fc, 3 * bins - 1)}
+
+
+def _affine():
+    return {"m": np.zeros((2,), np.float32), "logs": np.zeros((2,), np.float32)}
+
+
+def synthesizer_init(cfg, seed: int):
+    """Bundle-layout VITS2 tree for the shipped serving configuration
+    (``pre_conv2`` flows, ``mb_istft`` decoder, SDP)."""
+    check_ported(cfg)
+    rng = np.random.default_rng(seed)
+    h, inter, gin = cfg.hidden_channels, cfg.inter_channels, cfg.gin_channels
+    half = inter // 2
+    fc, k = 256, 3
+
+    enc_p = {
+        "emb": (rng.standard_normal((cfg.n_vocab, h)) * h**-0.5).astype(np.float32),
+        "encoder": _encoder(rng, h, cfg.filter_channels, cfg.n_heads, cfg.n_layers,
+                            cfg.kernel_size, gin=cfg.enc_gin_channels),
+        "proj": _conv(rng, 1, h, inter * 2),
+    }
+
+    uic = cfg.upsample_initial_channel
+    dec = {"conv_pre": _conv(rng, 7, inter, uic), "ups": [], "resblocks": []}
+    ch = uic
+    for i, (u, kk) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        cin, ch = uic // 2**i, uic // 2 ** (i + 1)
+        dec["ups"].append({"w": (rng.standard_normal((kk, cin, ch)) * 0.01).astype(np.float32),
+                           "b": np.zeros((ch,), np.float32)})
+    for i in range(len(cfg.upsample_rates)):
+        c = uic // 2 ** (i + 1)
+        for kk, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            if cfg.resblock == "1":
+                dec["resblocks"].append({
+                    "convs1": [_conv(rng, kk, c, c) for _ in d],
+                    "convs2": [_conv(rng, kk, c, c) for _ in d]})
+            else:
+                dec["resblocks"].append({"convs": [_conv(rng, kk, c, c) for _ in d]})
+    post = _conv(rng, 7, ch, cfg.subbands * (cfg.gen_istft_n_fft + 2))
+    post["b"] = None
+    dec["conv_post"] = post
+
+    enc_q = {"pre": _conv(rng, 1, cfg.spec_channels, h),
+             "enc": _wn(rng, h, 5, cfg.posterior_wn_layers, gin),
+             "proj": _conv(rng, 1, h, inter * 2)}
+
+    flow = {"flows": [{
+        "pre": _conv(rng, 1, half, h),
+        "pre_transformer": _encoder(rng, h, h, 2, 1, 5),
+        "enc": _wn(rng, h, 5, 4, gin),
+        "post": _zeros_conv(h, half),
+    } for _ in range(cfg.n_flows)]}
+
+    dp = {
+        "pre": _conv(rng, 1, h, fc),
+        "proj": _conv(rng, 1, fc, fc),
+        "convs": _ddsconv(rng, fc, k, 3),
+        "flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
+        "post_pre": _conv(rng, 1, 1, fc),
+        "post_proj": _conv(rng, 1, fc, fc),
+        "post_convs": _ddsconv(rng, fc, k, 3),
+        "post_flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
+    }
+    if gin:
+        dp["cond"] = _conv(rng, 1, gin, fc)
+
+    p = {"enc_p": enc_p, "dec": dec, "enc_q": enc_q, "flow": flow, "dp": dp}
+    if cfg.n_speakers > 1:
+        p["emb_g"] = rng.standard_normal((cfg.n_speakers, gin)).astype(np.float32)
+    return p
