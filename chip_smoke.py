@@ -8,21 +8,35 @@ result line is printed):
 
 1. device: requires CUDA (no CPU run), prints the card's name and power
    limit, turns TF32 off for matmuls and cuDNN convolutions (f32 parity);
-2. build: compiles every CUDA kernel of the serving path from
-   vosk_tts_tpu_torch/csrc/ with nvcc for sm_90a, all sources at once;
+2. build: compiles every CUDA kernel of the serving paths from
+   vosk_tts_tpu_torch/csrc/ with nvcc for sm_90a, one nvcc per source, all
+   started together;
 3. kernels vs plain: each kernel's wrapper on card tensors at the shapes
-   the serving path gives it, held against its plain PyTorch version on the
-   same inputs, then timed with CUDA events beside that plain version and
-   its bound (the larger of bytes over 3.35 TB/s and f32 operations over
-   67 TFLOP/s, the H100 SXM's published peaks at 700 W);
-4. main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(), random
-   weights from a seed, zero-initialised projections perturbed) answers 3
-   requests through Model/Synth.synth_audio and one synth_batch of 16 texts
-   on the card; the launch counts of every kernel over that run must match
-   10 banded-attention and 4 DDSConv launches per synthesis call;
-5. card vs CPU: one request's encode_for_infer and decode_from_durations
-   on the card (kernels) and on the CPU (plain versions, fed the card's
-   durations), noise scales 0, compared within stated tolerances.
+   the serving paths give it, held against its plain PyTorch version on the
+   same inputs, then timed with CUDA events beside that plain version, its
+   bound (the larger of bytes over 3.35 TB/s and f32 operations over
+   67 TFLOP/s, the H100 SXM's published peaks at 700 W) and, for the global
+   attention, one library call (scaled_dot_product_attention) on the same
+   inputs;
+4. VITS2 main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(),
+   random weights from a seed, zero-initialised projections perturbed)
+   answers 3 requests through Model/Synth.synth_audio and one synth_batch of
+   16 texts on the card; the launch counts over that run must match 10
+   banded-attention and 4 DDSConv launches per synthesis call; then one
+   request's encode_for_infer and decode_from_durations on the card and on
+   the CPU (fed the card's durations), noise scales 0, within stated
+   tolerances;
+5. multistream main path: a full-width multistream_v3 bundle
+   (StableTTSConfig(), HiFiGAN v1, ruBERT-base-wide BertConfig(), random
+   weights from a seed with the adaLN-Zero projections and CFG fakes
+   perturbed, a synthetic WordPiece vocabulary) answers 3 requests through
+   Model/Synth.synth_audio and runs one batch of the 16 texts at model level
+   (encode_for_synth, decode_from_durations, hifigan_apply); the launch
+   counts over that run must be 68 global RoPE attention launches per
+   synthesis call (2 x 4 encoder layers + 10 Euler steps x 6 decoder
+   layers) and none of the other kernels; then the shortest text's passes
+   and vocoder on the card and on the CPU (fed the card's durations),
+   temperature 0, within stated tolerances.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -39,18 +53,22 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
-from vosk_tts_tpu_torch.models import vits2  # noqa: E402
+from vosk_tts_tpu_torch.models import bert, stabletts, vits2  # noqa: E402
+from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from vosk_tts_tpu_torch.text import plain_symbol_map  # noqa: E402
+from vosk_tts_tpu_torch.text import multistream_symbol_map, plain_symbol_map  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import save_params  # noqa: E402
-from vosk_tts_tpu_torch.utils.params import perturb_zero_init, synthesizer_init  # noqa: E402
+from vosk_tts_tpu_torch.utils.params import (bert_init, hifigan_init, matcha_init,  # noqa: E402
+                                             perturb_matcha_zero_init, perturb_zero_init,
+                                             synthesizer_init)
 
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -156,6 +174,53 @@ def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
     return out
 
 
+def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
+    """The global attention kernel in one of its forms ("rope": the DiT's
+    fused projection with RoPE on d_rope = (d//2)//2*2 features; "packed";
+    "separate") against its plain version, timed beside it and beside
+    scaled_dot_product_attention on the same q, k, v with a boolean key mask
+    (for "rope" on q and k rotated beforehand: the rotation is not in the
+    library's time)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c, sm = h * d, d**-0.5
+    d_rope = stabletts.d_rope_of(d) if form == "rope" else 0
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qkv = torch.randn(b, t, 3 * c, generator=g, device=dev)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    if form == "separate":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        run = lambda: fa.global_flash_attention(q, k, v, kv_len, n_heads=h, sm_scale=sm)
+    elif form == "packed":
+        run = lambda: fa.global_flash_attention_packed(qkv, kv_len, n_heads=h, sm_scale=sm)
+    else:
+        run = lambda: fa.global_flash_attention_rope(qkv, kv_len, n_heads=h, sm_scale=sm,
+                                                     d_rope=d_rope)
+    plain = lambda: fa.global_attention_plain(q, k, v, kv_len, n_heads=h, sm_scale=sm,
+                                              d_rope=d_rope)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    out = {"shape": f"B{b} H{h} T{t} D{d} d_rope{d_rope}",
+           "max_abs_err": float((got - want).abs().max())}
+    if iters:
+        out["ms"] = cuda_ms(run, iters)
+        out["plain_ms"] = cuda_ms(plain, plain_iters)
+        flops = 4 * h * d * t * sum(lengths)  # keys past kv_len add exactly 0: not needed work
+        out["bound_ms"], out["bound_by"] = bound(flops, 4 * (4 * b * t * c))
+        heads = lambda a: a.reshape(b, t, h, d).transpose(1, 2).contiguous()
+        lq, lk, lv = heads(q), heads(k), heads(v)
+        if d_rope:
+            cos, sin = fa.rope_tables(t, d_rope, dev)
+            lq, lk = fa.apply_rope(lq, cos, sin), fa.apply_rope(lk, cos, sin)
+        mask = (torch.arange(t, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=sm)
+        lib_out = lib().transpose(1, 2).reshape(b, t, c)
+        out["library_err"] = float((lib_out - want).abs().max())
+        out["library_ms"] = cuda_ms(lib, iters)
+        del lib_out
+    return out
+
+
 def write_bundle(path, cfg, tree):
     save_params(os.path.join(path, "params.npz"), tree)
     with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
@@ -242,17 +307,16 @@ def parity(model, cpu_model):
         check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
 
 
-def profile_requests(model):
-    """Where the device time goes: torch.profiler over one warm synth_audio
-    and one warm synth_batch of 16. Prints the device-busy share of the wall
-    time and the kernels with the most device time (not part of the pass
-    criteria: a trace without device events is reported as not measured)."""
+def profile_requests(runs):
+    """Where the device time goes: torch.profiler over each warm run of
+    ``runs`` ((name, callable) pairs). Prints the device-busy share of the
+    wall time and the kernels with the most device time (not part of the
+    pass criteria: a trace without device events is reported as not
+    measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    synth = api.Synth(model)
-    for name, run in (("synth_audio", lambda: synth.synth_audio(TEXTS[2])),
-                      ("synth_batch16", lambda: synth.synth_batch(TEXTS))):
+    for name, run in runs:
         run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -271,6 +335,124 @@ def profile_requests(model):
             print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
+MS_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ",", ".", "!", "?", ":", ";", "-", '"']
+            + list("абвгдежзийклмнопрстуфхцчшщъыьэюяё")
+            + ["##" + ch for ch in "абвгдежзийклмнопрстуфхцчшщъыьэюяё"])
+
+
+def write_ms_bundle(path):
+    """A full-width multistream_v3 bundle: StableTTSConfig(), HiFiGAN v1 and
+    ruBERT-base-wide BertConfig() with random weights from the seed, the
+    zero-initialised leaves perturbed, and a synthetic WordPiece vocabulary
+    (specials, punctuation, the Russian letters and their ## forms)."""
+    cfg, bcfg = stabletts.StableTTSConfig(), bert.BertConfig()
+    save_params(os.path.join(path, "params.npz"), {
+        "matcha": perturb_matcha_zero_init(matcha_init(cfg, seed=SEED), seed=SEED + 1),
+        "vocoder": hifigan_init(voc.hifigan_v1_config(), seed=SEED + 2)})
+    os.makedirs(os.path.join(path, "bert"))
+    save_params(os.path.join(path, "bert", "params.npz"), bert_init(bcfg, seed=SEED + 3))
+    with open(os.path.join(path, "bert", "config.json"), "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(bcfg), f)
+    with open(os.path.join(path, "bert", "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(MS_VOCAB))
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump({"model_type": "multistream_v3", "sample_rate": 22050, "hop_length": 256,
+                   "vocoder": "hifigan", "seed": SEED, "phoneme_id_map": multistream_symbol_map(),
+                   "inference": {"noise_level": 0.8, "speech_rate": 1.0, "n_timesteps": 10},
+                   "model": dataclasses.asdict(cfg)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "dictionary"), "w", encoding="utf-8") as f:
+        f.write("привет 1.0 p rj i0 vj e1 t\nмир 1.0 mj i1 r\n")
+
+
+def ms_batch(model, texts, generator):
+    """The 16 texts as one batch at model level: front end per text, then
+    encode_for_synth, decode_from_durations and hifigan_apply with B = 16.
+    Returns the int16 audio of each text."""
+    x, xl, brt, pde, bucket = api.multistream_inputs(model, texts)
+    n = len(texts)
+    dev = model.device
+    x, xl, brt, pde = (torch.as_tensor(a, device=dev) for a in (x, xl, brt, pde))
+    sid = torch.zeros(n, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        enc = model.matcha.encode_for_synth(x, xl, sid, brt, phone_duration_extra=pde)
+        fb = api.pick_ms_frame_bucket(int(enc["pred_frames"].max()), bucket)
+        out = model.matcha.decode_from_durations(enc, sid, max_frames=fb, n_timesteps=10,
+                                                 temperature=0.8, generator=generator)
+        wav = voc.hifigan_apply(model.vocoder.params, out["mel"], model.vocoder_config).cpu().numpy()
+        lengths = (out["mel_lengths"] * model.config["hop_length"]).cpu().numpy()
+    return [api.audio_float_to_int16(wav[i, :lengths[i]]) for i in range(n)], fb
+
+
+def ms_main_path(model):
+    """3 requests through Synth.synth_audio and one batch of the 16 texts at
+    model level. Returns the number of synthesis calls."""
+    synth = api.Synth(model)
+    audio_s, elapsed_s, calls = 0.0, 0.0, 0
+    for text in TEXTS[:3]:
+        t0 = time.perf_counter()
+        audio = synth.synth_audio(text)
+        dt = time.perf_counter() - t0
+        calls += 1
+        dur = len(audio) / model.sample_rate
+        audio_s, elapsed_s = audio_s + dur, elapsed_s + dt
+        print(f"[ms-main] synth_audio {len(audio)} samples ({dur:.2f} s audio) in {dt:.3f} s, "
+              f"RTF {dt / dur:.4f}")
+        check(audio.dtype == np.int16 and len(audio) > 0 and np.any(audio != 0)
+              and len(audio) % 256 == 0, f"bad multistream audio for {text!r}")
+    print(f"[ms-main] RTF over the 3 requests: {elapsed_s / audio_s:.4f}")
+    t0 = time.perf_counter()
+    batch, fb = ms_batch(model, TEXTS, synth.generator)
+    dt = time.perf_counter() - t0
+    calls += 1
+    dur = sum(len(a) for a in batch) / model.sample_rate
+    print(f"[ms-main] batch of {len(batch)} (frame bucket {fb}, CFG batch {2 * len(batch)}): "
+          f"{dur:.2f} s audio in {dt:.3f} s, RTF {dt / dur:.4f}")
+    check(len(batch) == len(TEXTS) and all(
+        a.dtype == np.int16 and len(a) > 0 and np.any(a != 0) and len(a) % 256 == 0
+        for a in batch), "bad multistream batch audio")
+    return calls
+
+
+def ms_parity(model, cpu_model):
+    """The shortest text's encode_for_synth, decode_from_durations and
+    vocoder on ``model``'s device and on the CPU (fed the card's w_round and
+    the same BERT rows), temperature 0 (z = 0)."""
+    text = min(TEXTS, key=len)
+    x, xl, brt, pde, bucket = api.multistream_inputs(model, [text])
+    runs = []
+    for m in (model, cpu_model):
+        dev = m.device
+        xs, xls, brts, pdes = (torch.as_tensor(a, device=dev) for a in (x, xl, brt, pde))
+        sid = torch.zeros(1, dtype=torch.int64, device=dev)
+        with torch.inference_mode():
+            enc = m.matcha.encode_for_synth(xs, xls, sid, brts, phone_duration_extra=pdes)
+            w_own = enc["w_round"].cpu()
+            if runs:  # the card's durations: round() turns 1 ulp into a frame
+                enc["w_round"] = runs[0]["w_round"].to(dev)
+            fb = api.pick_ms_frame_bucket(int(enc["w_round"].sum()), bucket)
+            out = m.matcha.decode_from_durations(enc, sid, max_frames=fb, n_timesteps=10,
+                                                 temperature=0.0)
+            wav = voc.hifigan_apply(m.vocoder.params, out["mel"], m.vocoder_config)
+        runs.append({"w_round": w_own, "x_mask": enc["x_mask"].cpu(),
+                     "mu_mel": enc["mu_mel"].cpu(), "mel": out["mel"].cpu(),
+                     "n": int(out["mel_lengths"][0]) * 256, "wav": wav.cpu()})
+    g, c = runs
+    n = g["n"]
+    check(n == c["n"] and n > 0 and np.isfinite(g["wav"].numpy()).all(), "bad multistream output")
+    errs = {"mu_mel": float(((g["mu_mel"] - c["mu_mel"]) * g["x_mask"]).abs().max()),
+            "mel": float((g["mel"] - c["mel"]).abs().max()),
+            "wav": float((g["wav"][0, :n] - c["wav"][0, :n]).abs().max()),
+            "w_round_frames_differ": float((g["w_round"] != c["w_round"]).sum())}
+    peaks = {k: float(c[k][..., :n].abs().max()) if k == "wav" else float(c[k].abs().max())
+             for k in ("mu_mel", "mel", "wav")}
+    # f32 on both sides; cuDNN, cuBLAS and the kernel sum in other orders than the CPU
+    tols = {k: 1e-3 * peaks[k] + 1e-6 for k in peaks}
+    print(f"[ms-parity] {model.device} vs CPU, {text!r}, {n} samples, peaks {peaks}: {errs}, "
+          f"tol {tols}")
+    for k, tol in tols.items():
+        check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -287,10 +469,14 @@ def main() -> int:
     print("[device] TF32 off for matmul and cuDNN convolutions (f32 parity with the plain versions)")
 
     # 2. build
-    kernels = {"banded_attention": fa.KERNEL, "ddsconv": ddf.KERNEL}
+    kernels = {"banded_attention": fa.KERNEL, "ddsconv": ddf.KERNEL,
+               "global_attention_rope": fa.GLOBAL_ROPE_KERNEL,
+               "global_attention_packed": fa.GLOBAL_PACKED_KERNEL,
+               "global_attention": fa.GLOBAL_KERNEL}
     t0 = time.perf_counter()
     cuda_build.build(list(kernels.values()))
-    print(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    print(f"[build] {len({k.source for k in kernels.values()})} sources for {len(kernels)} wrappers "
+          f"in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, k in kernels.items():
         k.fn()
         log = k.library.with_suffix(".log")
@@ -310,15 +496,32 @@ def main() -> int:
     dds = [ddsconv_case(16, 256, [256 - 13 * i for i in range(16)], 50, 20, 4),
            ddsconv_case(1, 64, [53], 50, 20, 8),
            ddsconv_case(1, 37, [30], 0, 0, 5)]
-    for name, shapes, tol in (("banded_attention", att, att_tol), ("ddsconv", dds, dds_tol)):
+    # the global kernel: the CFM decoder's batched shape (16 requests, CFG-doubled),
+    # the text encoders' batched shape, single-request shapes, a ragged T=37,
+    # and the two d_rope = 0 forms (no path calls them)
+    dec_lens = [2048 - 61 * i for i in range(16)] * 2
+    glo = {"global_attention_rope": [
+               global_case("rope", 32, 2048, 96, dec_lens, 10, 3, 11),
+               global_case("rope", 16, 256, 64, [256 - 11 * i for i in range(16)], 50, 20, 12),
+               global_case("rope", 2, 512, 96, [437, 437], 50, 20, 13),
+               global_case("rope", 1, 64, 64, [53], 50, 20, 14),
+               global_case("rope", 2, 37, 96, [37, 20], 0, 0, 15)],
+           "global_attention_packed": [global_case("packed", 16, 1024, 96,
+                                                   [1024 - 41 * i for i in range(16)], 20, 5, 16)],
+           "global_attention": [global_case("separate", 16, 1024, 96,
+                                            [1024 - 41 * i for i in range(16)], 20, 5, 17)]}
+    glo_tol = 1e-4
+    for name, shapes, tol in (("banded_attention", att, att_tol), ("ddsconv", dds, dds_tol),
+                              *((n, c, glo_tol) for n, c in glo.items())):
         for c in shapes:
             print(f"[kernel] {name} {json.dumps(c)} tol {tol}")
             check(np.isfinite(c["max_abs_err"]) and c["max_abs_err"] <= tol,
                   f"{name} at {c['shape']} disagrees with its plain version: {c['max_abs_err']}")
 
-    # 4. the main path at full width, then 5. one request on the card and on the CPU
+    # 4. the VITS2 main path at full width, then one request on the card and on the CPU
     cfg = vits2.VITS2Config()
     tree = perturb_zero_init(synthesizer_init(cfg, seed=SEED), seed=SEED + 1)
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="vits2-full-") as bundle:
         write_bundle(bundle, cfg, tree)
         del tree
@@ -327,24 +530,59 @@ def main() -> int:
         for k in kernels.values():
             k.launches = 0
         calls = main_path(model)
-        launches = {name: k.launches for name, k in kernels.items()}
-        expected = {"banded_attention": 10 * calls, "ddsconv": 4 * calls}
-        print(f"[main] launches over {calls} synthesis calls: {launches} (expected {expected})")
-        check(launches == expected, f"kernel launches {launches} != {expected}")
+        got = {name: k.launches for name, k in kernels.items()}
+        expected = {name: 0 for name in kernels} | {"banded_attention": 10 * calls,
+                                                    "ddsconv": 4 * calls}
+        print(f"[main] launches over {calls} synthesis calls: {got} (expected {expected})")
+        check(got == expected, f"kernel launches {got} != {expected}")
+        launches |= {n: got[n] for n in ("banded_attention", "ddsconv")}
         print(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_requests(model)
+        synth = api.Synth(model)
+        profile_requests([("synth_audio", lambda: synth.synth_audio(TEXTS[2])),
+                          ("synth_batch16", lambda: synth.synth_batch(TEXTS))])
         parity(model, api.Model(bundle, device="cpu"))
+        del model, synth
+    torch.cuda.empty_cache()
 
-    # the record: each kernel's largest batched shape, launches from the main path
+    # 5. the multistream_v3 main path at full width, then the card against the CPU
+    with tempfile.TemporaryDirectory(prefix="ms-v3-full-") as bundle:
+        t0 = time.perf_counter()
+        write_ms_bundle(bundle)
+        model = api.Model(bundle)
+        print(f"[ms-main] full-width multistream_v3 bundle written and loaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(model.device.type == "cuda", "Model() did not default to the card")
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        calls = ms_main_path(model)
+        got = {name: k.launches for name, k in kernels.items()}
+        expected = {name: 0 for name in kernels} | {"global_attention_rope": 68 * calls}
+        print(f"[ms-main] launches over {calls} synthesis calls: {got} (expected {expected})")
+        check(got == expected, f"kernel launches {got} != {expected}")
+        launches |= {n: got[n] for n in glo}
+        print(f"[ms-main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        synth = api.Synth(model)
+        profile_requests([("ms synth_audio", lambda: synth.synth_audio(TEXTS[2])),
+                          ("ms batch16", lambda: ms_batch(model, TEXTS, synth.generator))])
+        ms_parity(model, api.Model(bundle, device="cpu"))
+
+    # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
-                "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63"}
-    cases = {"banded_attention": att, "ddsconv": dds}
-    main_case = {"banded_attention": att[1], "ddsconv": dds[0]}
+                "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
+                "global_attention_rope": "vosk_tts_tpu/ops/flash_attention.py:299",
+                "global_attention_packed": "vosk_tts_tpu/ops/flash_attention.py:190",
+                "global_attention": "vosk_tts_tpu/ops/flash_attention.py:190"}
+    cases = {"banded_attention": att, "ddsconv": dds, **glo}
+    main_case = {"banded_attention": att[1], "ddsconv": dds[0], **{n: c[0] for n, c in glo.items()}}
+    notes = {"global_attention_rope": "library_ms: SDPA on q, k rotated beforehand (rotation "
+                                      "not in its time)"}
     record = [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
                "replaces": replaces[name], "launches": launches[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-               "library_ms": None, "shape": main_case[name]["shape"]}
+               "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
+               **({"note": notes[name]} if name in notes else {})}
               for name, k in kernels.items()]
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -4,8 +4,10 @@ Marked ``cuda``: each test skips where there is no NVIDIA GPU. This file
 imports no JAX, so on a machine with the card and without JAX it runs as
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``.
 Shapes beyond the serving path's: ragged T down to 1, head dims 32-128
-(every NC template), per-head relative tables, narrower DDSConv channels.
-f32; tolerance 1e-4 absolute (other summation orders, values of order 1).
+(every NC template), per-head relative tables, narrower DDSConv channels;
+the global attention kernel in its RoPE, packed (also as a strided view)
+and separate forms with d_rope 0 to 64. f32; tolerance 1e-4 absolute
+(other summation orders, values of order 1).
 """
 
 import pytest
@@ -74,6 +76,44 @@ def test_ddsconv_kernel(dev, monkeypatch, b, t, c, lengths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form,b,t,h,d,d_rope,lengths", [
+    ("rope", 1, 1, 4, 64, 32, [1]), ("rope", 2, 5, 2, 32, 16, [5, 2]),
+    ("rope", 2, 37, 4, 96, 48, [37, 30]), ("rope", 3, 200, 4, 64, 32, [200, 129, 7]),
+    ("rope", 1, 130, 2, 128, 64, [99]), ("packed", 2, 100, 4, 96, 0, [100, 61]),
+    ("packed", 1, 64, 2, 128, 0, [64]), ("separate", 2, 77, 4, 64, 0, [77, 1]),
+    ("separate", 1, 3, 3, 32, 0, [2]), ("strided", 2, 50, 4, 96, 48, [50, 31])])
+def test_global_attention_kernel(dev, monkeypatch, form, b, t, h, d, d_rope, lengths):
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    c = h * d
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    sm = d**-0.5
+    if form == "separate":
+        q, k, v = (torch.randn(b, t, c, generator=g, device=dev) for _ in range(3))
+        want = fa.global_attention_plain(q, k, v, kv_len, n_heads=h, sm_scale=sm)
+        run, kernel = lambda: fa.global_flash_attention(q, k, v, kv_len, n_heads=h, sm_scale=sm), \
+            fa.GLOBAL_KERNEL
+    else:
+        qkv = torch.randn(b, t, 3 * c, generator=g, device=dev)
+        if form == "strided":  # the packed projection as a view into wider rows
+            qkv = torch.randn(b, t, 3 * c + 40, generator=g, device=dev)[..., 8:8 + 3 * c]
+        want = fa.global_attention_plain(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], kv_len,
+                                         n_heads=h, sm_scale=sm, d_rope=d_rope)
+        if form in ("rope", "strided"):
+            run, kernel = lambda: fa.global_flash_attention_rope(
+                qkv, kv_len, n_heads=h, sm_scale=sm, d_rope=d_rope), fa.GLOBAL_ROPE_KERNEL
+        else:
+            run, kernel = lambda: fa.global_flash_attention_packed(
+                qkv, kv_len, n_heads=h, sm_scale=sm), fa.GLOBAL_PACKED_KERNEL
+    monkeypatch.setattr(fa, "global_attention_plain", _refuse)
+    n = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    assert got.shape == (b, t, c)
+    assert (got - want).abs().max().item() <= 1e-4  # every row, past kv_len too
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 2, 8, 96, device=dev)
     rel = torch.randn(1, 9, 96, device=dev)
@@ -95,3 +135,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # weights of another width than x
         ddf.ddsconv_fused(torch.randn(1, 8, 256, device=dev), torch.ones(1, 8, 1, device=dev),
                           params)
+    qkv = torch.randn(2, 8, 3 * 256, device=dev)
+    lens = torch.tensor([8, 5], dtype=torch.int32, device=dev)
+    for bad in (dict(qkv=qkv.double()), dict(kv_len=lens.long()), dict(d_rope=33),
+                dict(d_rope=66), dict(n_heads=3), dict(n_heads=1),  # head dim 256 > 128
+                dict(qkv=torch.randn(2, 8, 700, device=dev)),  # not 3C wide
+                dict(qkv=qkv[:, :, ::2])):  # feature stride 2
+        args = dict(qkv=qkv, kv_len=lens, n_heads=4, sm_scale=0.125, d_rope=32) | bad
+        with pytest.raises(ValueError):
+            fa.global_flash_attention_rope(**args)
+    with pytest.raises(ValueError):  # a strided view, not a contiguous (B, T, C)
+        fa.global_flash_attention(qkv[..., :256], qkv[..., 256:512], qkv[..., 512:], lens,
+                                  n_heads=4, sm_scale=0.125)

@@ -68,7 +68,10 @@ def test_model_needs_cuda_without_device(tmp_path):
 
 
 @pytest.mark.parametrize("wrapper,plain", [(fa.banded_flash_attention, "banded_attention_plain"),
-                                           (ddf.ddsconv_fused, "ddsconv_plain")])
+                                           (ddf.ddsconv_fused, "ddsconv_plain"),
+                                           (fa.global_flash_attention_rope, "global_attention_plain"),
+                                           (fa.global_flash_attention_packed, "global_attention_plain"),
+                                           (fa.global_flash_attention, "global_attention_plain")])
 def test_wrapper_takes_plain_only_for_cpu(wrapper, plain):
     """The plain version appears once in the wrapper: as the return of its
     first statement, ``if not <x>.is_cuda``; the rest launches the kernel

@@ -217,3 +217,19 @@ def test_cli_needs_the_card(bundle, tmp_path):
                        cwd=Path(__file__).resolve().parent.parent)
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
     assert not (tmp_path / "x.wav").exists()
+
+
+def test_synthesizer_refuses_what_it_cannot_run(model):
+    """The generator runs as the hifigan vocoder (no speaker conditioning),
+    but a VITS2 synthesizer with that decoder, or a speaker-conditioned
+    hifigan generator, is refused."""
+    _, _, _, tp = model
+    voc = tv.VITS2Config(decoder_type="hifigan", gin_channels=0, n_speakers=0)
+    tv.check_decoder(voc)
+    with pytest.raises(NotImplementedError, match="hifigan"):
+        tv.Synthesizer(voc, {})
+    with pytest.raises(NotImplementedError, match="hifigan"):
+        tv.check_decoder(tv.VITS2Config(decoder_type="hifigan"))
+    with pytest.raises(NotImplementedError, match="istft"):
+        tv.generator_apply(tp["dec"], tv.VITS2Config(**CFG, decoder_type="istft"),
+                           torch.zeros(1, 4, 32))

@@ -1,9 +1,13 @@
 """Public API of the port: ``Model`` + ``Synth`` (vosk_tts_tpu/api.py), for
-plain ``vits2`` bundles.
+plain ``vits2`` bundles and multistream (StableTTS) bundles.
 
 A bundle directory holds ``config.json`` (``model_type``, ``phoneme_id_map``,
 ``inference`` defaults, the ``model`` architecture block, ``sample_rate``),
-``params.npz`` (the JAX package's parameter tree) and ``dictionary``.
+``params.npz`` (the JAX package's parameter tree) and ``dictionary``. A
+``multistream_v1/v2/v3`` bundle's ``params.npz`` holds ``{"matcha",
+"vocoder"}``, its config names the ``vocoder`` (HiFiGAN is ported; Vocos
+and BigVGAN are not) and its ``bert/`` directory (``config.json``,
+``params.npz``, ``vocab.txt``) the ruBERT front.
 
 Entry points run on the card: ``Model(path)`` means ``device="cuda"`` and
 raises where CUDA is missing; pass ``device="cpu"`` to run the plain
@@ -30,10 +34,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .models import vits2
-from .text import g2p_plain, load_dictionary
+from .models import stabletts, vits2
+from .models import vocoder as voc
+from .models.bert import BertEncoder
+from .models.tree import TreeModule
+from .text import WordPieceTokenizer, g2p_multistream, g2p_plain, load_dictionary
 from .utils.checkpoint import load_params
 from .utils.params import to_port_layout
+
+MULTISTREAM_TYPES = ("multistream_v1", "multistream_v2", "multistream_v3")
 
 MODEL_DIRS = [
     os.getenv("VOSK_TPU_MODEL_PATH"),
@@ -61,6 +70,11 @@ def _frame_bucket_ladder(lo: int = 128, hi: int = 16384, ratio: float = 1.25):
 
 FRAME_BUCKETS = _frame_bucket_ladder()
 
+#: multistream (StableTTS) worst-case mel-frame capacity per text token:
+#: durations are sigmoid sums of 50 rows, so about 50 frames a phone at most
+MS_FRAMES_PER_TOKEN = 48
+MS_FRAMES_CAP = 4096
+
 
 def pick_frame_bucket(pred_frames: int, text_bucket: int) -> int:
     """Smallest frame bucket holding ``pred_frames``, capped at the
@@ -78,6 +92,16 @@ def pick_gen_frames(pred_frames: int, frame_bucket: int) -> int | None:
     step = max(16, frame_bucket // 16)
     gen = min(frame_bucket, -(-max(1, pred_frames) // step) * step)
     return gen if gen < frame_bucket else None
+
+
+def pick_ms_frame_bucket(pred_frames: int, text_bucket: int) -> int:
+    """Smallest frame bucket holding ``pred_frames`` for the multistream
+    path, capped at ``min(text_bucket * 48, 4096)``."""
+    cap = min(text_bucket * MS_FRAMES_PER_TOKEN, MS_FRAMES_CAP)
+    for b in FRAME_BUCKETS:
+        if b >= pred_frames:
+            return min(b, cap)
+    return cap
 
 
 def list_models():
@@ -109,18 +133,47 @@ class Model:
         with open(model_path / "config.json", encoding="utf-8") as f:
             self.config = json.load(f)
         self.model_type = self.config.get("model_type", "vits2")
-        if self.model_type != "vits2":
+        if self.model_type != "vits2" and self.model_type not in MULTISTREAM_TYPES:
             raise NotImplementedError(f"model_type {self.model_type!r} is not ported")
         dic_path = model_path / "dictionary"
         self.dic = load_dictionary(dic_path) if dic_path.exists() else {}
+        self.sample_rate = self.config.get("sample_rate", 22050)
+        self.synthesizer = self.matcha = self.vocoder = None
+        self.tokenizer = self.bert = None
+        if self.model_type in MULTISTREAM_TYPES:
+            self._load_multistream(model_path)
+            return
         self.model_config = vits2.VITS2Config.from_dict(self.config.get("model", {}))
         tree = to_port_layout(load_params(model_path / "params.npz"))
         self.synthesizer = vits2.Synthesizer(self.model_config, tree).to(self.device)
-        self.sample_rate = self.config.get("sample_rate", 22050)
+
+    def _load_multistream(self, model_path: Path):
+        self.model_config = stabletts.StableTTSConfig.from_dict(self.config.get("model", {}))
+        self.vocoder_type = self.config.get("vocoder", "hifigan")
+        if self.vocoder_type != "hifigan":
+            raise NotImplementedError(f"vocoder {self.vocoder_type!r} is not ported")
+        if "vocoder_config" in self.config:
+            self.vocoder_config = vits2.VITS2Config.from_dict(self.config["vocoder_config"])
+        else:
+            self.vocoder_config = voc.hifigan_v1_config()
+        vits2.check_decoder(self.vocoder_config)
+        tree = load_params(model_path / "params.npz")
+        self.matcha = stabletts.Matcha(self.model_config,
+                                       stabletts.port_layout(tree["matcha"])).to(self.device)
+        self.vocoder = TreeModule(to_port_layout(tree["vocoder"])).to(self.device)
+        bert_dir = model_path / "bert"
+        if (bert_dir / "vocab.txt").exists() and (bert_dir / "params.npz").exists():
+            self.tokenizer = WordPieceTokenizer(bert_dir / "vocab.txt")
+            with open(bert_dir / "config.json", encoding="utf-8") as f:
+                bert_config = json.load(f)
+            self.bert = BertEncoder(to_port_layout(load_params(bert_dir / "params.npz")),
+                                    bert_config).to(self.device)
 
     @property
     def params(self):
-        return self.synthesizer.params
+        if self.synthesizer is not None:
+            return self.synthesizer.params
+        return {"matcha": self.matcha.params, "vocoder": self.vocoder.params}
 
     @staticmethod
     def _find(model_name):
@@ -140,6 +193,55 @@ def encode_plain(model: Model, text: str) -> list:
     flat_map = {k: (v[0] if isinstance(v, list) else v) for k, v in cfg["phoneme_id_map"].items()}
     ids, _ = g2p_plain(text, model.dic, flat_map, None, blank=not cfg.get("no_blank", 0))
     return ids
+
+
+def word_bert(model: Model, text: str, nopunc: bool = False) -> np.ndarray:
+    """One BERT vector per word (rows of the ``bert_layer`` hidden state,
+    default -3): '##' subwords dropped, and punctuation too with ``nopunc``.
+    Returns a (words, hidden) float32 array on the host."""
+    enc = model.tokenizer.encode(text.replace("+", "").replace("_", ""))
+    hs = model.bert(enc.ids, enc.attention_mask, enc.type_ids)
+    layer = model.config.get("bert_layer", -3)
+    pattern = re.compile('[-,.?!;:"]')
+    selected = [i for i, tok in enumerate(enc.tokens)
+                if tok[0] != "#" and not (nopunc and pattern.match(tok))]
+    return hs[layer][selected].cpu().numpy()
+
+
+def encode_multistream(model: Model, text: str):
+    """Text -> (tuples (T, 5) ints, bert rows (T, 768) or None, extra
+    durations or None) for multistream_v1/v2/v3 bundles."""
+    id_map = {k: (v[0] if isinstance(v, list) else v) for k, v in model.config["phoneme_id_map"].items()}
+    bert_rows = word_bert(model, text.lower(), nopunc=True) if model.bert is not None else None
+    return g2p_multistream(text, model.dic, id_map, bert_rows,
+                           word_pos=model.model_type != "multistream_v1",
+                           pause_markers=model.model_type == "multistream_v3")
+
+
+def multistream_inputs(model: Model, texts):
+    """Texts -> the numpy inputs of the multistream passes, padded to the
+    text bucket of the longest: x (B, 5, bucket) int64, x_lengths (B,)
+    int32, bert (B, bucket, bert_dim) float32, pde (B, bucket) float32, and
+    the bucket."""
+    encoded = [encode_multistream(model, re.sub("—", "-", t.strip())) for t in texts]
+    longest = max(len(tuples) for tuples, _, _ in encoded)
+    bucket = next((b for b in TEXT_BUCKETS if b >= longest), TEXT_BUCKETS[-1])
+    n = len(encoded)
+    x = np.zeros((n, 5, bucket), np.int64)
+    x_lengths = np.zeros((n,), np.int32)
+    bert = np.zeros((n, bucket, model.model_config.bert_dim), np.float32)
+    pde = np.zeros((n, bucket), np.float32)
+    for i, (tuples, embs, extras) in enumerate(encoded):
+        if len(tuples) > bucket:
+            logging.warning("text too long (%d tokens), truncating to %d", len(tuples), bucket)
+        t = min(len(tuples), bucket)
+        x_lengths[i] = t
+        x[i, :, :t] = np.asarray(tuples, np.int64).T[:, :t]
+        if embs is not None:
+            bert[i, :t] = np.asarray(embs, np.float32)[:t]
+        if extras is not None:
+            pde[i, :t] = np.asarray(extras, np.float32)[:t]
+    return x, x_lengths, bert, pde, bucket
 
 
 class Synth:
@@ -203,15 +305,49 @@ class Synth:
                                             gen_frames=gen)
         return out["wav"][..., 0].cpu().numpy(), out["wav_lengths"].cpu().numpy()
 
+    @torch.inference_mode()
+    def _synth_multistream(self, text, speaker_id, noise_level, speech_rate):
+        """StableTTS + vocoder for one text: the duration-adaptive split
+        (encoders and durations, then the CFM ODE and the vocoder at the
+        smallest frame bucket), or with VOSK_TTS_ADAPTIVE=0 the single pass
+        at the worst-case frame capacity. Returns float audio (samples,)."""
+        model = self.model
+        x, x_lengths, bert, pde, bucket = multistream_inputs(model, [text])
+        n_timesteps = int(model.config.get("inference", {}).get("n_timesteps", 10))
+        dev = model.device
+        x, x_lengths, bert, pde = (torch.as_tensor(a, device=dev) for a in (x, x_lengths, bert, pde))
+        sid = torch.tensor([speaker_id or 0], dtype=torch.int64, device=dev)
+        kw = dict(n_timesteps=n_timesteps, temperature=noise_level, generator=self.generator)
+        if os.environ.get("VOSK_TTS_ADAPTIVE", "1") == "0":
+            out = model.matcha.synthesise(
+                x, x_lengths, sid, bert, max_frames=min(bucket * MS_FRAMES_PER_TOKEN, MS_FRAMES_CAP),
+                length_scale=1.0 / speech_rate, phone_duration_extra=pde, **kw)
+        else:
+            enc = model.matcha.encode_for_synth(x, x_lengths, sid, bert,
+                                                length_scale=1.0 / speech_rate,
+                                                phone_duration_extra=pde)
+            max_frames = pick_ms_frame_bucket(int(enc["pred_frames"].max()), bucket)
+            out = model.matcha.decode_from_durations(enc, sid, max_frames=max_frames, **kw)
+        wav = voc.hifigan_apply(model.vocoder.params, out["mel"], model.vocoder_config)
+        n = int(out["mel_lengths"][0]) * model.config.get("hop_length", 256)
+        return wav[0, :n].cpu().numpy()
+
     def synth_audio(self, text, speaker_id=0, noise_level=None, speech_rate=None,
                     duration_noise_level=None, scale=None):
         noise_level, speech_rate, duration_noise_level, scale = self._defaults(
             noise_level, speech_rate, duration_noise_level, scale)
-        ids = self._encode(text)
-        start = time.perf_counter()
-        wav, lengths = self._run([ids], [speaker_id], noise_level, speech_rate,
-                                 duration_noise_level)
-        audio = audio_float_to_int16(wav[0, : lengths[0]] * scale)
+        # the timed spans are the JAX package's: the multistream one holds
+        # G2P and BERT, the VITS2 one starts after G2P
+        if self.model.model_type in MULTISTREAM_TYPES:
+            start = time.perf_counter()
+            wav = self._synth_multistream(text, speaker_id, noise_level, speech_rate)
+            audio = audio_float_to_int16(wav * scale)
+        else:
+            ids = self._encode(text)
+            start = time.perf_counter()
+            wav, lengths = self._run([ids], [speaker_id], noise_level, speech_rate,
+                                     duration_noise_level)
+            audio = audio_float_to_int16(wav[0, : lengths[0]] * scale)
         elapsed = time.perf_counter() - start
         dur = len(audio) / self.model.sample_rate
         rtf = elapsed / dur if dur > 0 else 0.0
@@ -231,7 +367,10 @@ class Synth:
     def synth_batch(self, texts, speaker_ids=None, noise_level=None, speech_rate=None,
                     duration_noise_level=None, scale=None):
         """Many utterances as one batch on the model's device (one encode
-        pass, one decode pass). Returns a list of int16 arrays."""
+        pass, one decode pass). Returns a list of int16 arrays. Plain
+        vits2 bundles only, as in the JAX package."""
+        if self.model.model_type != "vits2":
+            raise NotImplementedError("synth_batch runs plain vits2 bundles only")
         noise_level, speech_rate, duration_noise_level, scale = self._defaults(
             noise_level, speech_rate, duration_noise_level, scale)
         if speaker_ids is None:

@@ -1,10 +1,12 @@
 """MB-iSTFT-VITS2 inference (vosk_tts_tpu/models/vits2.py), channels-last.
 
-This slice ports the shipped serving configuration: ``pre_conv2``
+The port runs the shipped serving configuration: ``pre_conv2``
 transformer flows, the ``mb_istft`` decoder with the fused tail
-(``istft_mode`` "torch"), and the stochastic duration predictor. Other
-flow types and decoders, the deterministic duration predictor and the
-posterior encoder raise NotImplementedError.
+(``istft_mode`` "torch"), and the stochastic duration predictor. The
+generator also runs as the HiFiGAN v1 vocoder of the multistream bundles
+(``decoder_type="hifigan"`` without speaker conditioning,
+models/vocoder.py). Other flow types and decoders, the deterministic
+duration predictor and the posterior encoder raise NotImplementedError.
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -18,7 +20,6 @@ import math
 from dataclasses import dataclass
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,7 +29,7 @@ from ..ops import wn as wnops
 from ..ops.commons import generate_path, sequence_mask
 from ..ops.conv import conv1d, conv_transpose1d
 from ..ops.stft import mb_decoder_tail_fused
-from ..utils.checkpoint import _NONE_KEY, _flatten, _unflatten
+from .tree import TreeModule
 
 
 @dataclass(frozen=True)
@@ -90,15 +91,29 @@ class VITS2Config:
         return cls(**{k: tup(v) for k, v in d.items()})
 
 
+def check_decoder(cfg: VITS2Config):
+    """Raise NotImplementedError for a generator the port does not run: it
+    runs ``mb_istft`` with the torch iSTFT, and ``hifigan`` without speaker
+    conditioning (the vocoder form)."""
+    if cfg.decoder_type == "hifigan":
+        if cfg.gin_channels:
+            raise NotImplementedError("the speaker-conditioned hifigan decoder is not ported")
+    elif cfg.decoder_type != "mb_istft" or cfg.istft_mode != "torch":
+        raise NotImplementedError(f"decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT) "
+                                  "is not ported")
+
+
 def check_ported(cfg: VITS2Config):
-    """Raise NotImplementedError for a configuration this slice does not run."""
+    """Raise NotImplementedError for a synthesizer configuration the port
+    does not run: SDP, ``pre_conv2`` flows and the ``mb_istft`` decoder."""
     if not cfg.use_sdp:
         raise NotImplementedError("the deterministic duration predictor (dp_apply) is not ported")
     if not cfg.use_transformer_flows or cfg.transformer_flow_type != "pre_conv2":
         raise NotImplementedError(f"flow type {cfg.transformer_flow_type!r} is not ported")
-    if cfg.decoder_type != "mb_istft" or cfg.istft_mode != "torch":
-        raise NotImplementedError(f"decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT) "
+    if cfg.decoder_type != "mb_istft":
+        raise NotImplementedError(f"a synthesizer with the {cfg.decoder_type!r} decoder "
                                   "is not ported")
+    check_decoder(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +216,14 @@ def _generator_trunk(params, cfg: VITS2Config, x):
 
 
 def generator_apply(params, cfg: VITS2Config, x):
-    """x: (B, T, inter) -> waveform (B, T * upsample_factor, 1), through the
-    fused iSTFT + PQMF tail (the JAX ``fused_tail=True`` serving form)."""
-    check_ported(cfg)
+    """x: (B, T, inter) -> waveform (B, T * upsample_factor, 1): for
+    ``mb_istft`` through the fused iSTFT + PQMF tail (the JAX
+    ``fused_tail=True`` serving form); for ``hifigan`` through ``conv_post``
+    (padding 3, no bias, no reflection pad) and tanh."""
+    check_decoder(cfg)
     x = _generator_trunk(params, cfg, x)
+    if cfg.decoder_type == "hifigan":
+        return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3))
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
     x = conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3)
     n_fft = cfg.gen_istft_n_fft
@@ -279,34 +298,15 @@ def predict_frames(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, gene
                             length_scale=length_scale, noise_scale_w=noise_scale_w)["pred_frames"]
 
 
-class Synthesizer(torch.nn.Module):
-    """The weights of one VITS2 bundle as a module: every leaf of the
-    port-layout tree is a buffer, so ``.to(device)`` moves them all, and
-    :attr:`params` gives the nested tree the functions above take."""
+class Synthesizer(TreeModule):
+    """The weights of one VITS2 bundle as a module (models/tree.py): every
+    leaf of the port-layout tree is a buffer, and :attr:`params` gives the
+    nested tree the functions above take."""
 
     def __init__(self, cfg: VITS2Config, tree):
-        super().__init__()
         check_ported(cfg)
+        super().__init__(tree)
         self.cfg = cfg
-        self._nones: list = []
-        flat = _flatten(tree, nones=self._nones)
-        self._paths = list(flat)
-        for i, a in enumerate(flat.values()):
-            self.register_buffer(f"w{i}", torch.tensor(np.asarray(a, np.float32)))
-        self._tree = None
-
-    def _apply(self, fn, *args, **kwargs):
-        self._tree = None
-        return super()._apply(fn, *args, **kwargs)
-
-    @property
-    def params(self):
-        if self._tree is None:
-            flat = {p: getattr(self, f"w{i}") for i, p in enumerate(self._paths)}
-            if self._nones:
-                flat[_NONE_KEY] = self._nones
-            self._tree = _unflatten(flat)
-        return self._tree
 
     def encode_for_infer(self, *args, **kwargs):
         return encode_for_infer(self.params, self.cfg, *args, **kwargs)

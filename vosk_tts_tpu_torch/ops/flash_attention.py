@@ -1,8 +1,8 @@
-"""Banded relative-position attention: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""The attention kernels' wrappers and their plain PyTorch versions.
 
-Port of vosk_tts_tpu/ops/flash_attention.py::banded_flash_attention (the
-Pallas ``_kernel``). Semantics, for q pre-scaled by D^-1/2:
+Banded relative-position attention (csrc/banded_attention.cu), port of
+vosk_tts_tpu/ops/flash_attention.py::banded_flash_attention (the Pallas
+``_kernel``). Semantics, for q pre-scaled by D^-1/2:
 
   s[i,j] = q[i].k[j] + [|j-i| <= w] q[i].rel_k[j-i+w]
   s[i,j] = -1e4                                   for j >= kv_len
@@ -16,6 +16,24 @@ such rows uniformly instead, so compare valid rows against it.
 The kernel (csrc/banded_attention.cu) takes any T >= 1; the 128-multiple
 length gate, the 128-lane D pad and the 128-row band pad of the TPU
 version are TPU layouts and are not carried over.
+
+Global attention (csrc/global_attention.cu), port of the Pallas
+``_global_rope_kernel`` (``global_flash_attention_rope``, the StableTTS DiT
+attention) and ``_global_kernel`` (``global_flash_attention_packed``,
+``global_flash_attention``): one source, ``d_rope = 0`` for the latter two.
+Over channels-last (B, T, C) q, k, v with C = n_heads * D:
+
+  q', k'  = q, k with the first d_rope features of each head rotated
+            (rotate-half RoPE, theta_j = 10000^(-2j/d_rope), positions 0..T-1)
+  s[i,j]  = sm_scale * q'[i].k'[j];   s[i,j] = -30000 for j >= kv_len
+  out[i]  = softmax_j(s) . v          -> (B, T, C)
+
+Keys only are masked, as in the TPU kernels; rows at or past kv_len attend
+to the valid keys and are masked by the caller. The inputs are the port's
+own layout: the unpadded fused projection (B, T, 3C) laid out [q | k | v],
+or separate (B, T, C) tensors, read through strides. The TPU version's
+128-lane head pad, its sign-permuted q_rot/k_rot sections and its
+128-multiple T gate are TPU layouts and are not carried over.
 """
 
 from __future__ import annotations
@@ -24,12 +42,19 @@ import ctypes
 
 import torch
 
-from ..utils.cuda_build import CudaKernel, I, P
+from ..utils.cuda_build import F, CudaKernel, I, L, P
 
 MASK_VALUE = -1e4  # the reference masks with -1e4, not -inf
+GLOBAL_MASK_VALUE = -30000.0  # the global kernels' finite key mask
 
 KERNEL = CudaKernel("banded_attention.cu", "banded_attention_f32",
                     [P, P, P, P, P, P, P, I, I, I, I, I, I, P])
+
+_GLOBAL_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, P]
+#: one source, three wrappers, three launch counts
+GLOBAL_ROPE_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
+GLOBAL_PACKED_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
+GLOBAL_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
 
 
 def banded_attention_plain(q, k, v, rel_k, rel_v, kv_len, *, window: int):
@@ -99,4 +124,140 @@ def banded_flash_attention(q, k, v, rel_k, rel_v, kv_len, *, window: int):
                  ctypes.c_void_p(stream))
     KERNEL.check(err)
     KERNEL.launches += 1
+    return out
+
+
+def rope_tables(t: int, d_rope: int, device):
+    """(T, d_rope/2) cos and sin of pos * theta_j in f32, with theta_j =
+    1 / 10000^(2j/d_rope) (the formula of ``stabletts.rope``)."""
+    theta = 1.0 / (10000.0 ** (torch.arange(0, d_rope, 2, dtype=torch.float32, device=device)
+                               / d_rope))
+    ang = torch.arange(t, dtype=torch.float32, device=device)[:, None] * theta[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+_ROPE_TABLES: dict = {}  # (T, d_rope, device) -> the kernel's tables; T comes from the buckets
+
+
+def _cached_rope_tables(t: int, d_rope: int, device):
+    key = (t, d_rope, device)
+    if key not in _ROPE_TABLES:
+        _ROPE_TABLES[key] = rope_tables(t, d_rope, device)
+    return _ROPE_TABLES[key]
+
+
+def apply_rope(x, cos, sin):
+    """Rotate the first d = 2 * cos.shape[-1] features of x (..., T, D):
+    x*cos + rotate_half(x)*sin, rotate_half(x) = (-x[d/2:d], x[:d/2])."""
+    d2 = cos.shape[-1]
+    d = 2 * d2
+    cos2, sin2 = torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+    xr = x[..., :d]
+    neg_half = torch.cat([-xr[..., d2:], xr[..., :d2]], dim=-1)
+    return torch.cat([xr * cos2 + neg_half * sin2, x[..., d:]], dim=-1)
+
+
+def global_attention_plain(q, k, v, kv_len, *, n_heads: int, sm_scale: float, d_rope: int = 0):
+    """The plain version of all three global forms: q, k, v (B, T, C), any
+    strides; materializes the (B, H, T, T) scores."""
+    b, t, c = q.shape
+    d = c // n_heads
+    heads = lambda a: a.reshape(b, t, n_heads, d).transpose(1, 2)
+    q, k, v = heads(q), heads(k), heads(v)
+    if d_rope:
+        cos, sin = rope_tables(t, d_rope, q.device)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    scores = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+    keys = torch.arange(t, device=q.device)
+    scores = scores.masked_fill(keys[None, None, None, :] >= kv_len[:, None, None, None],
+                                GLOBAL_MASK_VALUE)
+    p = torch.softmax(scores, dim=-1)
+    return torch.matmul(p, v).transpose(1, 2).reshape(b, t, c)
+
+
+def _launch_global(kernel, q, k, v, kv_len, *, n_heads, sm_scale, d_rope, stride_b, stride_t):
+    """Check the arguments of the global kernel and launch it; q, k, v are
+    views that share (stride_b, stride_t) and have unit feature stride."""
+    b, t, c = q.shape
+    if n_heads <= 0 or c % n_heads:
+        raise ValueError(f"global attention kernel: {c} channels do not split into {n_heads} heads")
+    d = c // n_heads
+    if d > 128:
+        raise ValueError(f"global attention kernel: head dim {d} > 128")
+    if d_rope < 0 or d_rope % 2 or d_rope > d:
+        raise ValueError(f"global attention kernel: d_rope {d_rope} must be even and <= {d}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if not a.is_cuda or a.device != q.device or a.dtype != torch.float32:
+            raise ValueError(f"global attention kernel: {name} must be float32 on {q.device}")
+        if tuple(a.shape) != (b, t, c) or a.stride() != (stride_b, stride_t, 1):
+            raise ValueError(f"global attention kernel: {name} must be a ({b}, {t}, {c}) tensor "
+                             f"with strides ({stride_b}, {stride_t}, 1)")
+    if kv_len.device != q.device or kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) \
+            or not kv_len.is_contiguous():
+        raise ValueError("global attention kernel: kv_len must be a contiguous (B,) int32 "
+                         f"tensor on {q.device}")
+    cos = sin = None
+    if d_rope:
+        cos, sin = _cached_rope_tables(t, d_rope, q.device)
+    out = torch.empty(b, t, c, dtype=torch.float32, device=q.device)
+    fn = kernel.fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 cos.data_ptr() if d_rope else None, sin.data_ptr() if d_rope else None,
+                 kv_len.data_ptr(), out.data_ptr(), b, n_heads, t, d, d_rope, stride_b, stride_t,
+                 sm_scale, ctypes.c_void_p(stream))
+    kernel.check(err)
+    return out
+
+
+def _split_packed(qkv):
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"packed attention: qkv must be (B, T, 3C), got {tuple(qkv.shape)}")
+    c = qkv.shape[-1] // 3
+    return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+
+
+def global_flash_attention_rope(qkv, kv_len, *, n_heads: int, sm_scale: float, d_rope: int):
+    """The DiT attention: ``qkv`` (B, T, 3C) is the fused projection's
+    output [q | k | v] (any batch and row strides, unit feature stride); RoPE on the first ``d_rope`` features of each q and
+    k head; kv_len (B,) the valid key prefix. Returns (B, T, C).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not qkv.is_cuda:
+        return global_attention_plain(*_split_packed(qkv), kv_len, n_heads=n_heads,
+                                      sm_scale=sm_scale, d_rope=d_rope)
+    out = _launch_global(GLOBAL_ROPE_KERNEL, *_split_packed(qkv), kv_len, n_heads=n_heads,
+                         sm_scale=sm_scale, d_rope=d_rope, stride_b=qkv.stride(0),
+                         stride_t=qkv.stride(1))
+    GLOBAL_ROPE_KERNEL.launches += 1
+    return out
+
+
+def global_flash_attention_packed(qkv, kv_len, *, n_heads: int, sm_scale: float):
+    """Masked global attention over a packed (B, T, 3C) [q | k | v], no
+    RoPE. Returns (B, T, C).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not qkv.is_cuda:
+        return global_attention_plain(*_split_packed(qkv), kv_len, n_heads=n_heads,
+                                      sm_scale=sm_scale)
+    out = _launch_global(GLOBAL_PACKED_KERNEL, *_split_packed(qkv), kv_len, n_heads=n_heads,
+                         sm_scale=sm_scale, d_rope=0, stride_b=qkv.stride(0),
+                         stride_t=qkv.stride(1))
+    GLOBAL_PACKED_KERNEL.launches += 1
+    return out
+
+
+def global_flash_attention(q, k, v, kv_len, *, n_heads: int, sm_scale: float):
+    """Masked global attention over separate contiguous (B, T, C) q, k, v
+    (not pre-scaled), no RoPE. Returns (B, T, C).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not q.is_cuda:
+        return global_attention_plain(q, k, v, kv_len, n_heads=n_heads, sm_scale=sm_scale)
+    b, t, c = q.shape
+    out = _launch_global(GLOBAL_KERNEL, q, k, v, kv_len, n_heads=n_heads, sm_scale=sm_scale,
+                         d_rope=0, stride_b=t * c, stride_t=c)
+    GLOBAL_KERNEL.launches += 1
     return out

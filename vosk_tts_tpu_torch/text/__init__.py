@@ -1,8 +1,10 @@
-"""Text frontend of the port: Russian G2P, the plain symbol map, g2p_plain.
+"""Text frontend of the port: Russian G2P, the plain and multistream symbol
+maps, g2p_plain, g2p_multistream and a BERT WordPiece tokenizer.
 
 Host-side pure Python, a copy of the JAX package's frontend so that the
 port imports nothing from it."""
 
-from .frontend import g2p_plain, load_dictionary
+from .frontend import add_word_positions, g2p_multistream, g2p_plain, load_dictionary
 from .g2p import convert
-from .symbols import BASE_SYMBOLS, PHONES, plain_symbol_map
+from .symbols import BASE_SYMBOLS, PHONES, multistream_symbol_map, plain_symbol_map
+from .wordpiece import WordPieceTokenizer

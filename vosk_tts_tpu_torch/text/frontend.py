@@ -1,9 +1,15 @@
-"""Text -> phoneme-id stream for plain VITS2 bundles.
+"""Text -> phoneme-id streams (plain VITS2 ids, multistream 5-tuples).
 
-The port's own copy of ``load_dictionary`` and ``g2p_plain`` from
+The port's own copy of ``load_dictionary``, ``g2p_plain``,
+``add_word_positions`` and ``g2p_multistream`` from
 ``vosk_tts_tpu/text/frontend.py``, unchanged in behaviour (the tests hold
-the two against each other). The multistream encoders join with the
-StableTTS slice.
+the two against each other).
+
+The multistream encoding produces one 5-tuple per phone:
+  (phone_id, current_punctuation, inside_quotes, most_recent_punctuation,
+   most_recent_sentence_punctuation)
+with word-position suffixes (_B/_I/_E/_S) on phones, plus per-phone BERT
+vectors and optional extra pause durations (``_`` -> 20 frames).
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ import re
 from .g2p import convert
 
 _WORD_SPLIT = re.compile(r'([,.?!;:"() ])')
+_MS_SPLIT = re.compile(r'(\.\.\.|- |[ ,.?!;:"()])')
+_MS_SPLIT_PAUSES = re.compile(r'(\.\.\.|- |[ ,.?!;:"()_])')
 
 
 def load_dictionary(path) -> dict:
@@ -36,6 +44,13 @@ def word_phones(word: str, dic: dict) -> list:
     if word in dic:
         return dic[word].split()
     return convert(word).split()
+
+
+def add_word_positions(phones: list) -> list:
+    """Kaldi-style suffixes: single -> _S, first -> _B, last -> _E, else _I."""
+    if len(phones) == 1:
+        return [phones[0] + "_S"]
+    return [p + ("_B" if i == 0 else "_E" if i == len(phones) - 1 else "_I") for i, p in enumerate(phones)]
 
 
 def _phoneme_walk(text: str, dic: dict):
@@ -73,3 +88,80 @@ def g2p_plain(text: str, dic: dict, id_map: dict, embeddings=None, *, blank: boo
         if embs is not None:
             out_embs += [embs[i], embs[i]]
     return out_ids, out_embs
+
+
+def g2p_multistream(
+    text: str,
+    dic: dict,
+    id_map: dict,
+    bert_embeddings=None,
+    *,
+    word_pos: bool = True,
+    pause_markers: bool = False,
+    aligned: bool = False,
+):
+    """Returns (stream_tuples, per-phone bert rows or None, extra durations
+    or None). ``pause_markers`` enables the '_' pause symbol handling of
+    multistream_v3. ``aligned`` switches the word expansion to pre-aligned
+    underscore-joined phones (same walk, words already phonemized).
+    """
+    splitter = _MS_SPLIT_PAUSES if pause_markers else _MS_SPLIT
+    text = text.replace("\n", " ")
+    text = text.replace(" -", "- ")  # unify dash with other punctuation
+
+    phonemes = [("^", [], 0, 0)]  # (symbol, punctuation list, in_quote, bert word)
+    in_quote = 0
+    cur_punc: list = []
+    bert_word = 1
+
+    for word in splitter.split(text.lower()):
+        if word == "":
+            continue
+        if word == '"':
+            in_quote = 0 if in_quote else 1
+            continue
+        if word in ("- ", "-"):
+            cur_punc.append("-")
+            continue
+        if splitter.match(word) and word != " ":
+            cur_punc.append(word)
+            continue
+        if word == " ":
+            phonemes.append((" ", cur_punc, in_quote, bert_word))
+            cur_punc = []
+            continue
+        phones = word.split("_") if aligned else word_phones(word, dic)
+        if word_pos:
+            phones = add_word_positions(phones)
+        for p in phones:
+            phonemes.append((p, [], in_quote, bert_word))
+        cur_punc = []
+        bert_word += 1
+
+    phonemes.append((" ", cur_punc, in_quote, bert_word))
+    phonemes.append(("$", [], 0, bert_word))
+
+    # right-to-left pass filling the "last punctuation" context streams
+    last_punc = " "
+    last_sentence_punc = " "
+    tuples, embs, extras = [], [], []
+    for sym, punc, quote, widx in reversed(phonemes):
+        for marker in ("...", ".", "!", "?", "-"):
+            if marker in punc:
+                last_sentence_punc = marker
+                break
+        extras.append(20.0 if (pause_markers and "_" in punc) else 0.0)
+        if punc:
+            last_punc = punc[0]
+        cur = punc[0] if punc else "_"
+        tuples.append((id_map[sym], id_map[cur], quote, id_map[last_punc], id_map[last_sentence_punc]))
+        if bert_embeddings is not None:
+            embs.append(bert_embeddings[widx])
+    tuples.reverse()
+    embs.reverse()
+    extras.reverse()
+    return (
+        tuples,
+        embs if bert_embeddings is not None else None,
+        extras if pause_markers else None,
+    )

@@ -24,6 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
+F = ctypes.c_float
 
 
 def find_nvcc() -> str:
@@ -36,7 +38,8 @@ def find_nvcc() -> str:
 
 class CudaKernel:
     """One CUDA source, its built library, its C entry point and the count
-    of launches its wrapper made."""
+    of launches its wrapper made. Several wrappers may share one source,
+    each with a ``CudaKernel`` of its own (and so a count of its own)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = CSRC / source
@@ -73,11 +76,12 @@ def build(kernels) -> None:
     -v``: registers, shared memory, spills) are kept beside each library
     as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    jobs, started = [], set()
     for k in kernels:
         lib = k.library
-        if lib.exists():
+        if lib.exists() or lib in started:
             continue
+        started.add(lib)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

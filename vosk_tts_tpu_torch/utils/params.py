@@ -14,12 +14,24 @@ as numpy arrays, into the port's layouts once, at load:
   DDSConv stack    per layer    stacked, see :func:`_pack_ddsconv`
   ===============  ===========  =====================================
 
+A leaf's layout follows from its name and rank: ``"w"`` of rank 2 is a
+Linear (``ada_in``, ``ada_out``, ``bert_proj``, ``time_mlp``, every BERT
+linear); ``"w"`` of shape (1, I, O) a 1x1 conv (DiT ``q``/``k``/``v``/``o``,
+``film``, ``in_proj``, ``final_proj``, encoder ``proj``); other ``"w"`` a
+Conv1d (``cond_proj``, ``lsc``, the FFN convs), or a ConvTranspose1d under
+``ups``. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
+``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``, ``fake_content``;
+norm ``gamma``/``beta``; biases) keeps its layout. The StableTTS DiT
+attention's fused qkv projection is a layout of that model alone:
+``models.stabletts.port_layout`` makes it from this one.
+
 The posterior encoder (``enc_q``) is training-only and is dropped.
 
-:func:`synthesizer_init` draws a tree in the BUNDLE layout (the JAX one)
-from the same distributions and shapes as ``vits2.synthesizer_init``, so a
-full-width bundle can be made where JAX is absent; its numbers differ from
-JAX's draws.
+:func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init` and
+:func:`bert_init` draw trees in the BUNDLE layout (the JAX one) from the
+same distributions and shapes as the JAX package's inits, so a full-width
+bundle can be made where JAX is absent; their numbers differ from JAX's
+draws.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import math
 import numpy as np
 import torch
 
-from ..models.vits2 import check_ported
+from ..models.vits2 import check_decoder, check_ported
 
 #: top-level subtrees the serving path does not read
 _DROPPED = ("enc_q",)
@@ -194,6 +206,128 @@ def _affine():
     return {"m": np.zeros((2,), np.float32), "logs": np.zeros((2,), np.float32)}
 
 
+def perturb_matcha_zero_init(tree, seed: int):
+    """Give the zero-initialised leaves of a BUNDLE-layout ``matcha`` tree
+    random values, in place: every DiT block's adaLN-Zero ``ada_out``
+    (std 0.05) and the CFG ``fake_speaker``/``fake_content`` (std 1). As
+    initialised every gate is 0, so each DiT block is the identity and no
+    attention reaches the output, and CFG's unconditional half is
+    degenerate: a comparison of two implementations would not see them."""
+    rng = np.random.default_rng(seed)
+    blocks = (tree["text_encoder"]["encoder"]["blocks"] + tree["text_encoder"]["dp_encoder"]["blocks"]
+              + [b["dit"] for b in tree["decoder"]["blocks"]])
+    for blk in blocks:
+        for k in ("w", "b"):
+            blk["ada_out"][k] = (rng.standard_normal(np.shape(blk["ada_out"][k])) * 0.05
+                                 ).astype(np.float32)
+    for k in ("fake_speaker", "fake_content"):
+        tree[k] = rng.standard_normal(np.shape(tree[k])).astype(np.float32)
+    return tree
+
+
+def _generator(rng, cfg, post_channels: int):
+    """The generator trunk + bias-free ``conv_post`` (vits2 generator_init)."""
+    uic = cfg.upsample_initial_channel
+    dec = {"conv_pre": _conv(rng, 7, cfg.inter_channels, uic), "ups": [], "resblocks": []}
+    ch = uic
+    for i, kk in enumerate(cfg.upsample_kernel_sizes):
+        cin, ch = uic // 2**i, uic // 2 ** (i + 1)
+        dec["ups"].append({"w": (rng.standard_normal((kk, cin, ch)) * 0.01).astype(np.float32),
+                           "b": np.zeros((ch,), np.float32)})
+    for i in range(len(cfg.upsample_rates)):
+        c = uic // 2 ** (i + 1)
+        for kk, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            if cfg.resblock == "1":
+                dec["resblocks"].append({
+                    "convs1": [_conv(rng, kk, c, c) for _ in d],
+                    "convs2": [_conv(rng, kk, c, c) for _ in d]})
+            else:
+                dec["resblocks"].append({"convs": [_conv(rng, kk, c, c) for _ in d]})
+    post = _conv(rng, 7, ch, post_channels)
+    post["b"] = None
+    dec["conv_post"] = post
+    return dec
+
+
+def hifigan_init(cfg, seed: int):
+    """Bundle-layout HiFiGAN v1 vocoder tree (``vocoder.hifigan_init``)."""
+    check_decoder(cfg)
+    return _generator(np.random.default_rng(seed), cfg, 1)
+
+
+def _linear(rng, c_in, c_out):
+    s = c_in**-0.5
+    return {"w": _u(rng, (c_in, c_out), s), "b": _u(rng, (c_out,), s)}
+
+
+def _dit_block(rng, hidden, filt, kernel, gin):
+    p = {"attn": {k: _xavier(rng, hidden, hidden) for k in ("q", "k", "v", "o")},
+         "mlp": {"c1": _conv(rng, kernel, hidden, filt), "c2": _conv(rng, kernel, filt, hidden)},
+         "ada_out": {"w": np.zeros((hidden, 6 * hidden), np.float32),
+                     "b": np.zeros((6 * hidden,), np.float32)}}
+    if gin != hidden:
+        p["ada_in"] = _linear(rng, gin, hidden)
+    return p
+
+
+def _dit_encoder(rng, out_ch, hidden, filt, layers, kernel, gin):
+    return {"blocks": [_dit_block(rng, hidden, filt, kernel, gin) for _ in range(layers)],
+            "proj": _conv(rng, 1, hidden, out_ch)}
+
+
+def matcha_init(cfg, seed: int):
+    """Bundle-layout StableTTS tree (``stabletts.matcha_init``), with the
+    adaLN-Zero projections and the CFG fakes at zero as initialised."""
+    rng = np.random.default_rng(seed)
+    normal = lambda shape, s=1.0: (rng.standard_normal(shape) * s).astype(np.float32)
+    te = {
+        "emb": normal((cfg.n_vocab, cfg.phone_emb_dim), cfg.phone_emb_dim**-0.5),
+        "punc_emb": normal((cfg.n_vocab, cfg.punc_emb_dim), cfg.punc_emb_dim**-0.5),
+        "bert_proj": _linear(rng, cfg.bert_dim, cfg.bert_proj_dim),
+        "encoder": _dit_encoder(rng, cfg.n_feats, cfg.hidden_channels, cfg.filter_channels,
+                                cfg.n_layers, cfg.kernel_size, cfg.spk_emb_dim),
+        "dp_encoder": _dit_encoder(rng, cfg.dp_out_channels, cfg.hidden_channels,
+                                   cfg.filter_channels, cfg.n_layers, cfg.kernel_size,
+                                   cfg.spk_emb_dim),
+    }
+    h, f, k = cfg.dec_hidden, cfg.dec_filter, cfg.dec_kernel
+    dec = {
+        "time_mlp": {"l1": _linear(rng, h, f), "l2": _linear(rng, f, h)},
+        "in_proj": _conv(rng, 1, h + cfg.n_feats, h),
+        "cond_proj": [_conv(rng, k, cfg.hidden_channels, f), _conv(rng, k, f, f),
+                      _conv(rng, k, f, h)],
+        "blocks": [{"film": {"film": _conv(rng, 1, h, 2 * h)},
+                    "dit": _dit_block(rng, h, f, k, cfg.spk_emb_dim)}
+                   for _ in range(cfg.dec_layers)],
+        "lsc": [_conv(rng, k, 2 * h, h) for _ in range(cfg.dec_layers // 2)],
+        "final_proj": _conv(rng, 1, h, cfg.n_feats),
+    }
+    return {"spk_emb": normal((cfg.n_spks, cfg.spk_emb_dim)),
+            "dur_spk_emb": normal((cfg.n_spks, cfg.spk_emb_dim)),
+            "text_encoder": te, "decoder": dec,
+            "fake_speaker": np.zeros((1, cfg.spk_emb_dim), np.float32),
+            "fake_content": np.zeros((1, cfg.hidden_channels, 1), np.float32)}
+
+
+def bert_init(cfg, seed: int):
+    """Bundle-layout BERT tree (``bert.bert_init``): N(0, 0.02) weights and
+    embeddings, zero biases, unit layer norms."""
+    rng = np.random.default_rng(seed)
+    h = cfg.hidden_size
+    normal = lambda shape: (rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02))
+    lin = lambda i, o: {"w": normal((i, o)), "b": np.zeros((o,), np.float32)}
+    return {
+        "word_emb": normal((cfg.vocab_size, h)),
+        "pos_emb": normal((cfg.max_position_embeddings, h)),
+        "type_emb": normal((cfg.type_vocab_size, h)),
+        "emb_ln": _norm(h),
+        "layers": [{"q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "attn_out": lin(h, h),
+                    "attn_ln": _norm(h), "ffn_in": lin(h, cfg.intermediate_size),
+                    "ffn_out": lin(cfg.intermediate_size, h), "ffn_ln": _norm(h)}
+                   for _ in range(cfg.num_hidden_layers)],
+    }
+
+
 def synthesizer_init(cfg, seed: int):
     """Bundle-layout VITS2 tree for the shipped serving configuration
     (``pre_conv2`` flows, ``mb_istft`` decoder, SDP)."""
@@ -210,25 +344,7 @@ def synthesizer_init(cfg, seed: int):
         "proj": _conv(rng, 1, h, inter * 2),
     }
 
-    uic = cfg.upsample_initial_channel
-    dec = {"conv_pre": _conv(rng, 7, inter, uic), "ups": [], "resblocks": []}
-    ch = uic
-    for i, (u, kk) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
-        cin, ch = uic // 2**i, uic // 2 ** (i + 1)
-        dec["ups"].append({"w": (rng.standard_normal((kk, cin, ch)) * 0.01).astype(np.float32),
-                           "b": np.zeros((ch,), np.float32)})
-    for i in range(len(cfg.upsample_rates)):
-        c = uic // 2 ** (i + 1)
-        for kk, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-            if cfg.resblock == "1":
-                dec["resblocks"].append({
-                    "convs1": [_conv(rng, kk, c, c) for _ in d],
-                    "convs2": [_conv(rng, kk, c, c) for _ in d]})
-            else:
-                dec["resblocks"].append({"convs": [_conv(rng, kk, c, c) for _ in d]})
-    post = _conv(rng, 7, ch, cfg.subbands * (cfg.gen_istft_n_fft + 2))
-    post["b"] = None
-    dec["conv_post"] = post
+    dec = _generator(rng, cfg, cfg.subbands * (cfg.gen_istft_n_fft + 2))
 
     enc_q = {"pre": _conv(rng, 1, cfg.spec_channels, h),
              "enc": _wn(rng, h, 5, cfg.posterior_wn_layers, gin),
