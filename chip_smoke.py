@@ -14,10 +14,13 @@ result line is printed):
 3. kernels vs plain: each kernel's wrapper on card tensors at the shapes
    the serving paths give it, held against its plain PyTorch version on the
    same inputs, then timed with CUDA events beside that plain version, its
-   bound (the larger of bytes over 3.35 TB/s and f32 operations over
-   67 TFLOP/s, the H100 SXM's published peaks at 700 W) and, for the global
-   attention, one library call (scaled_dot_product_attention) on the same
-   inputs;
+   bound (the larger of bytes over 3.35 TB/s and operations over
+   495/3 TFLOP/s, the H100 SXM's published HBM and TF32 tensor-core peaks
+   at 700 W, the TF32 rate divided by the three products of the 3xTF32
+   split that keeps f32 accuracy) and, for the global attention, one
+   library call (scaled_dot_product_attention) on the same inputs; the
+   count of tensor-core instructions (HMMA, HGMMA) in each library's SASS
+   is printed, and must not be 0 for the attention kernels;
 4. VITS2 main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(),
    random weights from a seed, zero-initialised projections perturbed)
    answers 3 requests through Model/Synth.synth_audio and one synth_batch of
@@ -46,6 +49,8 @@ The lines before the last: the kernels' JSON record, then the
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -70,8 +75,11 @@ from vosk_tts_tpu_torch.utils.params import (bert_init, hifigan_init, matcha_ini
                                              perturb_matcha_zero_init, perturb_zero_init,
                                              synthesizer_init)
 
-PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+# H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
+# f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
+PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_BYTES = 3.35e12
+BOUND_FORMULA = "max(operations / (495e12/3 FLOP/s, 3xTF32), bytes / 3.35e12 B/s)"
 SEED = 0
 
 TEXTS = [
@@ -118,7 +126,9 @@ def cuda_ms(fn, iters, warmup=2):
 
 
 def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    """The least time in ms for ``flops`` f32-accurate operations and
+    ``nbytes`` moved, and which of the two bounds it (BOUND_FORMULA)."""
+    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -219,6 +229,17 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
         out["library_ms"] = cuda_ms(lib, iters)
         del lib_out
     return out
+
+
+def tensor_core_instructions(library):
+    """Counts of HMMA and HGMMA instructions in a built library's SASS
+    (cuobjdump), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    return {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
 
 
 def write_bundle(path, cfg, tree):
@@ -331,6 +352,12 @@ def profile_requests(runs):
             continue
         print(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
               f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kern)} kernel launches")
+        for kname in ("banded_attention_kernel", "global_attention_kernel"):
+            att = [e for e in kern if kname in e.key]
+            if att:
+                us = sum(e.self_device_time_total for e in att)
+                print(f"[profile]   {kname}: {us / 1e3:.3f} ms x{sum(e.count for e in att)}, "
+                      f"{100 * us / busy_us:.1f}% of device busy")
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
@@ -483,6 +510,15 @@ def main() -> int:
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] \
             if log.exists() else []
         print(f"[build] {name}: {k.library.name} {'; '.join(usage)}")
+    for source in sorted({k.library for k in kernels.values()}):
+        counts = tensor_core_instructions(source)
+        if counts is None:
+            print(f"[build] {source.name}: no cuobjdump; tensor-core instructions not counted")
+            continue
+        print(f"[build] {source.name}: SASS tensor-core instructions {counts}")
+        if "attention" in source.name:
+            check(counts["HMMA"] + counts["HGMMA"] > 0,
+                  f"{source.name} has no tensor-core instruction")
 
     # 3. kernels vs plain on the card
     att_tol, dds_tol = 1e-4, 1e-4
@@ -497,17 +533,21 @@ def main() -> int:
            ddsconv_case(1, 64, [53], 50, 20, 8),
            ddsconv_case(1, 37, [30], 0, 0, 5)]
     # the global kernel: the CFM decoder's batched shape (16 requests, CFG-doubled),
-    # the text encoders' batched shape, single-request shapes, a ragged T=37,
-    # and the two d_rope = 0 forms (no path calls them)
+    # the text encoders' batched shape, single-request shapes (the decoder's
+    # for one request of ~1436 frames: CFG-doubled, the 2048 frame bucket), a
+    # ragged T=37, and the two d_rope = 0 forms (no path calls them)
     dec_lens = [2048 - 61 * i for i in range(16)] * 2
     glo = {"global_attention_rope": [
                global_case("rope", 32, 2048, 96, dec_lens, 10, 3, 11),
                global_case("rope", 16, 256, 64, [256 - 11 * i for i in range(16)], 50, 20, 12),
                global_case("rope", 2, 512, 96, [437, 437], 50, 20, 13),
+               global_case("rope", 2, 2048, 96, [1436, 1436], 20, 5, 18),
                global_case("rope", 1, 64, 64, [53], 50, 20, 14),
                global_case("rope", 2, 37, 96, [37, 20], 0, 0, 15)],
            "global_attention_packed": [global_case("packed", 16, 1024, 96,
-                                                   [1024 - 41 * i for i in range(16)], 20, 5, 16)],
+                                                   [1024 - 41 * i for i in range(16)], 20, 5, 16),
+                                       # the decoder's shape without RoPE: what the rotation costs
+                                       global_case("packed", 32, 2048, 96, dec_lens, 10, 3, 19)],
            "global_attention": [global_case("separate", 16, 1024, 96,
                                             [1024 - 41 * i for i in range(16)], 20, 5, 17)]}
     glo_tol = 1e-4
@@ -582,6 +622,7 @@ def main() -> int:
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
+               "bound_formula": BOUND_FORMULA,
                **({"note": notes[name]} if name in notes else {})}
               for name, k in kernels.items()]
     print(json.dumps({"kernels": record}))

@@ -4,10 +4,13 @@ Marked ``cuda``: each test skips where there is no NVIDIA GPU. This file
 imports no JAX, so on a machine with the card and without JAX it runs as
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest``.
 Shapes beyond the serving path's: ragged T down to 1, head dims 32-128
-(every NC template), per-head relative tables, narrower DDSConv channels;
-the global attention kernel in its RoPE, packed (also as a strided view)
-and separate forms with d_rope 0 to 64. f32; tolerance 1e-4 absolute
-(other summation orders, values of order 1).
+(every NC template) and 37, 40, 72 (not multiples of 32), per-head
+relative tables, windows 0 to 64, narrower DDSConv channels; the global
+attention kernel in its RoPE, packed (also as a strided view) and separate
+forms with d_rope 0 to 64; T and kv_len at the edges of the key tiles, the
+copy ring and the query tiles, kv_len 0, and inputs off the 16-byte grid
+(the kernels' 4-byte copy path). f32; tolerance 1e-4 absolute (other
+summation orders, values of order 1).
 """
 
 import pytest
@@ -31,14 +34,35 @@ def _refuse(*a, **k):
     raise AssertionError("plain version reached with CUDA tensors")
 
 
+def _randn(shape, g, dev, misaligned=False):
+    """A contiguous f32 tensor; ``misaligned`` puts its first element 4 bytes
+    past a 16-byte boundary (the kernels then stage it with 4-byte copies)."""
+    n = 1
+    for s in shape:
+        n *= s
+    flat = torch.randn(n + 1, generator=g, device=dev)
+    return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,d,n_rel,lengths", [
-    (1, 1, 96, 1, [1]), (2, 5, 32, 2, [5, 2]), (2, 37, 64, 1, [37, 30]),
-    (1, 130, 128, 2, [99]), (3, 256, 96, 1, [256, 200, 9])])
-def test_banded_attention_kernel(dev, monkeypatch, b, t, d, n_rel, lengths):
+@pytest.mark.parametrize("b,t,d,n_rel,w,lengths,misaligned", [
+    (1, 1, 96, 1, 4, [1], False), (2, 5, 32, 2, 4, [5, 2], False),
+    (2, 37, 64, 1, 4, [37, 30], False), (1, 130, 128, 2, 4, [99], False),
+    (3, 256, 96, 1, 4, [256, 200, 9], False),
+    # T and kv_len at the edges of the 32-key tiles, the 2-stage ring and the 64-row query tiles
+    (2, 1, 96, 1, 4, [1, 1], False), (2, 63, 96, 1, 4, [63, 1], False),
+    (2, 64, 96, 1, 4, [64, 63], False), (2, 65, 96, 2, 4, [65, 64], False),
+    (2, 127, 96, 1, 4, [127, 65], False), (2, 129, 96, 1, 4, [129, 127], False),
+    (2, 100, 96, 1, 4, [0, 33], False),  # kv_len 0: every key at -1e4, all T keys walked
+    # the band straddling a query-tile boundary (T = 130), window 0, 8 and the largest, 64
+    (1, 130, 96, 1, 0, [130], False), (2, 130, 96, 2, 8, [130, 97], False),
+    (1, 200, 64, 1, 64, [150], False),
+    (2, 130, 40, 1, 4, [130, 64], False), (2, 77, 72, 2, 4, [77, 32], False),  # D 8k, not 32k
+    (2, 130, 96, 1, 4, [130, 65], True), (1, 70, 72, 1, 8, [70], True)])  # 4-byte copies
+def test_banded_attention_kernel(dev, monkeypatch, b, t, d, n_rel, w, lengths, misaligned):
     g = torch.Generator(device=dev).manual_seed(t)
-    h, w = 2, 4
-    q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev) for _ in range(3))
+    h = 2
+    q, k, v = (_randn((b, h, t, d), g, dev, misaligned) for _ in range(3))
     q = q * d**-0.5
     rel_k, rel_v = (torch.randn(n_rel, 2 * w + 1, d, generator=g, device=dev) for _ in range(2))
     kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -81,7 +105,16 @@ def test_ddsconv_kernel(dev, monkeypatch, b, t, c, lengths):
     ("rope", 2, 37, 4, 96, 48, [37, 30]), ("rope", 3, 200, 4, 64, 32, [200, 129, 7]),
     ("rope", 1, 130, 2, 128, 64, [99]), ("packed", 2, 100, 4, 96, 0, [100, 61]),
     ("packed", 1, 64, 2, 128, 0, [64]), ("separate", 2, 77, 4, 64, 0, [77, 1]),
-    ("separate", 1, 3, 3, 32, 0, [2]), ("strided", 2, 50, 4, 96, 48, [50, 31])])
+    ("separate", 1, 3, 3, 32, 0, [2]), ("strided", 2, 50, 4, 96, 48, [50, 31]),
+    # T and kv_len at the edges of the 32-key tiles, the 2-stage ring and the 64-row query tiles
+    ("rope", 2, 1, 4, 96, 48, [1, 1]), ("rope", 2, 63, 4, 96, 48, [63, 1]),
+    ("rope", 2, 64, 4, 96, 48, [64, 63]), ("rope", 2, 65, 4, 96, 48, [65, 64]),
+    ("rope", 2, 127, 4, 96, 48, [127, 65]), ("rope", 2, 129, 4, 96, 48, [129, 127]),
+    ("rope", 2, 100, 4, 96, 48, [0, 33]), ("packed", 2, 70, 4, 64, 0, [0, 0]),  # kv_len 0
+    ("rope", 2, 130, 4, 40, 20, [130, 64]), ("rope", 1, 90, 2, 72, 36, [90]),  # D 8k, not 32k
+    ("separate", 2, 77, 3, 72, 0, [77, 32]),
+    ("separate", 1, 50, 2, 37, 0, [50]),  # odd D: 4-byte copies
+    ("misaligned", 2, 130, 4, 96, 48, [130, 65]), ("misaligned", 2, 70, 4, 72, 36, [70, 9])])
 def test_global_attention_kernel(dev, monkeypatch, form, b, t, h, d, d_rope, lengths):
     g = torch.Generator(device=dev).manual_seed(t + d)
     c = h * d
@@ -96,9 +129,11 @@ def test_global_attention_kernel(dev, monkeypatch, form, b, t, h, d, d_rope, len
         qkv = torch.randn(b, t, 3 * c, generator=g, device=dev)
         if form == "strided":  # the packed projection as a view into wider rows
             qkv = torch.randn(b, t, 3 * c + 40, generator=g, device=dev)[..., 8:8 + 3 * c]
+        if form == "misaligned":  # ... at an offset off the 16-byte grid: 4-byte copies
+            qkv = torch.randn(b, t, 3 * c + 40, generator=g, device=dev)[..., 1:1 + 3 * c]
         want = fa.global_attention_plain(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], kv_len,
                                          n_heads=h, sm_scale=sm, d_rope=d_rope)
-        if form in ("rope", "strided"):
+        if form in ("rope", "strided", "misaligned"):
             run, kernel = lambda: fa.global_flash_attention_rope(
                 qkv, kv_len, n_heads=h, sm_scale=sm, d_rope=d_rope), fa.GLOBAL_ROPE_KERNEL
         else:

@@ -7,229 +7,233 @@
 //   p = softmax_j(s)
 //   out[i] = sum_j p[i,j] v[j] + sum_{|j-i|<=w} p[i,j] rel_v[j-i+w]
 // Every row i < T attends to the valid keys; rows past kv_len are masked
-// by the caller.
+// by the caller. kv_len <= 0 masks every key, so every row attends to all T.
 //
-// What bounds it on Hopper: 4*B*H*T^2*D floating-point operations in f32.
-// Scores stay in f32 on the CUDA cores (no TF32) so the result matches the
-// f32 reference; at f32 the card's peak is 67 TFLOP/s (no tensor cores), and
-// the bytes (q, k, v, out) are small next to that, so it is compute-bound.
+// What bounds it on Hopper: 4*B*H*T*kv_len*D operations for the two
+// products, done on the tensor cores in 3xTF32 (attention_mma.cuh): three
+// TF32 products per fragment pair keep f32 accuracy, so the ceiling is
+// 495/3 = 165 TFLOP/s, against 67 TFLOP/s for f32 FMA on the CUDA cores.
+// The band terms (2w+1 per row) and the bytes (q, k, v, out) are small next
+// to that: it is bound by operations.
 //
-// Design (simple first; wgmma/TMA/bf16 are later work):
-//  * grid (B*H, ceil(T/64)); a block of 8 warps stages 64 query rows in
-//    shared memory and walks the keys in tiles of 64 (an online softmax, the
-//    loop taking the place of the TPU's sequential grid axis);
-//  * each warp owns 8 query rows; a lane scores keys lane and lane+32 and
-//    owns output columns lane, lane+32, ... (D is a runtime value <= 128,
-//    NC = ceil(D/32) a template parameter);
-//  * q/k rows sit at a stride of D+1 floats so the per-lane key reads are
-//    free of bank conflicts;
-//  * the (64, 2w+1) band logits q.rel_k are computed once per block; the
-//    rel_v term is linear in p, so it is added per tile with the same
-//    rescaling as v. No band-exclusion or signed correction pass is needed
-//    (the TPU kernel had one because compare/select is expensive there);
+// Design:
+//  * grid (B*H, ceil(T/64)); one warpgroup (4 warps) per 64-row query tile,
+//    each warp owning 16 rows, its q rows held in registers in the
+//    A-fragment layout;
+//  * K and V tiles of 32 keys arrive through a two-stage cp.async ring
+//    (16-byte copies where D and the pointers allow, else 4-byte copies),
+//    D zero-padded to DW (a multiple of 32), rows at strides that keep the
+//    16-byte fragment reads free of bank conflicts; at D = 96 the ring
+//    takes 54,272 bytes and the band tables (rel_k, rel_v, logits, p)
+//    ~11 KB, so three blocks fit on an SM;
+//  * S = Q.K^T and O += P.V run as mma.m16n8k8 in 3xTF32 with S and O in
+//    registers and P fed from its registers, the tile core shared with
+//    global_attention.cu (attention_mma.cuh);
+//  * the key walk stops after the last tile holding a key below kv_len (all
+//    T tiles when kv_len <= 0): a later key scores -1e4 and gets p = 0
+//    exactly in f32 once a valid score exists, so skipping is exact;
+//  * the (64, 2w+1) band logits q.rel_k are computed once per block (a
+//    quad reduction over the q fragments) and added only on the key tiles
+//    that meet [q0-w, q0+63+w]; on those tiles alone the band's p go to a
+//    per-warp table and the rel_v term (sum_m p_band[m] rel_v[m], linear in
+//    p) is added in f32 after O's rescaling; other tiles whose keys are all
+//    valid skip the mask;
 //  * keys at or past kv_len score -1e4 (finite, as the reference), keys past
 //    T do not exist and get p = 0; any T >= 1 and a ragged last tile work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 8;
-constexpr int ROWS = BQ / WARPS;
+using namespace attn;
+
 constexpr float MASK_VALUE = -1e4f;
-constexpr float NEG_INIT = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <int NC>
-__global__ void __launch_bounds__(WARPS * 32)
+constexpr size_t smem_floats(int m) {
+  // the ring, rel_k and rel_v (M x DW each), band logits (BQ x M), band p (BQ x M)
+  return (size_t)STAGES * stage_floats(32 * NC) + 2 * (size_t)m * 32 * NC + 2 * (size_t)BQ * m;
+}
+
+template <int NC, int VEC>
+__global__ void __launch_bounds__(THREADS, NC <= 3 ? 3 : 2)
 banded_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ rel_k,
                         const float* __restrict__ rel_v, const int* __restrict__ kv_len,
                         float* __restrict__ out, int H, int T, int D, int window, int n_rel) {
-  extern __shared__ __align__(16) float smem[];
-  const int DP = D + 1;
+  constexpr int DW = 32 * NC;  // padded head width
+  constexpr int ND = DW / 8;   // 8-feature k-steps of q.k, 8-column n-tiles of o
   const int M = 2 * window + 1;
-  float* q_s = smem;                 // BQ x DP
-  float* k_s = q_s + BQ * DP;        // BK x DP
-  float* v_s = k_s + BK * DP;        // BK x D
-  float* relv_s = v_s + BK * D;      // M x D
-  float* band_s = relv_s + M * D;    // BQ x M
-  float* p_s = band_s + BQ * M;      // WARPS x ROWS x BK
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                // STAGES x (K tile, V tile)
+  float* relk_s = ring + STAGES * stage_floats(DW);  // M x DW
+  float* relv_s = relk_s + M * DW;                   // M x DW
+  float* band_s = relv_s + M * DW;                   // BQ x M: q.rel_k
+  float* pb_s = band_s + BQ * M;                     // BQ x M: the band's p of one tile
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.y * BQ;
   const int len = kv_len[b];
+  const int kv_end = len > 0 ? min(len, T) : T;  // no valid key: every key counts
+  const int unmasked = len > 0 ? min(len, T) : 0;  // keys below it need no mask
   const size_t base = (size_t)bh * T * D;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
   const int rel = n_rel > 1 ? h : 0;
   const float* relk_g = rel_k + (size_t)rel * M * D;
   const float* relv_g = rel_v + (size_t)rel * M * D;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = warp * ROWS;
+  const int g = lane >> 2, t = lane & 3;
+  const int n16 = (D + 15) / 16;  // k-step pairs that hold features
 
-  for (int e = tid; e < BQ * D; e += blockDim.x) {
-    const int r = e / D, c = e - r * D;
-    const int i = q0 + r;
-    q_s[r * DP + c] = i < T ? q[base + (size_t)i * D + c] : 0.f;
-  }
-  for (int e = tid; e < M * D; e += blockDim.x) relv_s[e] = relv_g[e];
-  __syncthreads();
-  for (int e = tid; e < BQ * M; e += blockDim.x) {
-    const int r = e / M, m = e - r * M;
-    const float* qr = q_s + r * DP;
-    const float* kr = relk_g + (size_t)m * D;
-    float s = 0.f;
-    for (int c = 0; c < D; ++c) s = fmaf(qr[c], __ldg(kr + c), s);
-    band_s[e] = s;
-  }
-
-  float m_i[ROWS], l_i[ROWS], acc[ROWS][NC];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m_i[r] = NEG_INIT;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
-  }
-  float* p_w = p_s + warp * ROWS * BK;
-
-  for (int j0 = 0; j0 < T; j0 += BK) {
-    __syncthreads();  // previous tile consumed; band_s complete
-    for (int e = tid; e < BK * D; e += blockDim.x) {
-      const int r = e / D, c = e - r * D;
-      const int j = j0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (j < T) {
-        kv = k[base + (size_t)j * D + c];
-        vv = v[base + (size_t)j * D + c];
-      }
-      k_s[r * DP + c] = kv;
-      v_s[r * D + c] = vv;
-    }
-    __syncthreads();
-
-    float s[ROWS][2];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* k0p = k_s + lane * DP;
-    const float* k1p = k_s + (lane + 32) * DP;
+  zero_pad<DW>(ring, D, tid);
 #pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float k0 = k0p[c], k1 = k1p[c];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float qv = q_s[(row0 + r) * DP + c];
-        s[r][0] = fmaf(qv, k0, s[r][0]);
-        s[r][1] = fmaf(qv, k1, s[r][1]);
-      }
-    }
+  for (int e = tid; e < M * DW; e += THREADS) {
+    const int m = e / DW, c = e - m * DW;
+    relk_s[e] = c < D ? relk_g[(size_t)m * D + c] : 0.f;
+    relv_s[e] = c < D ? relv_g[(size_t)m * D + c] : 0.f;
+  }
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  load_stage<VEC, DW>(ring, 0, kb, vb, D, 0, T, D, tid);
+  cp_async_commit();
 
+  // this warp's q rows r0 and r0 + 8 in the A-fragment layout
+  const int r0 = q0 + warp * 16 + g;
+  float qf[ND][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int i = q0 + row0 + r;
-      float mx = -INFINITY;
+  for (int kk = 0; kk < ND; ++kk) {
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        float val = s[r][t];
-        const int off = j - i;
-        if (off >= -window && off <= window) val += band_s[(row0 + r) * M + off + window];
-        if (j >= len) val = MASK_VALUE;
-        if (j >= T) val = -INFINITY;
-        s[r][t] = val;
-        mx = fmaxf(mx, val);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      const float p0 = expf(s[r][0] - m_new);
-      const float p1 = expf(s[r][1] - m_new);
-      l_i[r] = l_i[r] * alpha + p0 + p1;
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) acc[r][cc] *= alpha;
-      m_i[r] = m_new;
-      p_w[r * BK + lane] = p0;
-      p_w[r * BK + lane + 32] = p1;
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e & 1);
+      const int c = q_feature(kk, t, e);
+      qf[kk][e] = i < T && c < D ? qb[(size_t)i * D + c] : 0.f;
     }
-    __syncwarp();
+  }
 
-    const int nk = min(BK, T - j0);
-    for (int jj = 0; jj < nk; ++jj) {
-      float vv[NC];
+  // band logits of rows r0, r0 + 8: each lane's features, summed over the quad
+  __syncthreads();  // rel_k staged
+  float* band0 = band_s + (warp * 16 + g) * M;
+  float* band1 = band0 + 8 * M;
+  for (int m = 0; m < M; ++m) {
+    const float* rk = relk_s + m * DW;
+    float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int c = lane + 32 * cc;
-        vv[cc] = c < D ? v_s[jj * D + c] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float p = p_w[r * BK + jj];
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) acc[r][cc] = fmaf(p, vv[cc], acc[r][cc]);
-      }
+    for (int kk = 0; kk < ND; ++kk) {
+      const int c = q_feature(kk, t, 0);
+      const float k0 = rk[c], k1 = rk[c + 1];
+      p0 = fmaf(qf[kk][0], k0, fmaf(qf[kk][2], k1, p0));
+      p1 = fmaf(qf[kk][1], k0, fmaf(qf[kk][3], k1, p1));
     }
+    p0 = quad_sum(p0);
+    p1 = quad_sum(p1);
+    if (t == 0) {
+      band0[m] = p0;
+      band1[m] = p1;
+    }
+  }
+  float* pb0 = pb_s + (warp * 16 + g) * M;
+  float* pb1 = pb0 + 8 * M;
+  float* pb_w = pb_s + warp * 16 * M;
+  __syncwarp();
 
+  float m_i[2] = {NEG_INIT, NEG_INIT}, l_i[2] = {0.f, 0.f}, o[ND][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int i = q0 + row0 + r;
-      for (int m = 0; m < M; ++m) {
-        const int jj = i + m - window - j0;
-        if (jj < 0 || jj >= nk) continue;
-        const float p = p_w[r * BK + jj];
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-        for (int cc = 0; cc < NC; ++cc) {
-          const int c = lane + 32 * cc;
-          if (c < D) acc[r][cc] = fmaf(p, relv_s[m * D + c], acc[r][cc]);
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = it * BK;
+    if (it + 1 < n_tiles)
+      load_stage<VEC, DW>(ring, (it + 1) % STAGES, kb, vb, D, j0 + BK, T, D, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed; tile it+1 may be in flight
+    __syncthreads();
+    // does the band of any row of this query tile reach into this key tile?
+    const bool band_tile = j0 <= q0 + BQ - 1 + window && j0 + BK - 1 >= q0 - window;
+
+    float s[NT][4];
+    score_tile<NC>(s, qf, k_tile<DW>(ring, it % STAGES), n16, g, t);
+    if (band_tile || j0 + BK > unmasked) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + nt * 8 + 2 * t + (e & 1);
+          const int off = j - (r0 + 8 * (e >> 1));
+          if (band_tile && off >= -window && off <= window)
+            s[nt][e] += (e >> 1 ? band1 : band0)[off + window];
+          if (j >= len) s[nt][e] = MASK_VALUE;
+          if (j >= T) s[nt][e] = -INFINITY;
         }
-      }
     }
-    __syncwarp();
+    softmax_tile<NC>(s, m_i, l_i, o);
+    pv_tile<NC>(o, s, v_tile<DW>(ring, it % STAGES), g, t);
+
+    if (band_tile) {  // o += sum_m p_band[m] rel_v[m] over this tile's band keys
+      for (int e = lane; e < 16 * M; e += 32) pb_w[e] = 0.f;
+      __syncwarp();
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int off = j0 + nt * 8 + 2 * t + (e & 1) - (r0 + 8 * (e >> 1));
+          if (off >= -window && off <= window) (e >> 1 ? pb1 : pb0)[off + window] = s[nt][e];
+        }
+      __syncwarp();
+      for (int m = 0; m < M; ++m) {
+        const float p0 = pb0[m], p1 = pb1[m];
+        const float* rv = relv_s + m * DW + 8 * t;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {  // columns 32c + 8t + 4hh + (0..3)
+            const float4 r = *reinterpret_cast<const float4*>(rv + 32 * c + 4 * hh);
+            const float rr[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              o[4 * c + i][hh] = fmaf(p0, rr[i], o[4 * c + i][hh]);
+              o[4 * c + i][2 + hh] = fmaf(p1, rr[i], o[4 * c + i][2 + hh]);
+            }
+          }
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float l = warp_sum(l_i[r]);
-    const int i = q0 + row0 + r;
-    if (i >= T) continue;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int c = lane + 32 * cc;
-      if (c < D) out[base + (size_t)i * D + c] = acc[r][cc] / l;
-    }
-  }
+  float* orow0 = out + base + (size_t)r0 * D;
+  store_rows<NC>(o, l_i, orow0, orow0 + 8 * D, r0, T, D, t);
 }
 
-template <int NC>
+template <int NC, int VEC>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* rel_k,
                    const float* rel_v, const int* kv_len, float* out, int B, int H, int T,
                    int D, int window, int n_rel, cudaStream_t stream) {
-  const int M = 2 * window + 1;
-  const size_t smem = sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + M * D +
-                                               BQ * M + WARPS * ROWS * BK);
-  cudaError_t err = cudaFuncSetAttribute(banded_attention_kernel<NC>,
+  const size_t smem = sizeof(float) * smem_floats<NC>(2 * window + 1);
+  cudaError_t err = cudaFuncSetAttribute(banded_attention_kernel<NC, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (T + BQ - 1) / BQ);
-  banded_attention_kernel<NC><<<grid, WARPS * 32, smem, stream>>>(
+  banded_attention_kernel<NC, VEC><<<grid, THREADS, smem, stream>>>(
       q, k, v, rel_k, rel_v, kv_len, out, H, T, D, window, n_rel);
   return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_nc(bool vec, const float* q, const float* k, const float* v,
+                      const float* rel_k, const float* rel_v, const int* kv_len, float* out,
+                      int B, int H, int T, int D, int window, int n_rel, cudaStream_t s) {
+  return vec ? launch<NC, 4>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s)
+             : launch<NC, 1>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
 }
 
 }  // namespace
@@ -243,11 +247,13 @@ extern "C" int banded_attention_f32(const float* q, const float* k, const float*
                                     int n_rel, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return (int)cudaSuccess;
   if (D <= 0 || D > 128 || window < 0 || window > 64) return (int)cudaErrorInvalidValue;
+  // 16-byte copies of k and v rows: every row start 16-byte aligned
+  const bool vec = D % 4 == 0 && aligned16(k) && aligned16(v);
   cudaStream_t s = (cudaStream_t)stream;
   switch ((D + 31) / 32) {
-    case 1: return (int)launch<1>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
-    case 2: return (int)launch<2>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
-    case 3: return (int)launch<3>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
-    default: return (int)launch<4>(q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
+    case 1: return (int)launch_nc<1>(vec, q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
+    case 2: return (int)launch_nc<2>(vec, q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
+    case 3: return (int)launch_nc<3>(vec, q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
+    default: return (int)launch_nc<4>(vec, q, k, v, rel_k, rel_v, kv_len, out, B, H, T, D, window, n_rel, s);
   }
 }

@@ -12,54 +12,58 @@
 //   s[i,j] = sm_scale * q'[i].k'[j];   s[i,j] = -30000 for j >= kv_len[b]
 //   out[i] = softmax_j(s[i,:]) . v
 // Rows at or past kv_len are computed like the others (the caller masks
-// them). q, k and v are read through (batch, row) strides, so the packed
-// (B, T, 3C) output of a fused qkv projection and separate (B, T, C)
-// tensors both work; out is (B, T, C), the o projection's input.
+// them); kv_len <= 0 masks every key, so every row averages all T values.
+// q, k and v are read through (batch, row) strides, so the packed (B, T, 3C)
+// output of a fused qkv projection and separate (B, T, C) tensors both work;
+// out is (B, T, C), the o projection's input.
 //
-// What bounds it on Hopper: 4*H*D*T*sum(kv_len) floating-point operations in
-// f32. Scores and sums stay in f32 on the CUDA cores (FMA, no TF32) so the
-// result matches the f32 reference to ~1e-6; at f32 the card's peak is
-// 67 TFLOP/s, and q, k, v and out (16*B*T*C bytes) are small next to that at
-// the DiT shapes, so it is compute-bound.
+// What bounds it on Hopper: 4*H*D*T*sum(kv_len) operations, done on the
+// tensor cores in 3xTF32 (attention_mma.cuh): three TF32 products per
+// fragment pair keep f32 accuracy, so the ceiling is 495/3 = 165 TFLOP/s,
+// against 67 TFLOP/s for f32 FMA on the CUDA cores. q, k, v and out
+// (16*B*T*C bytes) are small next to that at the DiT shapes: it is bound by
+// operations.
 //
-// Design (simple first; wgmma/TMA/bf16 are later work):
-//  * grid (ceil(T/64), H, B); a block of 8 warps stages 64 query rows in
-//    shared memory, RoPE applied as they are staged, and walks the key tiles
-//    of 64 with an online softmax (the loop takes the place of the TPU's
-//    sequential grid axis);
-//  * each k tile is rotated as it is staged; cos/sin come from the wrapper's
-//    table (the plain version's formula), not from fast-math __sinf;
-//  * each warp owns 8 query rows; a lane scores keys lane and lane+32 and
-//    owns output columns lane, lane+32, ... (D <= 128 a runtime value,
-//    NC = ceil(D/32) a template parameter); q/k rows at a stride of D+1
-//    floats keep the per-lane key reads free of bank conflicts;
+// Design:
+//  * grid (ceil(T/64), H, B); one warpgroup (4 warps) per 64-row query
+//    tile, each warp owning 16 rows; a warp's q rows are rotated and scaled
+//    by sm_scale as they are read and stay in registers in the A-fragment
+//    layout, split into hi/lo at each use (holding both halves would take
+//    twice the registers and cost the third block on the SM);
+//  * K and V tiles of 32 keys arrive through a two-stage cp.async ring
+//    (tile j+1 loads while tile j computes), 16-byte copies where D, the
+//    strides and the pointers allow, else 4-byte copies; D is zero-padded
+//    to DW (a multiple of 32) and rows sit at strides that keep the
+//    16-byte fragment reads free of bank conflicts (attention_mma.cuh).
+//    Two stages take 54,272 bytes at D = 96, so three blocks (12 warps)
+//    fit on an SM;
+//  * with RoPE (a template flag, so the d_rope = 0 forms carry none of it),
+//    each k tile is rotated in place in shared memory once it has landed
+//    (one pass over 32 x d_rope between two barriers); cos/sin come from
+//    the wrapper's table (the plain version's formula), not from __sinf,
+//    and a warp issues all its table reads of the pass before the first
+//    write, so the pass waits on one memory round trip, not eight;
+//  * S = Q.K^T and O += P.V run as mma.m16n8k8 in 3xTF32 (attention_mma.cuh:
+//    the split costs three integer/f32 operations per operand, no cvt),
+//    S and O stay in registers in the C-fragment layout, the online softmax
+//    (expf) reduces each row over the 4 lanes of a quad, and P feeds the
+//    second product from its registers; a tile whose keys are all valid
+//    skips the mask;
 //  * the walk stops after the last tile holding a key below kv_len: every
 //    later key scores -30000 and gets p = 0 exactly in f32, so skipping is
 //    exact; keys past T do not exist and get p = 0; any T >= 1 works.
+// wgmma (TF32 operands K-major, so V^T in shared memory) is the next step.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 8;
-constexpr int ROWS = BQ / WARPS;
+using namespace attn;
+
 constexpr float MASK_VALUE = -30000.f;
-constexpr float NEG_INIT = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Feature c of one head's row at position t (src: the row's first feature of
 // the head), rotated when c < d_rope: x*cos + rotate_half(x)*sin, with
@@ -76,25 +80,24 @@ __device__ __forceinline__ float roped(const float* __restrict__ src, int c, int
   return src[c] * cv + other * sv;
 }
 
-template <int NC>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int NC, int VEC, bool ROPE>
+__global__ void __launch_bounds__(THREADS, NC <= 3 ? 3 : 2)
 global_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ cos_t,
                         const float* __restrict__ sin_t, const int* __restrict__ kv_len,
                         float* __restrict__ out, int H, int T, int D, int d_rope,
                         long long stride_b, long long stride_t, float sm_scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int DP = D + 1;
-  float* q_s = smem;             // BQ x DP
-  float* k_s = q_s + BQ * DP;    // BK x DP
-  float* v_s = k_s + BK * DP;    // BK x D
-  float* p_s = v_s + BK * D;     // WARPS x ROWS x BK
+  constexpr int DW = 32 * NC;  // padded head width
+  constexpr int ND = DW / 8;   // 8-feature k-steps of q.k, 8-column n-tiles of o
+  constexpr int LDK = k_stride(DW);
+  extern __shared__ __align__(16) float ring[];  // STAGES x (K tile, V tile)
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int len = kv_len[b];
   const int kv_end = len > 0 ? min(len, T) : T;  // no valid key: every key counts
+  const int unmasked = len > 0 ? min(len, T) : 0;  // keys below it need no mask
   const size_t head = (size_t)b * stride_b + (size_t)h * D;
   const float* qb = q + head;
   const float* kb = k + head;
@@ -102,128 +105,120 @@ global_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = warp * ROWS;
+  const int g = lane >> 2, t = lane & 3;
+  const int n16 = (D + 15) / 16;  // k-step pairs that hold features
 
-  for (int e = tid; e < BQ * D; e += blockDim.x) {
-    const int r = e / D, c = e - r * D;
-    const int i = q0 + r;
-    q_s[r * DP + c] = i < T ? roped(qb + (size_t)i * stride_t, c, d_rope, cos_t, sin_t, i) : 0.f;
-  }
+  if (!ROPE) d_rope = 0;  // the compiler drops every RoPE path
+  const int d2 = d_rope >> 1;
 
-  float m_i[ROWS], l_i[ROWS], acc[ROWS][NC];
+  zero_pad<DW>(ring, D, tid);
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  load_stage<VEC, DW>(ring, 0, kb, vb, stride_t, 0, T, D, tid);
+  cp_async_commit();
+
+  // this warp's q rows r0 and r0 + 8 in the A-fragment layout, rotated and
+  // scaled by sm_scale
+  const int r0 = q0 + warp * 16 + g;
+  float qf[ND][4];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m_i[r] = NEG_INIT;
-    l_i[r] = 0.f;
+  for (int kk = 0; kk < ND; ++kk) {
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
-  }
-  float* p_w = p_s + warp * ROWS * BK;
-
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    __syncthreads();  // q staged; previous tile consumed
-    for (int e = tid; e < BK * D; e += blockDim.x) {
-      const int r = e / D, c = e - r * D;
-      const int j = j0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (j < T) {
-        kv = roped(kb + (size_t)j * stride_t, c, d_rope, cos_t, sin_t, j);
-        vv = vb[(size_t)j * stride_t + c];
-      }
-      k_s[r * DP + c] = kv;
-      v_s[r * D + c] = vv;
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e & 1);
+      const int c = q_feature(kk, t, e);
+      qf[kk][e] = i < T && c < D
+                      ? sm_scale * roped(qb + (size_t)i * stride_t, c, d_rope, cos_t, sin_t, i)
+                      : 0.f;
     }
+  }
+
+  float m_i[2] = {NEG_INIT, NEG_INIT}, l_i[2] = {0.f, 0.f}, o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = it * BK;
+    if (it + 1 < n_tiles)
+      load_stage<VEC, DW>(ring, (it + 1) % STAGES, kb, vb, stride_t, j0 + BK, T, D, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it has landed; tile it+1 may be in flight
     __syncthreads();
-
-    float s[ROWS][2];
+    float* ks = k_tile<DW>(ring, it % STAGES);
+    if (d2 > 0) {  // rotate the k tile in place: a warp's rows BK/WARPS apart
+      constexpr int RW = BK / WARPS;
+      for (int c0 = 0; c0 < d2; c0 += 32) {
+        const int c = c0 + lane;
+        float cv[RW], sv[RW];  // every table read of the warp in flight at once
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* k0p = k_s + lane * DP;
-    const float* k1p = k_s + (lane + 32) * DP;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float k0 = k0p[c], k1 = k1p[c];
+        for (int i = 0; i < RW; ++i) {
+          const int j = j0 + warp + WARPS * i;
+          const bool ok = j < T && c < d2;
+          cv[i] = ok ? __ldg(cos_t + (size_t)j * d2 + c) : 0.f;
+          sv[i] = ok ? __ldg(sin_t + (size_t)j * d2 + c) : 0.f;
+        }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float qv = q_s[(row0 + r) * DP + c];
-        s[r][0] = fmaf(qv, k0, s[r][0]);
-        s[r][1] = fmaf(qv, k1, s[r][1]);
+        for (int i = 0; i < RW; ++i) {
+          const int r = warp + WARPS * i;
+          if (j0 + r >= T || c >= d2) continue;
+          float* row = ks + r * LDK;
+          const float x0 = row[c], x1 = row[c + d2];
+          row[c] = x0 * cv[i] + (-x1) * sv[i];
+          row[c + d2] = x1 * cv[i] + x0 * sv[i];
+        }
       }
+      __syncthreads();
     }
 
+    float s[NT][4];
+    score_tile<NC>(s, qf, ks, n16, g, t);
+    if (j0 + BK > unmasked) {  // a key of this tile is masked or past T
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float mx = -INFINITY;
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        float val = s[r][t] * sm_scale;
-        if (j >= len) val = MASK_VALUE;
-        if (j >= T) val = -INFINITY;
-        s[r][t] = val;
-        mx = fmaxf(mx, val);
-      }
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_i[r], mx);
-      const float alpha = expf(m_i[r] - m_new);
-      const float p0 = expf(s[r][0] - m_new);
-      const float p1 = expf(s[r][1] - m_new);
-      l_i[r] = l_i[r] * alpha + p0 + p1;
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) acc[r][cc] *= alpha;
-      m_i[r] = m_new;
-      p_w[r * BK + lane] = p0;
-      p_w[r * BK + lane + 32] = p1;
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + nt * 8 + 2 * t + (e & 1);
+          if (j >= len) s[nt][e] = MASK_VALUE;
+          if (j >= T) s[nt][e] = -INFINITY;
+        }
     }
-    __syncwarp();
-
-    const int nk = min(BK, T - j0);
-    for (int jj = 0; jj < nk; ++jj) {
-      float vv[NC];
-#pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const int c = lane + 32 * cc;
-        vv[cc] = c < D ? v_s[jj * D + c] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float p = p_w[r * BK + jj];
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc) acc[r][cc] = fmaf(p, vv[cc], acc[r][cc]);
-      }
-    }
-    __syncwarp();
+    softmax_tile<NC>(s, m_i, l_i, o);
+    pv_tile<NC>(o, s, v_tile<DW>(ring, it % STAGES), g, t);
+    __syncthreads();  // this stage is consumed before it is refilled
   }
 
   const size_t C = (size_t)H * D;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const float l = warp_sum(l_i[r]);
-    const int i = q0 + row0 + r;
-    if (i >= T) continue;
-    float* o = out + ((size_t)b * T + i) * C + (size_t)h * D;
-#pragma unroll
-    for (int cc = 0; cc < NC; ++cc) {
-      const int c = lane + 32 * cc;
-      if (c < D) o[c] = acc[r][cc] / l;
-    }
-  }
+  float* orow0 = out + ((size_t)b * T + r0) * C + (size_t)h * D;
+  store_rows<NC>(o, l_i, orow0, orow0 + 8 * C, r0, T, D, t);
 }
 
-template <int NC>
+template <int NC, int VEC, bool ROPE>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* cos_t,
                    const float* sin_t, const int* kv_len, float* out, int B, int H, int T,
                    int D, int d_rope, long long stride_b, long long stride_t, float sm_scale,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + WARPS * ROWS * BK);
-  cudaError_t err = cudaFuncSetAttribute(global_attention_kernel<NC>,
+  const size_t smem = sizeof(float) * STAGES * stage_floats(32 * NC);
+  cudaError_t err = cudaFuncSetAttribute(global_attention_kernel<NC, VEC, ROPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((T + BQ - 1) / BQ, H, B);
-  global_attention_kernel<NC><<<grid, WARPS * 32, smem, stream>>>(
+  global_attention_kernel<NC, VEC, ROPE><<<grid, THREADS, smem, stream>>>(
       q, k, v, cos_t, sin_t, kv_len, out, H, T, D, d_rope, stride_b, stride_t, sm_scale);
   return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_nc(bool vec, const float* q, const float* k, const float* v,
+                      const float* cos_t, const float* sin_t, const int* kv_len, float* out,
+                      int B, int H, int T, int D, int d_rope, long long stride_b,
+                      long long stride_t, float sm_scale, cudaStream_t s) {
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b,
+                         stride_t, sm_scale, s);
+  };
+  if (d_rope > 0) return vec ? go(launch<NC, 4, true>) : go(launch<NC, 1, true>);
+  return vec ? go(launch<NC, 4, false>) : go(launch<NC, 1, false>);
 }
 
 }  // namespace
@@ -240,11 +235,14 @@ extern "C" int global_attention_f32(const float* q, const float* k, const float*
   if (D <= 0 || D > 128 || d_rope < 0 || d_rope > D || (d_rope & 1) ||
       (d_rope > 0 && (cos_t == nullptr || sin_t == nullptr)) || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  // 16-byte copies of k and v rows: every row start 16-byte aligned
+  const bool vec = D % 4 == 0 && stride_b % 4 == 0 && stride_t % 4 == 0 && aligned16(k) &&
+                   aligned16(v);
   cudaStream_t s = (cudaStream_t)stream;
   switch ((D + 31) / 32) {
-    case 1: return (int)launch<1>(q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
-    case 2: return (int)launch<2>(q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
-    case 3: return (int)launch<3>(q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
-    default: return (int)launch<4>(q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
+    case 1: return (int)launch_nc<1>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
+    case 2: return (int)launch_nc<2>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
+    case 3: return (int)launch_nc<3>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
+    default: return (int)launch_nc<4>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
   }
 }

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into a shared library under
-``csrc/_build/`` (named by a hash of the source and flags, so an edited
-source rebuilds) and loaded with ``ctypes``. Nothing here runs when a
-module is imported, and nothing is built for CPU tensors: a kernel's
-wrapper asks for its library only when it launches on a CUDA tensor.
+``csrc/_build/`` (named by a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds) and
+loaded with ``ctypes``. Nothing here runs when a module is imported, and
+nothing is built for CPU tensors: a kernel's wrapper asks for its library
+only when it launches on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -50,8 +51,11 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
-        h = hashlib.sha1(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+        h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def fn(self):
         """The bound C entry point, building the library first if needed."""
