@@ -13,14 +13,20 @@ result line is printed):
    started together;
 3. kernels vs plain: each kernel's wrapper on card tensors at the shapes
    the serving paths give it, held against its plain PyTorch version on the
-   same inputs, then timed with CUDA events beside that plain version, its
+   same inputs, then timed with CUDA events beside that plain version (the
+   DDSConv kernel and its plain version as calls replayed from a CUDA graph,
+   so that the host's cost of a call is out of their times), its
    bound (the larger of bytes over 3.35 TB/s and operations over
    495/3 TFLOP/s, the H100 SXM's published HBM and TF32 tensor-core peaks
    at 700 W, the TF32 rate divided by the three products of the 3xTF32
    split that keeps f32 accuracy) and, for the global attention, one
    library call (scaled_dot_product_attention) on the same inputs; the
    count of tensor-core instructions (HMMA, HGMMA) in each library's SASS
-   is printed, and must not be 0 for the attention kernels;
+   is printed, and must not be 0 for any of them; each DDSConv case prints
+   the launch geometry the built kernel's plan gives it (grid, cluster
+   size, row tile, dynamic shared bytes, product, weight stages, clusters
+   resident at once, waves), and a single request's shapes must spread
+   over 16 SMs or more;
 4. VITS2 main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(),
    random weights from a seed, zero-initialised projections perturbed)
    answers 3 requests through Model/Synth.synth_audio and one synth_batch of
@@ -125,6 +131,31 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, warmup=2):
+    """Mean device time of fn over ``iters`` calls captured in one CUDA graph
+    and replayed (CUDA events): the host's cost of each call is out of the
+    time, where cuda_ms of a kernel of tens of microseconds would time the
+    wrapper's Python instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(flops, nbytes):
     """The least time in ms for ``flops`` f32-accurate operations and
     ``nbytes`` moved, and which of the two bounds it (BOUND_FORMULA)."""
@@ -159,6 +190,9 @@ def attention_case(b, t, lengths, iters, plain_iters, seed):
 
 
 def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
+    """The DDSConv kernel at one shape against its plain version, with the
+    launch geometry its plan gives; timed (``iters`` calls in a CUDA graph,
+    graph_ms) beside the plain version."""
     c, n_layers, k = 256, 3, 3
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -174,9 +208,18 @@ def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
     want = ddf.ddsconv_plain(x, mask, params)
     torch.cuda.synchronize()
     out = {"shape": f"B{b} T{t} C{c} L{n_layers}", "max_abs_err": float((got - want).abs().max())}
+    plan = ddf.kernel_plan(b, t, c, n_layers, k)
+    clusters = plan["grid"][0] * plan["grid"][1] // plan["cluster"]
+    out |= {"grid": list(plan["grid"]), "cluster": plan["cluster"],
+            "ctas": plan["grid"][0] * plan["grid"][1], "row_tile": plan["row_tile"],
+            "smem_bytes": plan["smem_bytes"], "product": plan["product"],
+            "weight_stages": plan["stages"], "max_active_clusters": plan["max_active_clusters"],
+            "waves": -(-clusters // plan["max_active_clusters"])}
+    if b == 1:
+        check(out["ctas"] >= 16, f"ddsconv B1 T{t} launches {out['ctas']} CTAs, fewer than 16")
     if iters:
-        out["ms"] = cuda_ms(lambda: ddf.ddsconv_fused(x, mask, params), iters)
-        out["plain_ms"] = cuda_ms(lambda: ddf.ddsconv_plain(x, mask, params), plain_iters)
+        out["ms"] = graph_ms(lambda: ddf.ddsconv_fused(x, mask, params), iters)
+        out["plain_ms"] = graph_ms(lambda: ddf.ddsconv_plain(x, mask, params), plain_iters)
         rows = sum(lengths)  # masked rows are zero in the output: not needed work
         flops = 2 * rows * c * c * n_layers + rows * c * n_layers * (2 * k + 20)
         nbytes = 4 * (2 * b * t * c + b * t + n_layers * (c * c + c * k + 6 * c))
@@ -352,7 +395,7 @@ def profile_requests(runs):
             continue
         print(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
               f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kern)} kernel launches")
-        for kname in ("banded_attention_kernel", "global_attention_kernel"):
+        for kname in ("banded_attention_kernel", "global_attention_kernel", "ddsconv_kernel"):
             att = [e for e in kern if kname in e.key]
             if att:
                 us = sum(e.self_device_time_total for e in att)
@@ -516,9 +559,7 @@ def main() -> int:
             print(f"[build] {source.name}: no cuobjdump; tensor-core instructions not counted")
             continue
         print(f"[build] {source.name}: SASS tensor-core instructions {counts}")
-        if "attention" in source.name:
-            check(counts["HMMA"] + counts["HGMMA"] > 0,
-                  f"{source.name} has no tensor-core instruction")
+        check(counts["HMMA"] + counts["HGMMA"] > 0, f"{source.name} has no tensor-core instruction")
 
     # 3. kernels vs plain on the card
     att_tol, dds_tol = 1e-4, 1e-4
@@ -529,7 +570,10 @@ def main() -> int:
            attention_case(1, 64, [53], 50, 20, 6),
            attention_case(1, 512, [437], 50, 20, 7),
            attention_case(1, 37, [37], 0, 0, 2)]
+    # DDSConv: the batched text shape, the profiled request's 128-token text
+    # bucket, a 64-token bucket, a ragged T=37
     dds = [ddsconv_case(16, 256, [256 - 13 * i for i in range(16)], 50, 20, 4),
+           ddsconv_case(1, 128, [120], 50, 20, 9),
            ddsconv_case(1, 64, [53], 50, 20, 8),
            ddsconv_case(1, 37, [30], 0, 0, 5)]
     # the global kernel: the CFM decoder's batched shape (16 requests, CFG-doubled),

@@ -76,27 +76,109 @@ def test_banded_attention_kernel(dev, monkeypatch, b, t, d, n_rel, w, lengths, m
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,lengths", [(1, 1, 256, [1]), (2, 5, 128, [5, 3]),
-                                           (2, 37, 256, [37, 20]), (1, 100, 64, [100]),
-                                           (3, 256, 256, [256, 129, 7])])
-def test_ddsconv_kernel(dev, monkeypatch, b, t, c, lengths):
+@pytest.mark.parametrize("b,t,c,lengths,k,n_layers,misaligned", [
+    (1, 1, 256, [1], 3, 3, False), (2, 5, 128, [5, 3], 3, 3, False),
+    (2, 37, 256, [37, 20], 3, 3, False), (1, 100, 64, [100], 3, 3, False),
+    (3, 256, 256, [256, 129, 7], 3, 3, False),
+    # T at the edges of the row tile (16 rows at these shapes) and the 13-row halo
+    (2, 13, 256, [13, 1], 3, 3, False), (2, 14, 256, [14, 13], 3, 3, False),
+    (2, 16, 256, [16, 15], 3, 3, False), (2, 17, 256, [17, 16], 3, 3, False),
+    (2, 31, 256, [31, 30], 3, 3, False), (2, 32, 256, [32, 31], 3, 3, False),
+    (2, 33, 256, [33, 32], 3, 3, False), (2, 45, 256, [45, 14], 3, 3, False),
+    (2, 65, 256, [65, 33], 3, 3, False), (1, 128, 256, [120], 3, 3, False),
+    # wider tiles where the clusters fill waves: B4 T128, B16 T256
+    (4, 128, 256, [128, 100, 61, 1], 3, 3, False),
+    (16, 256, 256, [256 - 13 * i for i in range(16)], 3, 3, False),
+    # every cluster size: C 32 (one CTA, no exchange) to 256 (eight)
+    (2, 45, 32, [45, 20], 3, 3, False), (2, 70, 64, [70, 3], 3, 3, False),
+    (2, 33, 128, [33, 33], 3, 3, False), (2, 65, 192, [65, 40], 3, 3, False),
+    (2, 64, 256, [0, 64], 3, 3, False),  # a row of length 0
+    (2, 65, 256, [65, 31], 3, 3, True), (2, 40, 192, [40, 17], 3, 3, True),  # x 4 bytes off
+    (2, 80, 256, [80, 50], 5, 2, False),  # K 5: halo 12, two weight stages
+    (2, 50, 256, [50, 9], 3, 1, False), (1, 33, 64, [33], 5, 1, False),  # one layer
+    (2, 40, 256, [40, 22], 3, 4, False),  # L 4: halo 40, a two-stage weight ring
+    (1, 70, 128, [61], 1, 5, False),  # K 1: no halo, five layers through the ring
+    (1, 40, 32, [33], 801, 1, False),  # K 801: parameters read from device memory
+    (1, 40, 32, [37], 29, 2, False)])  # 872 rows: the mma.sync product
+def test_ddsconv_kernel(dev, monkeypatch, b, t, c, lengths, k, n_layers, misaligned):
     g = torch.Generator(device=dev).manual_seed(t)
     rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
-    n_layers = 3
-    params = {"sep_w": rnd(n_layers, c, 3, scale=0.5), "sep_b": rnd(n_layers, c, scale=0.1),
+    params = {"sep_w": rnd(n_layers, c, k, scale=0.5), "sep_b": rnd(n_layers, c, scale=0.1),
               "pw_w": rnd(n_layers, c, c, scale=c**-0.5), "pw_b": rnd(n_layers, c, scale=0.1),
               "norm1_g": 1 + rnd(n_layers, c, scale=0.1), "norm1_b": rnd(n_layers, c, scale=0.1),
               "norm2_g": 1 + rnd(n_layers, c, scale=0.1), "norm2_b": rnd(n_layers, c, scale=0.1)}
-    x = rnd(b, t, c)
+    x = _randn((b, t, c), g, dev, misaligned)
     mask = (torch.arange(t, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None])
     mask = mask.to(torch.float32)[..., None]
-    want = ddf.ddsconv_plain(x, mask, params)
+    want = ddf.ddsconv_plain(x, mask, params, kernel_size=k)
     monkeypatch.setattr(ddf, "ddsconv_plain", _refuse)
     n = ddf.KERNEL.launches
-    got = ddf.ddsconv_fused(x, mask, params)
+    got = ddf.ddsconv_fused(x, mask, params, kernel_size=k)
     torch.cuda.synchronize()
     assert ddf.KERNEL.launches == n + 1
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,n_layers,k", [(1, 64, 256, 3, 3), (1, 128, 256, 3, 3),
+                                              (16, 256, 256, 3, 3), (2, 45, 32, 3, 3),
+                                              (3, 100, 192, 2, 5), (1, 40, 256, 4, 3),
+                                              (1, 64, 32, 1, 801), (2, 64, 32, 2, 29)])
+def test_ddsconv_kernel_plan(dev, b, t, c, n_layers, k):
+    """The built kernel's plan: a cluster of C/32 CTAs per (batch row, row
+    tile of a multiple of 16 rows), the window within shared memory, a
+    cluster the card holds; a single request's text buckets (B1 T64, T128
+    at C 256) on 16-row tiles, so on 32 and 64 SMs."""
+    plan = ddf.kernel_plan(b, t, c, n_layers, k)
+    halo = sum(k**i * (k - 1) // 2 for i in range(n_layers))
+    assert plan["cluster"] == c // 32 and plan["halo"] == halo
+    assert plan["row_tile"] % 16 == 0 and plan["rows"] == plan["row_tile"] + 2 * halo
+    assert plan["grid"] == (b * c // 32, -(-t // plan["row_tile"]))
+    assert plan["smem_bytes"] <= 227 * 1024 and plan["max_active_clusters"] >= 1
+    if (b, c, n_layers, k) == (1, 256, 3, 3):
+        assert plan["row_tile"] == 16 and plan["grid"][0] * plan["grid"][1] >= 16
+
+
+def _pr1_accepts(c, n_layers, k):
+    """The shapes the first (f32 SIMT) kernel took: two W0 x C buffers, a
+    32 x (C+1) weight tile and the mask window in 227 KB."""
+    if c <= 0 or c > 256 or c % 32 or k < 1 or k % 2 == 0 or n_layers < 1:
+        return False
+    w0 = 32 + (k**n_layers - 1)
+    return 4 * (2 * w0 * c + 32 * (c + 1) + w0 + 4) <= 227 * 1024
+
+
+@pytest.mark.cuda
+def test_ddsconv_plan_takes_every_shape_the_first_kernel_took(dev):
+    taken = 0
+    for c in range(32, 257, 32):
+        for k in range(1, 1001, 2):
+            for n_layers in range(1, 12):
+                if k**n_layers > 2000:
+                    break
+                if _pr1_accepts(c, n_layers, k):
+                    assert ddf.kernel_plan(1, 100, c, n_layers, k)["smem_bytes"] <= 227 * 1024
+                    taken += 1
+    assert taken > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n_layers,k", [(256, 5, 3), (32, 3, 31), (128, 3, 7)])
+def test_ddsconv_refuses_a_window_beyond_shared_memory(dev, c, n_layers, k):
+    """Inside check_shape's domain, but the window (a 16-row tile and its
+    halo) does not fit 227 KB: the plan refuses, the wrapper raises."""
+    params = {"sep_w": torch.zeros(n_layers, c, k, device=dev),
+              "pw_w": torch.zeros(n_layers, c, c, device=dev)}
+    for name in ("sep_b", "pw_b", "norm1_g", "norm1_b", "norm2_g", "norm2_b"):
+        params[name] = torch.zeros(n_layers, c, device=dev)
+    ddf.check_shape(c, n_layers, k)
+    with pytest.raises(ValueError):
+        ddf.kernel_plan(1, 64, c, n_layers, k)
+    n = ddf.KERNEL.launches
+    with pytest.raises(ValueError):
+        ddf.ddsconv_fused(torch.zeros(1, 64, c, device=dev), torch.ones(1, 64, 1, device=dev),
+                          params, kernel_size=k)
+    assert ddf.KERNEL.launches == n
 
 
 @pytest.mark.cuda

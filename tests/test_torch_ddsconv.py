@@ -70,3 +70,21 @@ def test_kernel_size_mismatch_raises():
     with pytest.raises(ValueError):
         tddf.ddsconv_fused(torch.from_numpy(x), torch.from_numpy(mask),
                            to_torch(to_port_layout(params), "cpu"), kernel_size=5)
+
+
+@pytest.mark.parametrize("c,n_layers,k", [
+    (256, 3, 3), (32, 3, 3), (192, 2, 5), (256, 1, 3), (256, 12, 1), (256, 5, 3),
+    (32, 1, 801), (32, 2, 29), (64, 12, 3)])
+def test_check_shape_takes_the_kernels_domain(c, n_layers, k):
+    """C a multiple of 32 up to 256, odd K, L >= 1, a halo up to 2^20 rows:
+    whether the window then fits shared memory is the built kernel's
+    plan's to say (tests/test_torch_cuda_kernels.py)."""
+    tddf.check_shape(c, n_layers, k)
+
+
+@pytest.mark.parametrize("c,n_layers,k", [(288, 3, 3), (48, 3, 3), (0, 3, 3), (-32, 3, 3),
+                                          (256, 3, 4), (256, 3, 0), (256, 0, 3), (256, 40, 3),
+                                          (32, 3, 1001)])
+def test_check_shape_refuses(c, n_layers, k):
+    with pytest.raises(ValueError):
+        tddf.check_shape(c, n_layers, k)

@@ -25,6 +25,11 @@ from .conv import depthwise_conv1d
 from .norm import layer_norm
 
 KERNEL = CudaKernel("ddsconv.cu", "ddsconv_f32", [P] * 11 + [I, I, I, I, I, P])
+# the kernel's launch geometry for a shape (ddsconv_plan); launches nothing
+PLAN = CudaKernel("ddsconv.cu", "ddsconv_plan", [I] * 5 + [P])
+REFUSED = -1  # what both entry points return for a shape the kernel cannot take
+MAX_CHANNELS = 256
+MAX_HALO = 1 << 20
 
 _WEIGHTS = ("sep_w", "sep_b", "pw_w", "pw_b", "norm1_g", "norm1_b", "norm2_g", "norm2_b")
 
@@ -33,6 +38,54 @@ def _check_kernel_size(params, kernel_size):
     k = params["sep_w"].shape[-1]
     if kernel_size != k:
         raise ValueError(f"kernel_size={kernel_size} does not match the params' kernel size {k}")
+
+
+def check_shape(c: int, n_layers: int, kernel_size: int) -> None:
+    """Raise ValueError unless the kernel's domain holds: C a multiple of 32
+    up to 256, an odd kernel size, a layer or more, and a halo (sum over
+    the layers of K^i (K-1)/2 rows a side) of at most 2^20 rows. Whether the
+    window also fits shared memory and the grid, the built kernel's plan
+    says (csrc/ddsconv.cu ``make_plan``; the wrapper raises ValueError then)."""
+    k = kernel_size
+    if c <= 0 or c > MAX_CHANNELS or c % 32:
+        raise ValueError(f"ddsconv kernel: channels must be a multiple of 32 up to "
+                         f"{MAX_CHANNELS}, got {c}")
+    if k < 1 or k % 2 == 0 or n_layers < 1:
+        raise ValueError(f"ddsconv kernel: needs an odd kernel size and a layer, got K={k} "
+                         f"L={n_layers}")
+    halo, dilation = 0, 1
+    for _ in range(n_layers):
+        halo += dilation * (k - 1) // 2
+        if halo > MAX_HALO:
+            raise ValueError(f"ddsconv kernel: halo of more than {MAX_HALO} rows (K={k}, "
+                             f"L={n_layers})")
+        dilation *= k
+
+
+def _check(err: int, shape) -> None:
+    if err == REFUSED:
+        raise ValueError(f"ddsconv kernel: (B, T, C, L, K) = {shape} does not fit its grid or "
+                         f"its shared memory")
+    KERNEL.check(err)
+
+
+def kernel_plan(b: int, t: int, c: int, n_layers: int, kernel_size: int) -> dict:
+    """The launch geometry the built kernel takes for a shape on the current
+    device (csrc/ddsconv.cu ``make_plan``): a cluster of C/32 CTAs (one
+    32-channel slice each) per (batch row, row tile), ``rows`` = row tile +
+    2 * halo rows a cluster, the product, the weight stages, whether the
+    per-channel parameters are staged in shared memory, the dynamic shared
+    bytes and ``max_active_clusters``, the clusters of that geometry the
+    card runs at once. Needs the card; raises ValueError for a shape the
+    kernel does not take."""
+    check_shape(c, n_layers, kernel_size)
+    vals = (ctypes.c_int * 10)()
+    _check(PLAN.fn()(b, t, c, n_layers, kernel_size, ctypes.cast(vals, ctypes.c_void_p)),
+           (b, t, c, n_layers, kernel_size))
+    gx, gy, nc, smem, stages, halo, bt, wg, staged, clusters = vals
+    return {"grid": (gx, gy), "cluster": nc, "halo": halo, "row_tile": bt,
+            "rows": bt + 2 * halo, "product": "wgmma" if wg else "mma", "stages": stages,
+            "params_staged": bool(staged), "smem_bytes": smem, "max_active_clusters": clusters}
 
 
 def ddsconv_plain(x, x_mask, params, *, kernel_size: int = 3):
@@ -61,8 +114,7 @@ def ddsconv_fused(x, x_mask, params, *, kernel_size: int = 3):
     n_layers = params["sep_w"].shape[0]
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("ddsconv kernel: x must be a contiguous float32 (B, T, C) tensor")
-    if c > 256 or c % 32 != 0:
-        raise ValueError(f"ddsconv kernel: channels must be a multiple of 32 up to 256, got {c}")
+    check_shape(c, n_layers, kernel_size)
     if tuple(x_mask.shape) != (b, t, 1) or x_mask.device != x.device:
         raise ValueError(f"ddsconv kernel: x_mask must be ({b}, {t}, 1) on {x.device}")
     mask = x_mask.reshape(b, t).to(torch.float32).contiguous()
@@ -80,6 +132,6 @@ def ddsconv_fused(x, x_mask, params, *, kernel_size: int = 3):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), mask.data_ptr(), *(params[n].data_ptr() for n in _WEIGHTS),
                  out.data_ptr(), b, t, c, n_layers, kernel_size, ctypes.c_void_p(stream))
-    KERNEL.check(err)
+    _check(err, (b, t, c, n_layers, kernel_size))
     KERNEL.launches += 1
     return out
