@@ -35,6 +35,17 @@ result line is printed):
    request's encode_for_infer and decode_from_durations on the card and on
    the CPU (fed the card's durations), noise scales 0, within stated
    tolerances;
+   4b. serving (``[serve]``): 32 requests from 16 client threads (texts,
+   rates 0.8/1.0/1.25 and speakers cycling) through the dynamic batcher
+   (serving/batcher.py, max_batch 8, 5 ms wait), once to warm up, once
+   measured (audio seconds per wall second, p50/p95 latency, batches and
+   decode groups; launches must be 6 banded attention and 4 DDSConv per
+   encode call plus 4 banded attention per decode group), once under
+   torch.profiler (device busy share); then 4 of them at noise 0 in one
+   batch held to Synth.synth_audio and to themselves alone at the batch's
+   decode geometry (serve_parity); then ``[serve-grpc]``, where grpc and
+   protobuf import: make_server on 127.0.0.1 and 4 concurrent requests
+   through SynthesizerClient (WAV header, 22050 Hz, frame count);
 5. multistream main path: a full-width multistream_v3 bundle
    (StableTTSConfig(), HiFiGAN v1, ruBERT-base-wide BertConfig(), random
    weights from a seed with the adaLN-Zero projections and CFG fakes
@@ -45,7 +56,12 @@ result line is printed):
    synthesis call (2 x 4 encoder layers + 10 Euler steps x 6 decoder
    layers) and none of the other kernels; then the shortest text's passes
    and vocoder on the card and on the CPU (fed the card's durations),
-   temperature 0, within stated tolerances.
+   temperature 0, within stated tolerances;
+   5b. serving (``[ms-serve]``): 8 requests from 8 threads as in 4b (BERT
+   runs in the client threads), launches 8 global RoPE attention per
+   encode call and 60 per decode group; the parity of 4 of them at
+   temperature 0; ``[serve-grpc]``: one multistream request over the wire
+   (or ``[serve-grpc] not run: <module> is not installed``).
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -60,6 +76,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -74,6 +91,8 @@ from vosk_tts_tpu_torch.models import bert, stabletts, vits2  # noqa: E402
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
+from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
 from vosk_tts_tpu_torch.text import multistream_symbol_map, plain_symbol_map  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import save_params  # noqa: E402
@@ -371,24 +390,30 @@ def parity(model, cpu_model):
         check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
 
 
+def trace(run):
+    """torch.profiler over one call of ``run``: (the device's events by
+    kernel, wall us); no events where the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], wall_us
+
+
 def profile_requests(runs):
     """Where the device time goes: torch.profiler over each warm run of
     ``runs`` ((name, callable) pairs). Prints the device-busy share of the
     wall time and the kernels with the most device time (not part of the
     pass criteria: a trace without device events is reported as not
     measured)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name, run in runs:
         run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kern, wall_us = trace(run)
         busy_us = sum(e.self_device_time_total for e in kern)
         if not kern:
             print(f"[profile] {name}: no device events in the trace (device time not measured)")
@@ -523,6 +548,284 @@ def ms_parity(model, cpu_model):
         check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
 
 
+SERVE_RATES = (0.8, 1.0, 1.25)
+
+
+def serve_requests(n, n_speakers):
+    """(text, speaker, rate) for n requests: texts (phrase to paragraph),
+    rates and speakers cycling; the text cleaned as the gRPC server cleans
+    it (strip, em dash to hyphen)."""
+    return [(re.sub("—", "-", TEXTS[i % len(TEXTS)].strip()), i % max(1, n_speakers),
+             SERVE_RATES[i % len(SERVE_RATES)]) for i in range(n)]
+
+
+def instrument(batcher):
+    """Count the batcher's batches (their sizes) and decode groups, and keep
+    each batch's pass-one dict, by wrapping its methods on the instance (as
+    tests/test_serving.py does). Read after the futures are done."""
+    seen = {"batches": [], "groups": 0, "enc": []}
+    run_batch = batcher._run_batch
+    batcher._run_batch = lambda items: (seen["batches"].append(len(items)), run_batch(items))[1]
+    decode_name = "_ms_decode_runner" if batcher.multistream else "_decode_runner"
+    decode = getattr(batcher, decode_name)
+
+    def counted_decode(*args):
+        seen["groups"] += 1
+        return decode(*args)
+
+    setattr(batcher, decode_name, counted_decode)
+    encode_name = "_ms_encode_runner" if batcher.multistream else "_encode_runner"
+    encode = getattr(batcher, encode_name)
+
+    def kept_encode():
+        run = encode()
+
+        def keep(*args):
+            enc = run(*args)
+            seen["enc"].append(enc)
+            return enc
+
+        return keep
+
+    setattr(batcher, encode_name, kept_encode)
+    return seen
+
+
+def drive(batcher, requests, n_threads):
+    """Closed-loop clients: thread j submits requests j, j + n_threads, ...
+    through submit_text, each after the previous one's audio came back.
+    Returns (int16 audio per request, latency per request in s, wall s)."""
+    audios, latency, errors = [None] * len(requests), [0.0] * len(requests), []
+
+    def client(j):
+        try:
+            for i in range(j, len(requests), n_threads):
+                text, sid, rate = requests[i]
+                t0 = time.perf_counter()
+                audios[i] = batcher.submit_text(text, sid=sid, speech_rate=rate).result(timeout=600)
+                latency[i] = time.perf_counter() - t0
+        except Exception as e:  # reported below, fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads), f"serving clients failed: {errors}")
+    return audios, np.asarray(latency), wall
+
+
+def serve_phase(tag, model, kernels, requests, n_threads, per_encode, per_decode, multiple):
+    """``requests`` from ``n_threads`` client threads through
+    BatchSynthesizer(model, max_batch=8) (the server's default, 5 ms wait):
+    once to warm every shape, once measured (launch counts set to 0 just
+    before, read just after, held to ``per_encode``/``per_decode`` launches
+    per encode call and decode group for each kernel named there, 0 for the
+    others), once under torch.profiler for the device's busy share. Returns
+    the measured run's launches."""
+    batcher = BatchSynthesizer(model, max_batch=8)
+    try:
+        _, _, warm = drive(batcher, requests, n_threads)
+        seen = instrument(batcher)
+        for k in kernels.values():
+            k.launches = 0
+        audios, latency, wall = drive(batcher, requests, n_threads)
+        got = {name: k.launches for name, k in kernels.items()}
+        batches, encodes, groups = list(seen["batches"]), len(seen["enc"]), seen["groups"]
+        kern, busy_wall_us = trace(lambda: drive(batcher, requests, n_threads))
+    finally:
+        batcher.close()
+    check(not batcher._thread.is_alive(), f"[{tag}] the batcher's worker did not stop")
+    for (text, _, _), a in zip(requests, audios):
+        check(a is not None and a.dtype == np.int16 and len(a) > 0 and np.any(a != 0)
+              and len(a) % multiple == 0, f"[{tag}] bad audio for {text!r}")
+    expected = {name: per_encode.get(name, 0) * encodes + per_decode.get(name, 0) * groups
+                for name in kernels}
+    audio_s = sum(len(a) for a in audios) / model.sample_rate
+    print(f"[{tag}] {len(requests)} requests from {n_threads} threads, max_batch 8, 5 ms wait: "
+          f"{audio_s:.2f} s audio in {wall:.3f} s wall (warm-up run {warm:.3f} s), "
+          f"{audio_s / wall:.2f} audio s per wall s")
+    print(f"[{tag}] latency p50 {np.percentile(latency, 50):.4f} s, p95 "
+          f"{np.percentile(latency, 95):.4f} s, max {latency.max():.4f} s")
+    print(f"[{tag}] {len(batches)} batches (sizes {batches}, mean {np.mean(batches):.2f}), "
+          f"{encodes} encode calls, {groups} decode groups")
+    if not kern:
+        print(f"[{tag}] profiled run: no device events in the trace (busy share not measured)")
+    else:
+        busy_us = sum(e.self_device_time_total for e in kern)
+        print(f"[{tag}] profiled run: wall {busy_wall_us / 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / busy_wall_us:.1f}%), "
+              f"{sum(e.count for e in kern)} kernel launches")
+    print(f"[{tag}] launches: {got} (expected {expected}: per encode call {per_encode}, per "
+          f"decode group {per_decode})")
+    check(got == expected, f"[{tag}] kernel launches {got} != {expected}")
+    return got
+
+
+def alone(model, text, sid, rate, fb, gen):
+    """One request through the passes at B = 1 and its own text bucket (as
+    Synth.synth_audio runs it), decoded at the frame bucket ``fb`` and
+    generator frames ``gen`` of the batch's decode group; noise 0. Returns
+    (int16 audio, pass-one durations (T,))."""
+    dev = model.device
+    if model.model_type in api.MULTISTREAM_TYPES:
+        x, xl, brt, pde, _ = (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+                              for a in api.multistream_inputs(model, [text]))
+        sid_t = torch.tensor([sid], device=dev)
+        n_steps = int(model.config.get("inference", {}).get("n_timesteps", 10))
+        enc = api.make_multistream_encode_runner(model)(x, xl, sid_t, brt, pde, 1.0 / rate)
+        wav, mel_lengths = api.make_multistream_decode_runner(model, fb, n_steps)(enc, sid_t, None,
+                                                                                 0.0)
+        n = int(mel_lengths[0]) * model.config.get("hop_length", 256)
+        return api.audio_float_to_int16(wav[0, :n].cpu().numpy()), enc["w_round"][0, :, 0].cpu()
+    ids = api.encode_plain(model, text)
+    bucket = next(b for b in api.TEXT_BUCKETS if b >= len(ids))
+    x = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    x[0, :len(ids)] = torch.tensor(ids, device=dev)
+    xl = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+    sid_t = torch.tensor([sid], device=dev)
+    enc = api.make_vits2_encode_runner(model)(x, xl, sid_t, None, 1.0 / rate, 0.0)
+    out = api.make_vits2_decode_runner(model, fb, gen)(enc, sid_t, None, 0.0)
+    n = int(out["wav_lengths"][0])
+    return api.audio_float_to_int16(out["wav"][0, :n, 0].cpu().numpy()), enc["w_ceil"][0].cpu()
+
+
+# More zero frames after an utterance than the generator's (and HiFiGAN
+# v1's) receptive field reaches at the frame rate (about 24 frames by their
+# kernel sizes, dilations and upsampling; tests/test_torch_serving.py's
+# test_decode_tail_sets_last_frames: 16 already leave 1e-6 of the peak).
+RECEPTIVE_FRAMES = 32
+
+
+def serve_parity(tag, model, requests):
+    """``requests`` at noise 0 (and duration noise 0) served in one batch
+    (a 1 s window, so that the four land together), each held to
+    Synth.synth_audio of the same text, speaker and rate on the card: the
+    same length, and within 1e-3 x peak (plus one int16 step: both sides
+    truncate float audio) where the request alone takes the batch's decode
+    geometry or both decodes leave RECEPTIVE_FRAMES zero frames or more
+    after it. The generator and vocoder are not mask-aware: the last frames
+    of an utterance depend on how many zero frames follow it in the decode
+    call (its group's frame bucket or generator frames), so each row is
+    also held, at the same tolerance, to itself alone at the batch's
+    geometry (``alone``). A length that differs is reported with the
+    phones whose durations differ (a duration on an integer's edge: ceil or
+    round of a value within an ulp of it)."""
+    multistream = model.model_type in api.MULTISTREAM_TYPES
+    batcher = BatchSynthesizer(model, max_batch=8, max_wait_ms=1000.0)
+    seen = instrument(batcher)
+    try:
+        futures = [batcher.submit_text(t, sid=s, speech_rate=r, noise_level=0.0,
+                                       duration_noise_level=0.0) for t, s, r in requests]
+        got = [f.result(timeout=600) for f in futures]
+    finally:
+        batcher.close()
+    check(seen["batches"] == [len(requests)], f"[{tag}] not served in one batch: {seen['batches']}")
+    enc = seen["enc"][0]
+    preds = [int(p) for p in enc["pred_frames"][: len(requests)]]
+    lengths = [len(api.encode_multistream(model, t)[0]) if multistream else
+               len(api.encode_plain(model, t)) for t, _, _ in requests]
+    bucket = next(b for b in api.TEXT_BUCKETS if b >= max(lengths))
+    geometry = {i: (fb, gen) for idx, fb, gen in
+                batcher_mod.split_decode_groups(preds, bucket, multistream=multistream) for i in idx}
+    synth = api.Synth(model)
+    durations = enc["w_round"][..., 0] if multistream else enc["w_ceil"]
+    for i, ((text, sid, rate), a) in enumerate(zip(requests, got)):
+        want = synth.synth_audio(text, speaker_id=sid, noise_level=0.0, speech_rate=rate,
+                                 duration_noise_level=0.0)
+        fb, gen = geometry[i]
+        solo, solo_dur = alone(model, text, sid, rate, fb, gen)
+        if not len(a) == len(solo) == len(want):
+            row = durations[i, :lengths[i]].cpu()
+            diff = [(p, float(row[p]), float(solo_dur[p])) for p in range(lengths[i])
+                    if row[p] != solo_dur[p]]
+            raise SmokeFailure(f"[{tag}] {text!r}: {len(a)} samples batched, {len(solo)} alone, "
+                               f"{len(want)} from synth_audio; phones (index, frames batched, "
+                               f"frames alone) {diff}")
+        peak = int(np.abs(want.astype(np.int32)).max())
+        tol = 1e-3 * peak + 1
+        err_solo = int(np.abs(a.astype(np.int32) - solo.astype(np.int32)).max())
+        err_synth = int(np.abs(a.astype(np.int32) - want.astype(np.int32)).max())
+        frames = len(a) // (256 if multistream else model.model_config.upsample_factor)
+        own_bucket = next(b for b in api.TEXT_BUCKETS if b >= lengths[i])
+        if multistream:
+            own = (api.pick_ms_frame_bucket(frames, own_bucket), None)
+        else:
+            own_fb = api.pick_frame_bucket(frames, own_bucket)
+            own = (own_fb, api.pick_gen_frames(frames, own_fb))
+        tail = lambda g: (g[0] if g[1] is None else g[1]) - frames
+        print(f"[{tag}] {text[:32]!r} sid {sid} rate {rate}: {len(a)} samples, peak {peak}, "
+              f"tol {tol:.1f}; batched vs alone at the batch's geometry (frames {fb}, gen {gen}, "
+              f"{tail((fb, gen))} zero frames after): {err_solo}; vs synth_audio (frames {own[0]}, "
+              f"gen {own[1]}, {tail(own)} zero frames after): {err_synth}")
+        check(err_solo <= tol, f"[{tag}] {text!r}: batched differs from alone by {err_solo} > {tol}")
+        if own == (fb, gen) or min(tail(own), tail((fb, gen))) >= RECEPTIVE_FRAMES:
+            check(err_synth <= tol,
+                  f"[{tag}] {text!r}: batched differs from synth_audio by {err_synth} > {tol}")
+
+
+def wire_missing():
+    """The wire's modules (grpc, google.protobuf) that do not import here."""
+    import importlib
+
+    missing = []
+    for name in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    return missing
+
+
+def serve_grpc(model, requests, multiple):
+    """make_server on 127.0.0.1, port 0, and ``requests`` sent at once from
+    as many threads through SynthesizerClient: each answer a WAV (RIFF
+    header, 22050 Hz, mono 16-bit) whose frame count is its data's, a
+    multiple of ``multiple``."""
+    import io
+    import wave
+
+    from vosk_tts_tpu_torch.serving.client import SynthesizerClient
+    from vosk_tts_tpu_torch.serving.server import make_server
+
+    server, servicer, port = make_server(model, interface="127.0.0.1", port=0, threads=8)
+    server.start()
+    client = SynthesizerClient(f"127.0.0.1:{port}")
+    results, errors = [None] * len(requests), []
+
+    def one(i):
+        text, sid, rate = requests[i]
+        try:
+            results[i] = client.synthesize(text, speaker_id=sid, speech_rate=rate)
+        except Exception as e:  # reported below, fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(requests))]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        client.close()
+        server.stop(0).wait(30)
+        servicer.batcher.close()
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads), f"[serve-grpc] failed: {errors}")
+    for (text, _, _), data in zip(requests, results):
+        check(data[:4] == b"RIFF", f"[serve-grpc] no RIFF header for {text!r}")
+        with wave.open(io.BytesIO(data)) as f:
+            shape = (f.getframerate(), f.getnchannels(), f.getsampwidth(), f.getnframes())
+        check(shape[:3] == (22050, 1, 2) and shape[3] == (len(data) - 44) // 2 > 0
+              and shape[3] % multiple == 0, f"[serve-grpc] bad WAV {shape} for {text!r}")
+    print(f"[serve-grpc] {model.model_type}: {len(requests)} concurrent requests on 127.0.0.1:{port} "
+          f"in {wall:.3f} s, WAV frames {[(len(d) - 44) // 2 for d in results]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -625,6 +928,16 @@ def main() -> int:
         profile_requests([("synth_audio", lambda: synth.synth_audio(TEXTS[2])),
                           ("synth_batch16", lambda: synth.synth_batch(TEXTS))])
         parity(model, api.Model(bundle, device="cpu"))
+
+        # 4b. serving: the dynamic batcher at the server's defaults, then the wire
+        reqs = serve_requests(32, cfg.n_speakers)
+        serve_launches = serve_phase("serve", model, kernels, reqs, 16,
+                                     {"banded_attention": 6, "ddsconv": 4}, {"banded_attention": 4},
+                                     cfg.upsample_factor)
+        serve_parity("serve", model, reqs[:4])
+        missing = wire_missing()
+        if not missing:
+            serve_grpc(model, reqs[:4], cfg.upsample_factor)
         del model, synth
     torch.cuda.empty_cache()
 
@@ -651,6 +964,17 @@ def main() -> int:
                           ("ms batch16", lambda: ms_batch(model, TEXTS, synth.generator))])
         ms_parity(model, api.Model(bundle, device="cpu"))
 
+        # 5b. serving the multistream bundle: BERT in the client threads
+        ms_reqs = serve_requests(8, model.model_config.n_spks)
+        serve_launches |= {n: c for n, c in serve_phase(
+            "ms-serve", model, kernels, ms_reqs, 8, {"global_attention_rope": 8},
+            {"global_attention_rope": 60}, 256).items() if n in glo}
+        serve_parity("ms-serve", model, ms_reqs[:4])
+        if missing:
+            print(f"[serve-grpc] not run: {missing[0]} is not installed")
+        else:
+            serve_grpc(model, ms_reqs[:1], 256)
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -663,6 +987,7 @@ def main() -> int:
                                       "not in its time)"}
     record = [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
                "replaces": replaces[name], "launches": launches[name],
+               "serve_launches": serve_launches[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],

@@ -105,12 +105,26 @@ def pick_ms_frame_bucket(pred_frames: int, text_bucket: int) -> int:
 
 
 def list_models():
-    """Locally installed bundles (the model registry is not ported)."""
+    """The registry's model list when VOSK_TTS_REGISTRY is set, then the
+    locally installed bundles."""
+    from . import registry
+
+    for m in registry.model_list():
+        print(m["name"])
     for d in MODEL_DIRS:
         if d and Path(d).is_dir():
             for name in sorted(os.listdir(d)):
                 if (Path(d) / name / "config.json").exists():
                     print(name)
+
+
+def list_languages():
+    """The registry's languages ("ru" when no registry is set)."""
+    from . import registry
+
+    langs = {m.get("lang") for m in registry.model_list()} or {"ru"}
+    for lang in sorted(lang for lang in langs if lang):
+        print(lang)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,10 +136,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Model:
-    def __init__(self, model_path=None, model_name=None, *, device=None):
+    """One bundle on one device. Without ``model_path`` the bundle is found
+    by ``model_name`` or ``lang`` in MODEL_DIRS, else fetched from the
+    registry (registry.resolve)."""
+
+    def __init__(self, model_path=None, model_name=None, lang=None, *, device=None):
         self.device = resolve_device(device)
         if model_path is None:
-            model_path = self._find(model_name)
+            model_path = self._find(model_name, lang)
         model_path = Path(model_path)
         logging.info("Loading model from %s", model_path)
 
@@ -176,11 +194,10 @@ class Model:
         return {"matcha": self.matcha.params, "vocoder": self.vocoder.params}
 
     @staticmethod
-    def _find(model_name):
-        for d in MODEL_DIRS:
-            if d and model_name and (Path(d) / model_name / "config.json").exists():
-                return Path(d) / model_name
-        raise FileNotFoundError(f"model {model_name!r} not found in {[d for d in MODEL_DIRS if d]}")
+    def _find(model_name, lang):
+        from . import registry
+
+        return registry.resolve(model_name, lang, MODEL_DIRS)
 
 
 def audio_float_to_int16(audio: np.ndarray, max_wav_value: float = 32767.0) -> np.ndarray:
@@ -242,6 +259,100 @@ def multistream_inputs(model: Model, texts):
         if extras is not None:
             pde[i, :t] = np.asarray(extras, np.float32)[:t]
     return x, x_lengths, bert, pde, bucket
+
+
+# ---------------------------------------------------------------------------
+# Runner factories (the serving batcher's passes; vosk_tts_tpu/api.py names)
+# ---------------------------------------------------------------------------
+# Each is a closure over the Model that runs under torch.inference_mode().
+# Per-request knobs (noise, inv_rate, dur_noise, temperature, length_scale)
+# are floats or (B, 1, 1) tensors on the model's device; ``generator`` is a
+# torch.Generator on that device (or None).
+
+
+def make_vits2_runner(model: Model, max_frames: int):
+    """Single-pass batched VITS2 inference at ``max_frames``; returns the
+    ``vits2.infer`` dict (wav (B, samples, 1), wav_lengths, ...)."""
+    syn = model.synthesizer
+
+    @torch.inference_mode()
+    def run(x, x_lengths, sid, generator, noise, inv_rate, dur_noise):
+        return syn.infer(x, x_lengths, sid, generator=generator, max_frames=max_frames,
+                         noise_scale=noise, length_scale=inv_rate, noise_scale_w=dur_noise)
+
+    return run
+
+
+def make_vits2_encode_runner(model: Model):
+    """Pass one of the split serving path: encoder + SDP. The returned dict
+    (tensors on the device) feeds the decode runner directly."""
+    syn = model.synthesizer
+
+    @torch.inference_mode()
+    def run(x, x_lengths, sid, generator, inv_rate, dur_noise):
+        return syn.encode_for_infer(x, x_lengths, sid, generator=generator,
+                                    length_scale=inv_rate, noise_scale_w=dur_noise)
+
+    return run
+
+
+def make_vits2_decode_runner(model: Model, max_frames: int, gen_frames: int | None = None):
+    """Pass two: alignment + flow + generator from pass one's dict;
+    ``gen_frames`` slices the generator input below the frame bucket."""
+    syn = model.synthesizer
+
+    @torch.inference_mode()
+    def run(enc, sid, generator, noise):
+        return syn.decode_from_durations(enc, sid, generator=generator, max_frames=max_frames,
+                                         noise_scale=noise, gen_frames=gen_frames)
+
+    return run
+
+
+def _vocoder_apply(model: Model, mel):
+    return voc.hifigan_apply(model.vocoder.params, mel, model.vocoder_config)
+
+
+def make_multistream_runner(model: Model, max_frames: int, n_timesteps: int):
+    """Single-pass batched StableTTS + vocoder at ``max_frames`` (the
+    VOSK_TTS_ADAPTIVE=0 path); returns (wav (B, samples), mel_lengths)."""
+
+    @torch.inference_mode()
+    def run(x, x_lengths, sid, bert, pde, generator, temperature, length_scale, dp_temperature):
+        # dp_temperature: StableTTS durations are deterministic (sigmoid sums)
+        out = model.matcha.synthesise(x, x_lengths, sid, bert, max_frames=max_frames,
+                                      n_timesteps=n_timesteps, temperature=temperature,
+                                      length_scale=length_scale, phone_duration_extra=pde,
+                                      generator=generator)
+        return _vocoder_apply(model, out["mel"]), out["mel_lengths"]
+
+    return run
+
+
+def make_multistream_encode_runner(model: Model):
+    """Pass one of the multistream split path: both DiT text encoders and
+    the sigmoid-sum durations; the dict feeds the decode runner."""
+
+    @torch.inference_mode()
+    def run(x, x_lengths, sid, bert, pde, length_scale):
+        return model.matcha.encode_for_synth(x, x_lengths, sid, bert, length_scale=length_scale,
+                                             phone_duration_extra=pde)
+
+    return run
+
+
+def make_multistream_decode_runner(model: Model, max_frames: int, n_timesteps: int):
+    """Pass two: alignment + CFM ODE + vocoder from pass one's dict;
+    returns (wav (B, samples), mel_lengths)."""
+
+    @torch.inference_mode()
+    def run(enc, sid, generator, temperature):
+        out = model.matcha.decode_from_durations(enc, sid, max_frames=max_frames,
+                                                 n_timesteps=n_timesteps,
+                                                 temperature=temperature, generator=generator)
+        return _vocoder_apply(model, out["mel"]), out["mel_lengths"]
+
+    return run
 
 
 class Synth:
@@ -328,7 +439,7 @@ class Synth:
                                                 phone_duration_extra=pde)
             max_frames = pick_ms_frame_bucket(int(enc["pred_frames"].max()), bucket)
             out = model.matcha.decode_from_durations(enc, sid, max_frames=max_frames, **kw)
-        wav = voc.hifigan_apply(model.vocoder.params, out["mel"], model.vocoder_config)
+        wav = _vocoder_apply(model, out["mel"])
         n = int(out["mel_lengths"][0]) * model.config.get("hop_length", 256)
         return wav[0, :n].cpu().numpy()
 

@@ -273,10 +273,12 @@ def time_grid(n_timesteps: int) -> np.ndarray:
 
 
 def cfm_solve(params, cfg: StableTTSConfig, mu, mask, *, n_timesteps: int,
-              temperature: float = 1.0, spks=None, guidance_scale: float = 0.5,
+              temperature: float | torch.Tensor = 1.0, spks=None, guidance_scale: float = 0.5,
               solver: str = "euler", z=None, generator=None):
     """z ~ N(0, 1) * temperature (or the given ``z``), then fixed-step Euler
-    or Heun over :func:`time_grid`."""
+    or Heun over :func:`time_grid`. ``temperature`` is a float or a (B, 1, 1)
+    tensor: z is drawn and scaled at the B rows before the CFG batch doubles
+    them, so row i of the doubled batch and row B + i share row i's z."""
     b, t_len, _ = mu.shape
     if z is None:
         z = torch.randn((b, t_len, cfg.n_feats), generator=generator, device=mu.device,
@@ -303,11 +305,12 @@ def cfm_solve(params, cfg: StableTTSConfig, mu, mask, *, n_timesteps: int,
 
 
 def encode_for_synth(params, cfg: StableTTSConfig, x, x_lengths, spks_id, bert, *,
-                     length_scale: float = 1.0, phone_duration_extra=None):
+                     length_scale: float | torch.Tensor = 1.0, phone_duration_extra=None):
     """Pass one of the split serving path: the 5-stream text encoder (both
     DiT stacks) and the sigmoid-sum durations. Returns a dict (xc, mu_mel,
     x_mask, w_round, pde, pred_frames) for :func:`decode_from_durations`;
-    ``pred_frames`` (B,) int32 is the unclipped total frame count."""
+    ``pred_frames`` (B,) int32 is the unclipped total frame count.
+    ``length_scale`` is a float or a (B, 1, 1) tensor, one value a row."""
     sid = spks_id.long()
     spks, dur_spks = params["spk_emb"][sid], params["dur_spk_emb"][sid]
     xc, mu_mel, mu_dp, x_mask = text_encoder_apply(params["text_encoder"], cfg, x, x_lengths,
@@ -325,11 +328,12 @@ def encode_for_synth(params, cfg: StableTTSConfig, x, x_lengths, spks_id, bert, 
 
 
 def decode_from_durations(params, cfg: StableTTSConfig, enc: dict, spks_id, *, max_frames: int,
-                          n_timesteps: int = 10, temperature: float = 1.0,
+                          n_timesteps: int = 10, temperature: float | torch.Tensor = 1.0,
                           guidance_scale: float = 0.5, solver: str = "euler", z=None,
                           generator=None):
     """Pass two: alignment expansion, the CFM ODE, pause replacement and
-    denormalization at a ``max_frames`` bucket."""
+    denormalization at a ``max_frames`` bucket (``temperature`` as in
+    :func:`cfm_solve`)."""
     spks = params["spk_emb"][spks_id.long()]
     xc, mu_mel, x_mask = enc["xc"], enc["mu_mel"], enc["x_mask"]
     w_round, pde = enc["w_round"], enc["pde"]
@@ -354,7 +358,8 @@ def decode_from_durations(params, cfg: StableTTSConfig, enc: dict, spks_id, *, m
 
 
 def synthesise(params, cfg: StableTTSConfig, x, x_lengths, spks_id, bert, *, max_frames: int,
-               n_timesteps: int = 10, temperature: float = 1.0, length_scale: float = 1.0,
+               n_timesteps: int = 10, temperature: float | torch.Tensor = 1.0,
+               length_scale: float | torch.Tensor = 1.0,
                guidance_scale: float = 0.5, phone_duration_extra=None, solver: str = "euler",
                z=None, generator=None):
     """The single-pass path at a fixed ``max_frames``: :func:`encode_for_synth`

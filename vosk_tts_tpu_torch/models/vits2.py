@@ -240,10 +240,12 @@ def _speaker(params, cfg, sid):
 
 
 def encode_for_infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, generator=None,
-                     length_scale=1.0, noise_scale_w=0.8):
+                     length_scale: float | torch.Tensor = 1.0,
+                     noise_scale_w: float | torch.Tensor = 0.8):
     """Pass one of the split serving path: text encoder + SDP. Returns a dict
     (m_p, logs_p, x_mask, w_ceil, pred_frames) for
-    :func:`decode_from_durations`."""
+    :func:`decode_from_durations`. Each scale is a float or a (B, 1, 1)
+    tensor, one value a row (the batcher's per-request knobs)."""
     check_ported(cfg)
     g = _speaker(params, cfg, sid)
     x, m_p, logs_p, x_mask = text_encoder_apply(params["enc_p"], cfg, x_ids, x_lengths,
@@ -257,10 +259,12 @@ def encode_for_infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, ge
 
 
 def decode_from_durations(params, cfg: VITS2Config, enc: dict, sid=None, *, generator=None,
-                          max_frames: int, noise_scale=0.667, gen_frames: int | None = None):
+                          max_frames: int, noise_scale: float | torch.Tensor = 0.667,
+                          gen_frames: int | None = None):
     """Pass two: alignment expansion + reverse flow + decoder. ``gen_frames``
     (<= max_frames) runs the generator on only the first frames; the caller
-    picks it >= every item's frame count."""
+    picks it >= every item's frame count. ``noise_scale`` is a float or a
+    (B, 1, 1) tensor."""
     g = _speaker(params, cfg, sid)
     m_p, logs_p, x_mask, w_ceil = enc["m_p"], enc["logs_p"], enc["x_mask"], enc["w_ceil"]
     y_lengths = w_ceil.sum(dim=-1).clamp(1, max_frames).to(torch.int32)
@@ -283,8 +287,10 @@ def decode_from_durations(params, cfg: VITS2Config, enc: dict, sid=None, *, gene
 
 
 def infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, generator=None,
-          max_frames: int, noise_scale=0.667, length_scale=1.0, noise_scale_w=0.8):
-    """Single-pass inference at a fixed frame capacity."""
+          max_frames: int, noise_scale: float | torch.Tensor = 0.667,
+          length_scale: float | torch.Tensor = 1.0, noise_scale_w: float | torch.Tensor = 0.8):
+    """Single-pass inference at a fixed frame capacity (scales as in
+    :func:`encode_for_infer`)."""
     enc = encode_for_infer(params, cfg, x_ids, x_lengths, sid, generator=generator,
                            length_scale=length_scale, noise_scale_w=noise_scale_w)
     return decode_from_durations(params, cfg, enc, sid, generator=generator,
@@ -292,7 +298,8 @@ def infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, generator=Non
 
 
 def predict_frames(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, generator=None,
-                   length_scale=1.0, noise_scale_w=0.8):
+                   length_scale: float | torch.Tensor = 1.0,
+                   noise_scale_w: float | torch.Tensor = 0.8):
     """Predicted total frames (B,) int32, unclipped: pass one only."""
     return encode_for_infer(params, cfg, x_ids, x_lengths, sid, generator=generator,
                             length_scale=length_scale, noise_scale_w=noise_scale_w)["pred_frames"]
