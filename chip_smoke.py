@@ -46,6 +46,12 @@ result line is printed):
    decode geometry (serve_parity); then ``[serve-grpc]``, where grpc and
    protobuf import: make_server on 127.0.0.1 and 4 concurrent requests
    through SynthesizerClient (WAV header, 22050 Hz, frame count);
+   4c. VITS2 voice conversion (``[vits2-vc]``): Synthesizer.voice_conversion
+   on the full-width bundle, speaker 0 -> 3, y the port's log-mel of two
+   ``[main]`` waveforms (one padded row in a batch of two); 8 banded
+   attention launches a call (the 4 flows forward and in reverse), the
+   card's waveforms held to the CPU's as in ``[parity]``, and the banded
+   attention kernel against its plain version at that shape;
 5. multistream main path: a full-width multistream_v3 bundle
    (StableTTSConfig(), HiFiGAN v1, ruBERT-base-wide BertConfig(), random
    weights from a seed with the adaLN-Zero projections and CFG fakes
@@ -61,7 +67,14 @@ result line is printed):
    runs in the client threads), launches 8 global RoPE attention per
    encode call and 60 per decode group; the parity of 4 of them at
    temperature 0; ``[serve-grpc]``: one multistream request over the wire
-   (or ``[serve-grpc] not run: <module> is not installed``).
+   (or ``[serve-grpc] not run: <module> is not installed``);
+6. voice conversion (``[vc]``): pipelines.convert_voice at full width
+   (ContentVec/HuBERT 12 x 768 and QuickVC with its 512-channel ms-iSTFT
+   generator, random weights from the seed), a 10 s source and a 5 s
+   target at 16 kHz: RTF, each stage's time between CUDA events, the busy
+   share and launches under torch.profiler, no hand-written kernel
+   launched; then a 3 s source on the card and on the CPU within 1e-3 x
+   peak, equal lengths.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -87,18 +100,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
-from vosk_tts_tpu_torch.models import bert, stabletts, vits2  # noqa: E402
+from vosk_tts_tpu_torch import pipelines  # noqa: E402
+from vosk_tts_tpu_torch.models import bert, hubert, quickvc, stabletts, vits2  # noqa: E402
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from vosk_tts_tpu_torch.ops.stft import mel_spectrogram  # noqa: E402
 from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
 from vosk_tts_tpu_torch.text import multistream_symbol_map, plain_symbol_map  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import save_params  # noqa: E402
-from vosk_tts_tpu_torch.utils.params import (bert_init, hifigan_init, matcha_init,  # noqa: E402
-                                             perturb_matcha_zero_init, perturb_zero_init,
-                                             synthesizer_init)
+from vosk_tts_tpu_torch.utils.params import (bert_init, hifigan_init, hubert_init,  # noqa: E402
+                                             matcha_init, perturb_matcha_zero_init,
+                                             perturb_zero_init, quickvc_init, synthesizer_init,
+                                             to_port_layout)
 
 # H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
 # f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
@@ -318,13 +334,14 @@ def write_bundle(path, cfg, tree):
 
 def main_path(model):
     """3 requests through Synth.synth_audio and one synth_batch of 16 texts.
-    Returns the number of synthesis calls."""
+    Returns the number of synthesis calls and the 3 requests' audio."""
     synth = api.Synth(model)
     up = model.model_config.upsample_factor
-    audio_s, elapsed_s, calls = 0.0, 0.0, 0
+    audio_s, elapsed_s, calls, audios = 0.0, 0.0, 0, []
     for text in TEXTS[:3]:
         t0 = time.perf_counter()
         audio = synth.synth_audio(text)
+        audios.append(audio)
         dt = time.perf_counter() - t0
         calls += 1
         dur = len(audio) / model.sample_rate
@@ -344,7 +361,7 @@ def main_path(model):
     check(len(batch) == len(TEXTS) and all(
         a.dtype == np.int16 and len(a) > 0 and np.any(a != 0) and len(a) % up == 0
         for a in batch), "bad batch audio")
-    return calls
+    return calls, audios
 
 
 def parity(model, cpu_model):
@@ -826,6 +843,168 @@ def serve_grpc(model, requests, multiple):
           f"in {wall:.3f} s, WAV frames {[(len(d) - 44) // 2 for d in results]}")
 
 
+def vits2_vc(model, cpu_model, kernels, long_audio, short_audio):
+    """``[vits2-vc]``: Synthesizer.voice_conversion on the full-width VITS2
+    bundle, speaker 0 -> 3. y is the port's log-mel (the bundle's
+    spec_channels bins; n_fft 1024, hop 256 at 22.05 kHz) of two ``[main]``
+    waveforms as a batch of two, the shorter one padded; the same posterior
+    noise on the card and on the CPU. Three calls on the card with the
+    launch counts set to 0 just before and read just after (8 banded
+    attention launches a call: 4 flows x 2 directions x 1 layer, nothing
+    else), the last two timed; the card's waveforms held to the CPU's over
+    each row's valid samples as ``[parity]`` holds them. Then the banded
+    attention kernel against its plain version at this path's shape.
+    Returns (launches, that kernel case)."""
+    cfg = model.model_config
+    up = cfg.upsample_factor
+    mels = [mel_spectrogram(torch.as_tensor(a.astype(np.float32) / 32768.0)[None], 1024,
+                            cfg.spec_channels, 22050, 256, 1024, 0.0, None)[0]
+            for a in (long_audio, short_audio)]
+    t, t_short = mels[0].shape[0], mels[1].shape[0]
+    check(t_short < t, f"[vits2-vc] the rows are not of two lengths: {t}, {t_short}")
+    y = torch.zeros(2, t, cfg.spec_channels)
+    y[0], y[1, :t_short] = mels[0], mels[1]
+    lengths = torch.tensor([t, t_short], dtype=torch.int32)
+    sid_src, sid_tgt = torch.tensor([0, 0]), torch.tensor([3, 3])
+    noise = torch.randn(2, t, cfg.inter_channels, generator=torch.Generator().manual_seed(SEED + 7))
+    args = lambda dev: [a.to(dev) for a in (y, lengths, sid_src, sid_tgt)]
+    dev = model.device
+    for k in kernels.values():
+        k.launches = 0
+    walls = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav, mask = model.synthesizer.voice_conversion(*args(dev), noise=noise.to(dev))
+            wav = wav.cpu()
+            walls.append(time.perf_counter() - t0)
+    got = {name: k.launches for name, k in kernels.items()}
+    expected = {name: 0 for name in kernels} | {"banded_attention": 8 * 3}
+    audio_s = (t + t_short) * up / 22050
+    print(f"[vits2-vc] voice_conversion B2 (frames {t} and {t_short}, speaker 0 -> 3): "
+          f"{audio_s:.2f} s audio; wall {', '.join(f'{w:.4f}' for w in walls)} s "
+          f"(the first warms up), RTF {min(walls[1:]) / audio_s:.4f}")
+    print(f"[vits2-vc] launches over 3 calls: {got} (expected {expected})")
+    check(got == expected, f"[vits2-vc] kernel launches {got} != {expected}")
+    with torch.inference_mode():
+        want, mask_c = cpu_model.synthesizer.voice_conversion(*args("cpu"), noise=noise)
+    check(wav.shape == want.shape == (2, t * up, 1) and np.isfinite(wav.numpy()).all(),
+          f"[vits2-vc] bad output {tuple(wav.shape)}")
+    check(torch.equal(mask.cpu(), mask_c), "[vits2-vc] the masks differ")
+    for i, n in enumerate((t * up, t_short * up)):
+        err = float((wav[i, :n] - want[i, :n]).abs().max())
+        peak = float(want[i, :n].abs().max())
+        tol = 1e-3 * peak + 1e-6
+        print(f"[vits2-vc] row {i}: {n} samples, card vs CPU {err:.3e} (peak {peak:.4f}, "
+              f"tol {tol:.3e})")
+        check(peak > 0 and err <= tol, f"[vits2-vc] row {i} differs by {err} > {tol}")
+    with torch.inference_mode():
+        profile_requests([("vits2-vc voice_conversion", lambda: model.synthesizer.voice_conversion(
+            *args(dev), noise=noise.to(dev)))])
+    return got, attention_case(2, t, [t, t_short], 50, 20, 21)
+
+
+def vc_phase(kernels):
+    """``[vc]``: pipelines.convert_voice at full width: HubertConfig() (12 x
+    768, 512-channel extractor) and QuickVCConfig() (hidden 192, 16
+    posterior WN layers, gin 256, 512-channel ms-iSTFT generator at 16 kHz,
+    3 x 256 LSTM), random weights from the seed (couplings perturbed), a
+    10 s source and a 5 s target at 16 kHz. One warm call, three timed
+    (host clock; RTF over the source's seconds), the stages between CUDA
+    events, one call under torch.profiler (busy share, launches); no
+    hand-written kernel on this path (HuBERT's attention is a plain
+    matmul, as in the JAX package). Then a 3 s source on the card and on
+    the CPU with the same posterior noise: equal lengths (320 samples a
+    ContentVec frame), within 1e-3 x peak."""
+    hcfg, qcfg = hubert.HubertConfig(), quickvc.QuickVCConfig()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    htree = to_port_layout(hubert_init(hcfg, seed=SEED + 4))
+    qtree = to_port_layout(perturb_zero_init(quickvc_init(qcfg, seed=SEED + 5), seed=SEED + 6))
+    hub_c, vc_c = hubert.Hubert(hcfg, htree), quickvc.QuickVC(qcfg, qtree)
+    hub, vc = hubert.Hubert(hcfg, htree).to(dev), quickvc.QuickVC(qcfg, qtree).to(dev)
+    del htree, qtree
+    n_params = lambda m: sum(b.numel() for b in m.buffers())
+    print(f"[vc] HuBERT {n_params(hub) / 1e6:.1f} M and QuickVC {n_params(vc) / 1e6:.1f} M "
+          f"weights built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 8)
+    src = (rng.standard_normal(10 * 16000) * 0.1).astype(np.float32)
+    tgt = (rng.standard_normal(5 * 16000) * 0.1).astype(np.float32)
+    frames = hcfg.n_frames(len(src))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    convert = lambda s, **kw: pipelines.convert_voice(vc.params, qcfg, hub.params, hcfg, s, tgt,
+                                                      **kw)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    wav = convert(src, generator=gen)
+    first = time.perf_counter() - t0
+    check(wav.shape == (frames * 320,) and np.isfinite(wav).all() and np.abs(wav).max() > 0,
+          f"[vc] bad waveform {wav.shape} (expected {frames * 320} samples)")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        convert(src, generator=gen)
+        walls.append(time.perf_counter() - t0)
+    got = {name: k.launches for name, k in kernels.items()}
+    print(f"[vc] convert_voice 10 s source ({frames} ContentVec frames), 5 s target: "
+          f"{len(wav)} samples; wall {first:.4f} s first, then "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s, RTF {min(walls) / 10:.4f}")
+    check(all(v == 0 for v in got.values()), f"[vc] a hand-written kernel launched: {got}")
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    noise = torch.randn(1, frames, qcfg.inter_channels, generator=gen, device=dev)
+    with torch.inference_mode():
+        s_t, t_t = (torch.as_tensor(a, device=dev)[None] for a in (src, tgt))
+        v = qcfg.as_vits2()
+        torch.cuda.synchronize()
+        ev[0].record()
+        c = hub(s_t)
+        ev[1].record()
+        g = vc.embed_utterance(mel_spectrogram(t_t, 1280, 80, 16000, 320, 1280, 0.0, None))
+        g = g[:, None, :]
+        ev[2].record()
+        z_p, _, _, mask = vits2.posterior_apply(
+            vc.params["enc_p"], qcfg.as_vits2(spec_channels=qcfg.ssl_dim, gin=0), c,
+            torch.tensor([frames], dtype=torch.int32, device=dev), noise=noise)
+        z = vits2.flow_block_apply(vc.params["flow"], v, z_p, mask, g, reverse=True)
+        ev[3].record()
+        staged = vits2.generator_apply(vc.params["dec"], v, z * mask, g)[0, :, 0]
+        ev[4].record()
+    torch.cuda.synchronize()
+    stages = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("hubert", "speaker embedding", "posterior + flow", "generator"))}
+    whole = convert(src, noise=noise)
+    err = float(np.abs(staged.cpu().numpy() - whole).max())
+    print(f"[vc] stages between CUDA events (ms; a stage's span on the device, gaps included): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; staged run vs convert_voice {err:.3e}")
+    check(err <= 1e-5 * float(np.abs(whole).max()), f"[vc] staged run differs by {err}")
+
+    profile_requests([("vc convert_voice", lambda: convert(src, generator=gen))])
+    print(f"[vc] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    src3 = src[:3 * 16000]
+    frames3 = hcfg.n_frames(len(src3))
+    noise3 = torch.randn(1, frames3, qcfg.inter_channels,
+                         generator=torch.Generator().manual_seed(SEED + 9))
+    card = convert(src3, noise=noise3.to(dev))
+    t0 = time.perf_counter()
+    cpu = pipelines.convert_voice(vc_c.params, qcfg, hub_c.params, hcfg, src3, tgt, device="cpu",
+                                  noise=noise3)
+    cpu_s = time.perf_counter() - t0
+    peak = float(np.abs(cpu).max())
+    err = float(np.abs(card - cpu).max()) if card.shape == cpu.shape else float("inf")
+    tol = 1e-3 * peak
+    print(f"[vc] parity, 3 s source: card {card.shape[0]} and CPU {cpu.shape[0]} samples "
+          f"(expected {frames3 * 320}), max abs err {err:.3e} (peak {peak:.4f}, tol {tol:.3e}); "
+          f"the CPU took {cpu_s:.1f} s")
+    check(card.shape == cpu.shape == (frames3 * 320,) and peak > 0 and err <= tol,
+          f"[vc] card vs CPU: {err} > {tol} or lengths differ")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -916,7 +1095,7 @@ def main() -> int:
         check(model.device.type == "cuda", "Model() did not default to the card")
         for k in kernels.values():
             k.launches = 0
-        calls = main_path(model)
+        calls, audios = main_path(model)
         got = {name: k.launches for name, k in kernels.items()}
         expected = {name: 0 for name in kernels} | {"banded_attention": 10 * calls,
                                                     "ddsconv": 4 * calls}
@@ -927,7 +1106,8 @@ def main() -> int:
         synth = api.Synth(model)
         profile_requests([("synth_audio", lambda: synth.synth_audio(TEXTS[2])),
                           ("synth_batch16", lambda: synth.synth_batch(TEXTS))])
-        parity(model, api.Model(bundle, device="cpu"))
+        cpu_model = api.Model(bundle, device="cpu")
+        parity(model, cpu_model)
 
         # 4b. serving: the dynamic batcher at the server's defaults, then the wire
         reqs = serve_requests(32, cfg.n_speakers)
@@ -938,7 +1118,15 @@ def main() -> int:
         missing = wire_missing()
         if not missing:
             serve_grpc(model, reqs[:4], cfg.upsample_factor)
-        del model, synth
+
+        # 4c. VITS2 voice conversion: the banded attention in both flow directions
+        longest, second = sorted(audios, key=len)[:0:-1]
+        vc_launches, vc_case = vits2_vc(model, cpu_model, kernels, longest, second)
+        print(f"[kernel] banded_attention {json.dumps(vc_case)} tol {att_tol}")
+        check(np.isfinite(vc_case["max_abs_err"]) and vc_case["max_abs_err"] <= att_tol,
+              f"banded_attention at {vc_case['shape']} disagrees with its plain version")
+        att.append(vc_case)
+        del model, synth, cpu_model
     torch.cuda.empty_cache()
 
     # 5. the multistream_v3 main path at full width, then the card against the CPU
@@ -975,6 +1163,9 @@ def main() -> int:
         else:
             serve_grpc(model, ms_reqs[:1], 256)
 
+    # 6. voice conversion: full-width ContentVec/HuBERT + QuickVC
+    vc_phase(kernels)
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -987,7 +1178,7 @@ def main() -> int:
                                       "not in its time)"}
     record = [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
                "replaces": replaces[name], "launches": launches[name],
-               "serve_launches": serve_launches[name],
+               "serve_launches": serve_launches[name], "vc_launches": vc_launches[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],

@@ -119,7 +119,7 @@ def test_flow_reverse(model):
     mask = (np.arange(100)[None, :] < np.array([[100], [61]])).astype(np.float32)[..., None]
     g = _speaker(tree, np.array([0, 2]))
     want = jv.flow_block_apply(tree["flow"], jcfg, z * mask, mask, g, reverse=True)
-    got = tv.flow_block_apply(tp["flow"], tcfg, _t(z * mask), _t(mask), _t(g))
+    got = tv.flow_block_apply(tp["flow"], tcfg, _t(z * mask), _t(mask), _t(g), reverse=True)
     assert float(np.abs(np.asarray(want) - z * mask).max()) > 1e-3  # the flow is not an identity
     _close(got, want)
 
@@ -128,7 +128,7 @@ def test_generator(model):
     jcfg, tcfg, tree, tp = model
     z = np.random.default_rng(3).standard_normal((2, 40, 32)).astype(np.float32)
     want, _ = jv.generator_apply(tree["dec"], jcfg, z, fused_tail=True)
-    got = tv.generator_apply(tp["dec"], tcfg, _t(z))
+    got = tv.generator_apply(tp["dec"], tcfg, _t(z), fused_tail=True)
     assert got.shape == want.shape == (2, 40 * tcfg.upsample_factor, 1)
     _close(got, want)
 
@@ -168,6 +168,34 @@ def test_encode_and_decode(model):
                    noise_scale_w=0.0)
     np.testing.assert_array_equal(got["wav_lengths"].numpy(), np.asarray(want["wav_lengths"]))
     _close(got["wav"][:, :n], np.asarray(want["wav"])[:, :n])
+
+
+def test_decode_with_decoder_cond(model):
+    """A bundle whose decoder carries the speaker ``cond`` conv (the
+    reference Generator has one whenever gin_channels > 0): the serving
+    decode adds it before the upsampling stack, as the JAX package does."""
+    jcfg, tcfg, tree, _ = model
+    rng = np.random.default_rng(6)
+    uic, gin = jcfg.upsample_initial_channel, jcfg.gin_channels
+    tree = {**tree, "dec": {**tree["dec"], "cond": {
+        "w": (rng.standard_normal((1, gin, uic)) * gin**-0.5).astype(np.float32),
+        "b": (rng.standard_normal(uic) * 0.1).astype(np.float32)}}}
+    tp = to_torch(to_port_layout(tree), "cpu")
+    ids, lengths, sid = _inputs([32, 21], 32, 4)
+    key = jax.random.PRNGKey(5)
+    enc_j = jv.encode_for_infer(tree, jcfg, ids, lengths, sid, rng=key, noise_scale_w=0.0)
+    fb = japi.pick_frame_bucket(int(np.max(np.asarray(enc_j["pred_frames"]))), 32)
+    want = jv.decode_from_durations(tree, jcfg, enc_j, sid, rng=key, max_frames=fb,
+                                    noise_scale=0.0)
+    no_cond = jv.decode_from_durations({**tree, "dec": {k: v for k, v in tree["dec"].items()
+                                                        if k != "cond"}},
+                                       jcfg, enc_j, sid, rng=key, max_frames=fb, noise_scale=0.0)
+    got = tv.decode_from_durations(tp, tcfg, {k: _t(v) for k, v in enc_j.items()}, _t(sid),
+                                   max_frames=fb, noise_scale=0.0)
+    n = int(np.max(np.asarray(want["wav_lengths"])))
+    want_wav = np.asarray(want["wav"])[:, :n]
+    assert np.abs(want_wav - np.asarray(no_cond["wav"])[:, :n]).max() > 1e-3  # cond is used
+    _close(got["wav"][:, :n], want_wav)
 
 
 def test_synth_audio_end_to_end(bundle):

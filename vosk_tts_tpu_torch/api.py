@@ -1,5 +1,7 @@
 """Public API of the port: ``Model`` + ``Synth`` (vosk_tts_tpu/api.py), for
-plain ``vits2`` bundles and multistream (StableTTS) bundles.
+plain ``vits2`` bundles and multistream (StableTTS) bundles. As in the JAX
+package, a bundle of any ``model_type`` other than ``multistream_v1/v2/v3``
+loads as a VITS2 bundle.
 
 A bundle directory holds ``config.json`` (``model_type``, ``phoneme_id_map``,
 ``inference`` defaults, the ``model`` architecture block, ``sample_rate``),
@@ -151,8 +153,6 @@ class Model:
         with open(model_path / "config.json", encoding="utf-8") as f:
             self.config = json.load(f)
         self.model_type = self.config.get("model_type", "vits2")
-        if self.model_type != "vits2" and self.model_type not in MULTISTREAM_TYPES:
-            raise NotImplementedError(f"model_type {self.model_type!r} is not ported")
         dic_path = model_path / "dictionary"
         self.dic = load_dictionary(dic_path) if dic_path.exists() else {}
         self.sample_rate = self.config.get("sample_rate", 22050)
@@ -478,10 +478,10 @@ class Synth:
     def synth_batch(self, texts, speaker_ids=None, noise_level=None, speech_rate=None,
                     duration_noise_level=None, scale=None):
         """Many utterances as one batch on the model's device (one encode
-        pass, one decode pass). Returns a list of int16 arrays. Plain
-        vits2 bundles only, as in the JAX package."""
-        if self.model.model_type != "vits2":
-            raise NotImplementedError("synth_batch runs plain vits2 bundles only")
+        pass, one decode pass). Returns a list of int16 arrays. VITS2
+        bundles only, as in the JAX package."""
+        if self.model.model_type in MULTISTREAM_TYPES:
+            raise NotImplementedError("synth_batch runs VITS2 bundles only")
         noise_level, speech_rate, duration_noise_level, scale = self._defaults(
             noise_level, speech_rate, duration_noise_level, scale)
         if speaker_ids is None:

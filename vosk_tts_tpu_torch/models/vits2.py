@@ -1,12 +1,15 @@
 """MB-iSTFT-VITS2 inference (vosk_tts_tpu/models/vits2.py), channels-last.
 
-The port runs the shipped serving configuration: ``pre_conv2``
-transformer flows, the ``mb_istft`` decoder with the fused tail
-(``istft_mode`` "torch"), and the stochastic duration predictor. The
-generator also runs as the HiFiGAN v1 vocoder of the multistream bundles
-(``decoder_type="hifigan"`` without speaker conditioning,
-models/vocoder.py). Other flow types and decoders, the deterministic
-duration predictor and the posterior encoder raise NotImplementedError.
+The serving passes (``Synthesizer``) run the shipped configuration:
+``pre_conv2`` transformer flows, the ``mb_istft`` decoder with the fused
+tail (``istft_mode`` "torch"), and the stochastic duration predictor.
+Voice conversion adds the posterior encoder, the flow's forward direction
+and the unfused tails: ``voice_conversion`` on that configuration, and
+QuickVC (models/quickvc.py) on plain residual-coupling flows and the
+``ms_istft`` decoder. The generator also runs as the HiFiGAN v1 vocoder of
+the multistream bundles (``decoder_type="hifigan"`` without speaker
+conditioning, models/vocoder.py). Other flow types and decoders and the
+deterministic duration predictor raise NotImplementedError.
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -28,7 +31,8 @@ from ..ops import flows as fl
 from ..ops import wn as wnops
 from ..ops.commons import generate_path, sequence_mask
 from ..ops.conv import conv1d, conv_transpose1d
-from ..ops.stft import mb_decoder_tail_fused
+from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
+from ..ops.stft import istft_multiband, mb_decoder_tail_fused
 from .tree import TreeModule
 
 
@@ -91,25 +95,37 @@ class VITS2Config:
         return cls(**{k: tup(v) for k, v in d.items()})
 
 
+def flow_type(cfg: VITS2Config) -> str:
+    return cfg.transformer_flow_type if cfg.use_transformer_flows else "plain"
+
+
+def check_flow(cfg: VITS2Config):
+    """Raise NotImplementedError for a flow the port does not run: it runs
+    ``pre_conv2`` transformer flows and plain residual couplings."""
+    if flow_type(cfg) not in ("pre_conv2", "plain"):
+        raise NotImplementedError(f"flow type {flow_type(cfg)!r} is not ported")
+
+
 def check_decoder(cfg: VITS2Config):
     """Raise NotImplementedError for a generator the port does not run: it
-    runs ``mb_istft`` with the torch iSTFT, and ``hifigan`` without speaker
-    conditioning (the vocoder form)."""
+    runs ``mb_istft`` and ``ms_istft`` with the torch iSTFT, and ``hifigan``
+    without speaker conditioning (the vocoder form)."""
     if cfg.decoder_type == "hifigan":
         if cfg.gin_channels:
             raise NotImplementedError("the speaker-conditioned hifigan decoder is not ported")
-    elif cfg.decoder_type != "mb_istft" or cfg.istft_mode != "torch":
+    elif cfg.decoder_type not in ("mb_istft", "ms_istft") or cfg.istft_mode != "torch":
         raise NotImplementedError(f"decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT) "
                                   "is not ported")
 
 
 def check_ported(cfg: VITS2Config):
-    """Raise NotImplementedError for a synthesizer configuration the port
-    does not run: SDP, ``pre_conv2`` flows and the ``mb_istft`` decoder."""
+    """Raise NotImplementedError for a synthesizer configuration the serving
+    passes do not run: they run SDP, ``pre_conv2`` flows and the
+    ``mb_istft`` decoder."""
     if not cfg.use_sdp:
         raise NotImplementedError("the deterministic duration predictor (dp_apply) is not ported")
-    if not cfg.use_transformer_flows or cfg.transformer_flow_type != "pre_conv2":
-        raise NotImplementedError(f"flow type {cfg.transformer_flow_type!r} is not ported")
+    if flow_type(cfg) != "pre_conv2":
+        raise NotImplementedError(f"a synthesizer with {flow_type(cfg)!r} flows is not served")
     if cfg.decoder_type != "mb_istft":
         raise NotImplementedError(f"a synthesizer with the {cfg.decoder_type!r} decoder "
                                   "is not ported")
@@ -162,12 +178,32 @@ def sdp_reverse(params, cfg: VITS2Config, x, x_mask, g=None, *, generator=None,
 
 
 # ---------------------------------------------------------------------------
-# Flow block (pre_conv2), reverse pass
+# Posterior encoder
 # ---------------------------------------------------------------------------
 
 
-def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g):
-    """Reverse of one ``pre_conv2`` coupling layer (mean-only)."""
+def posterior_apply(params, cfg: VITS2Config, y, y_lengths, g=None, *, generator=None,
+                    noise=None):
+    """y: (B, T, spec_channels) -> (z, m, logs, y_mask), z = (m + noise *
+    exp(logs)) * y_mask. ``noise`` (B, T, inter_channels) is the standard
+    normal draw; without it the draw comes from ``generator``."""
+    y_mask = sequence_mask(y_lengths, y.shape[1]).to(y.dtype)[..., None]
+    x = conv1d(y, params["pre"]["w"], params["pre"]["b"]) * y_mask
+    x = wnops.wn_apply(params["enc"], x, y_mask, g, kernel_size=5, dilation_rate=1)
+    stats = conv1d(x, params["proj"]["w"], params["proj"]["b"]) * y_mask
+    m, logs = stats[..., :cfg.inter_channels], stats[..., cfg.inter_channels:]
+    if noise is None:
+        noise = torch.randn(m.shape, generator=generator, device=m.device, dtype=m.dtype)
+    return (m + noise * torch.exp(logs)) * y_mask, m, logs, y_mask
+
+
+# ---------------------------------------------------------------------------
+# Flow block (pre_conv2 or plain couplings), both directions
+# ---------------------------------------------------------------------------
+
+
+def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g, *, reverse: bool):
+    """One ``pre_conv2`` coupling layer (mean-only)."""
     half = cfg.inter_channels // 2
     x0, x1 = x[..., :half], x[..., half:]
     hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
@@ -176,27 +212,40 @@ def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g):
                                   n_heads=2, kernel_size=5, window_size=4)
     hid = wnops.wn_apply(layer["enc"], hid, x_mask, g, kernel_size=5, dilation_rate=1)
     m = conv1d(hid, layer["post"]["w"], layer["post"]["b"]) * x_mask
-    return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+    x1 = (x1 - m) * x_mask if reverse else m + x1 * x_mask
+    return torch.cat([x0, x1], dim=-1)
 
 
-def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None):
-    """The flow in reverse (``reverse=True`` in the JAX package; the forward
-    direction is training-only): for each (coupling, Flip) group from the
-    last, Flip then the coupling layer's inverse."""
-    check_ported(cfg)
+def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bool):
+    """The flow: groups of (coupling layer, Flip). Forward runs each group
+    from the first; reverse runs them from the last, Flip first."""
+    check_flow(cfg)
+    plain = flow_type(cfg) == "plain"
+
+    def coupling(layer, x, rev):
+        if plain:
+            return fl.residual_coupling_apply(layer["coupling"], x, x_mask, g, reverse=rev,
+                                              kernel_size=5, dilation_rate=1)
+        return _flow_layer_apply(layer, cfg, x, x_mask, g, reverse=rev)
+
+    if not reverse:
+        for layer in params["flows"]:
+            x = fl.flip_flow(coupling(layer, x, False))
+        return x
     for layer in reversed(params["flows"]):
-        x = fl.flip_flow(x)
-        x = _flow_layer_apply(layer, cfg, x, x_mask, g)
+        x = coupling(layer, fl.flip_flow(x), True)
     return x
 
 
 # ---------------------------------------------------------------------------
-# MB-iSTFT generator
+# Generators (HiFiGAN trunk; hifigan, mb_istft and ms_istft heads)
 # ---------------------------------------------------------------------------
 
 
-def _generator_trunk(params, cfg: VITS2Config, x):
+def _generator_trunk(params, cfg: VITS2Config, x, g=None):
     x = conv1d(x, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
+    if g is not None and "cond" in params:
+        x = x + conv1d(g, params["cond"]["w"], params["cond"]["b"])
     n_kernels = len(cfg.resblock_kernel_sizes)
     resblock_apply = wnops.resblock1_apply if cfg.resblock == "1" else wnops.resblock2_apply
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
@@ -215,19 +264,32 @@ def _generator_trunk(params, cfg: VITS2Config, x):
     return wnops.leaky_relu(x, 0.01)
 
 
-def generator_apply(params, cfg: VITS2Config, x):
-    """x: (B, T, inter) -> waveform (B, T * upsample_factor, 1): for
-    ``mb_istft`` through the fused iSTFT + PQMF tail (the JAX
-    ``fused_tail=True`` serving form); for ``hifigan`` through ``conv_post``
-    (padding 3, no bias, no reflection pad) and tanh."""
+def generator_apply(params, cfg: VITS2Config, x, g=None, *, fused_tail: bool = False):
+    """x: (B, T, inter), g: (B, 1, gin) or None (read where the bundle has a
+    ``cond`` conv) -> waveform (B, T * upsample_factor, 1). ``hifigan``:
+    ``conv_post`` (padding 3, no reflection pad) and tanh. ``mb_istft``:
+    the multiband iSTFT and PQMF synthesis, or with ``fused_tail`` the
+    fused tail of the serving path (ops/stft.mb_decoder_tail_fused).
+    ``ms_istft``: the multiband iSTFT, then the learned upsampling filter
+    ``multistream_conv_post``."""
     check_decoder(cfg)
-    x = _generator_trunk(params, cfg, x)
+    x = _generator_trunk(params, cfg, x, g)
     if cfg.decoder_type == "hifigan":
         return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3))
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
     x = conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3)
-    n_fft = cfg.gen_istft_n_fft
-    return mb_decoder_tail_fused(x, n_fft, cfg.gen_istft_hop_size, n_fft, subbands=cfg.subbands)
+    n_fft, hop, sub = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands
+    if cfg.decoder_type == "mb_istft" and fused_tail:
+        return mb_decoder_tail_fused(x, n_fft, hop, n_fft, subbands=sub)
+    b, t, _ = x.shape
+    x = x.reshape(b, t, sub, n_fft + 2)
+    cutoff = n_fft // 2 + 1
+    y_mb = istft_multiband(torch.exp(x[..., :cutoff]), math.pi * torch.sin(x[..., cutoff:]),
+                           n_fft, hop, n_fft)
+    if cfg.decoder_type == "mb_istft":
+        return pqmf_synthesis(y_mb, subbands=sub)
+    return polyphase_upfir(y_mb, params["multistream_conv_post"]["w"], stride=sub,
+                           gain=float(sub))
 
 
 # ---------------------------------------------------------------------------
@@ -275,13 +337,13 @@ def decode_from_durations(params, cfg: VITS2Config, enc: dict, sid=None, *, gene
     logs_p = torch.bmm(attn, logs_p)
     noise = torch.randn(m_p.shape, generator=generator, device=m_p.device, dtype=m_p.dtype)
     z_p = m_p + noise * torch.exp(logs_p) * noise_scale
-    z = flow_block_apply(params["flow"], cfg, z_p, y_mask, g)
+    z = flow_block_apply(params["flow"], cfg, z_p, y_mask, g, reverse=True)
     zy = z * y_mask
     if gen_frames is not None and gen_frames < max_frames:
         zy = zy[:, :gen_frames]
         y_lengths = torch.minimum(y_lengths, torch.tensor(gen_frames, dtype=y_lengths.dtype,
                                                           device=y_lengths.device))
-    wav = generator_apply(params["dec"], cfg, zy)
+    wav = generator_apply(params["dec"], cfg, zy, g, fused_tail=True)
     return {"wav": wav, "wav_lengths": y_lengths * cfg.upsample_factor, "attn": attn,
             "y_mask": y_mask, "durations": w_ceil}
 
@@ -305,6 +367,26 @@ def predict_frames(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, gene
                             length_scale=length_scale, noise_scale_w=noise_scale_w)["pred_frames"]
 
 
+def voice_conversion(params, cfg: VITS2Config, y, y_lengths, sid_src, sid_tgt, *,
+                     generator=None, noise=None):
+    """Flow re-conditioning between speakers: the posterior of the
+    spectrogram y (B, T, spec_channels) under the source speaker, the flow
+    forward under it and back in reverse under the target, then the
+    generator (unfused tail, as in the JAX package). ``noise`` as in
+    :func:`posterior_apply`. Returns (wav (B, T * upsample_factor, 1),
+    y_mask (B, T, 1))."""
+    if "enc_q" not in params:
+        raise ValueError("voice conversion needs the posterior encoder (enc_q), "
+                         "which this bundle does not hold")
+    g_src = params["emb_g"][sid_src.long()][:, None, :]
+    g_tgt = params["emb_g"][sid_tgt.long()][:, None, :]
+    z, _, _, y_mask = posterior_apply(params["enc_q"], cfg, y, y_lengths, g_src,
+                                      generator=generator, noise=noise)
+    z_p = flow_block_apply(params["flow"], cfg, z, y_mask, g_src, reverse=False)
+    z_hat = flow_block_apply(params["flow"], cfg, z_p, y_mask, g_tgt, reverse=True)
+    return generator_apply(params["dec"], cfg, z_hat * y_mask, g_tgt), y_mask
+
+
 class Synthesizer(TreeModule):
     """The weights of one VITS2 bundle as a module (models/tree.py): every
     leaf of the port-layout tree is a buffer, and :attr:`params` gives the
@@ -323,3 +405,6 @@ class Synthesizer(TreeModule):
 
     def infer(self, *args, **kwargs):
         return infer(self.params, self.cfg, *args, **kwargs)
+
+    def voice_conversion(self, *args, **kwargs):
+        return voice_conversion(self.params, self.cfg, *args, **kwargs)

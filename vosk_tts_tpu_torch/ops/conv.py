@@ -23,16 +23,16 @@ def _norm_padding(padding, k: int, dilation: int):
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-           padding="same", dilation: int = 1, groups: int = 1) -> torch.Tensor:
+           stride: int = 1, padding="same", dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """x: (B, T, C_in); w: (C_out, C_in // groups, K), or (C_out, C_in) for a
     1x1 conv -> (B, T', C_out)."""
     if w.dim() == 2:
         if groups != 1 or _norm_padding(padding, 1, dilation) != (0, 0):
             raise ValueError("a 1x1 conv takes no groups or padding")
-        return F.linear(x, w, b)
+        return F.linear(x[:, ::stride], w, b)
     pl, pr = _norm_padding(padding, w.shape[-1], dilation)
     xt = F.pad(x.transpose(1, 2), (pl, pr))
-    y = F.conv1d(xt, w, b, dilation=dilation, groups=groups)
+    y = F.conv1d(xt, w, b, stride=stride, dilation=dilation, groups=groups)
     return y.transpose(1, 2)
 
 

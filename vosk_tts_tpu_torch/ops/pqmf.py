@@ -1,7 +1,7 @@
-"""Pseudo-QMF synthesis filterbank (the MB-iSTFT combine stage,
-vosk_tts_tpu/ops/pqmf.py). Filters are built once in numpy; synthesis is
-one strided transposed conv (the JAX package's block-Toeplitz form of the
-same FIR is a TPU lowering)."""
+"""Pseudo-QMF synthesis filterbank (the MB-iSTFT combine stage) and the
+ms-iSTFT learned upsampling filter (vosk_tts_tpu/ops/pqmf.py). Filters are
+built once in numpy; each stage is one strided transposed conv (the JAX
+package's block-Toeplitz form of the same FIR is a TPU lowering)."""
 
 from __future__ import annotations
 
@@ -40,20 +40,30 @@ def pqmf_filters(subbands: int = 4, taps: int = 62, cutoff_ratio: float = 0.15, 
 
 @lru_cache(maxsize=16)
 def _synthesis_weight(subbands, taps, cutoff_ratio, beta, device, dtype):
-    """Zero-stuff (x subbands gain) + synthesis-filter correlation as a
-    transposed-conv weight (C_in=subbands, C_out=1, K)."""
+    """The synthesis filter as a correlation weight (C_out=1, C_in=subbands, K)."""
     _, h_s = pqmf_filters(subbands, taps, cutoff_ratio, beta)
-    w = h_s[:, ::-1] * float(subbands)  # flipped: correlation -> convolution
-    return torch.as_tensor(np.ascontiguousarray(w[:, None, :]), dtype=dtype, device=device)
+    return torch.as_tensor(h_s[None], dtype=dtype, device=device)
+
+
+def polyphase_upfir(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                    gain: float = 1.0) -> torch.Tensor:
+    """Zero-stuff x by ``stride`` (times ``gain``), then correlate with ``w``
+    at padding (K-1)//2: x (B, T, C_in), w (C_out, C_in, K), K odd ->
+    (B, T*stride, C_out). The ms-iSTFT ``multistream_conv_post`` stage
+    (vosk_tts_tpu/ops/pqmf.py, through blocked_fir.upsampled_corr). A
+    correlation with w is a convolution with w flipped: one strided
+    transposed conv."""
+    k = w.shape[-1]
+    half = (k - 1) // 2
+    if half < stride - 1:
+        raise ValueError(f"polyphase_upfir: a {k}-tap filter is too short for stride {stride}")
+    wt = torch.flip(w, dims=(-1,)).transpose(0, 1) * gain  # (C_in, C_out, K)
+    y = conv_transpose1d(x, wt, stride=stride)
+    return y[:, k - 1 - half: k - 1 - half + x.shape[1] * stride]
 
 
 def pqmf_synthesis(x: torch.Tensor, subbands: int = 4, taps: int = 62,
                    cutoff_ratio: float = 0.15, beta: float = 9.0) -> torch.Tensor:
     """x: (B, T, subbands) -> (B, T*subbands, 1)."""
-    k = taps + 1
-    half = (k - 1) // 2
-    if half < subbands - 1:
-        raise ValueError(f"pqmf_synthesis: {taps} taps are too few for {subbands} subbands")
     w = _synthesis_weight(subbands, taps, cutoff_ratio, beta, x.device, x.dtype)
-    y = conv_transpose1d(x, w, stride=subbands)
-    return y[:, k - 1 - half: k - 1 - half + x.shape[1] * subbands]
+    return polyphase_upfir(x, w, stride=subbands, gain=float(subbands))

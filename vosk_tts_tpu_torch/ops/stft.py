@@ -1,4 +1,11 @@
-"""Inverse STFT and the fused MB-iSTFT decoder tail (vosk_tts_tpu/ops/stft.py).
+"""STFT, mel spectrogram, inverse STFT and the fused MB-iSTFT decoder tail
+(vosk_tts_tpu/ops/stft.py).
+
+``stft``/``spectrogram``/``mel_spectrogram`` are the reference's
+spectrogram_torch and mel_spectrogram_torch: reflect-pad by (n_fft-hop)//2,
+center=False framing, the windowed real DFT as one strided conv (the JAX
+package's basis), magnitude sqrt(re^2 + im^2 + 1e-6), the Slaney mel
+filterbank (librosa's defaults, re-derived in numpy) and log(clamp(., 1e-5)).
 
 ``istft_multiband`` is torch.istft(center=True) semantics (windowed
 inverse-DFT overlap-add, window-envelope normalization, n_fft//2 trimmed
@@ -16,8 +23,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .conv import conv_transpose1d
+from .conv import conv1d, conv_transpose1d
 from .pqmf import pqmf_filters, pqmf_synthesis
 
 
@@ -27,20 +35,107 @@ def hann_window(win_length: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float64)
 
 
+def _fourier_and_window(n_fft: int, win_length: int):
+    """[cos_k ; -sin_k] (n_fft+2, n_fft) and the Hann window centred in n_fft."""
+    cutoff = n_fft // 2 + 1
+    k = np.arange(cutoff)[:, None]
+    n = np.arange(n_fft)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    window = np.zeros(n_fft)
+    off = (n_fft - win_length) // 2
+    window[off: off + win_length] = hann_window(win_length)
+    return np.vstack([np.cos(ang), -np.sin(ang)]), window
+
+
+@lru_cache(maxsize=16)
+def _forward_dft_weight(n_fft: int, win_length: int, device, dtype):
+    """Windowed real-DFT basis as a conv weight (n_fft+2, 1, n_fft): one
+    strided conv gives [real(X_k) | imag(X_k)], k = 0..n_fft/2 (the forward
+    half of the JAX package's ``_dft_bases``)."""
+    fourier, window = _fourier_and_window(n_fft, win_length)
+    w = (fourier * window[None, :]).astype(np.float32)[:, None, :]
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+@lru_cache(maxsize=None)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float | None) -> np.ndarray:
+    """Slaney-scale, Slaney-normalised mel filterbank (n_mels, n_fft//2+1),
+    librosa.filters.mel's defaults (htk=False, norm='slaney')."""
+    if fmax is None:
+        fmax = sr / 2.0
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, np.log(6.4) / 27.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        return np.where(f >= min_log_hz,
+                        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                        f / f_sp)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        f_sp * m)
+
+    mel_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))
+    fftfreqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_pts[2: n_mels + 2] - mel_pts[:n_mels]))[:, None]
+    return weights.astype(np.float32)
+
+
+def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """y: (B, T), reflect-padded by ``pad`` on both sides."""
+    if pad == 0:
+        return y
+    return F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+
+
+def stft(y: torch.Tensor, n_fft: int, hop: int, win: int):
+    """Real STFT. y: (B, T) -> (real, imag), each (B, frames, n_fft//2+1):
+    reflect-padded by (n_fft-hop)//2, center=False framing."""
+    y = _reflect_pad(y, (n_fft - hop) // 2)
+    w = _forward_dft_weight(n_fft, win, y.device, y.dtype)
+    frames = conv1d(y[..., None], w, stride=hop, padding=0)
+    cutoff = n_fft // 2 + 1
+    return frames[..., :cutoff], frames[..., cutoff:]
+
+
+def spectrogram(y: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
+    """Magnitude spectrogram (B, frames, n_fft//2+1), channels-last."""
+    re, im = stft(y, n_fft, hop, win)
+    return torch.sqrt(re * re + im * im + 1e-6)
+
+
+def spectral_normalize(x: torch.Tensor, clip_val: float = 1e-5) -> torch.Tensor:
+    """Dynamic-range compression log(clamp(x, clip_val))."""
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+def spec_to_mel(spec: torch.Tensor, n_fft: int, num_mels: int, sr: int, fmin: float,
+                fmax: float | None) -> torch.Tensor:
+    """Linear spectrogram (B, T, F) -> log-mel (B, T, num_mels)."""
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, num_mels, fmin, fmax), device=spec.device,
+                         dtype=spec.dtype)
+    return spectral_normalize(spec @ fb.T)
+
+
+def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int, sr: int, hop: int, win: int,
+                    fmin: float, fmax: float | None) -> torch.Tensor:
+    """Waveform (B, T) -> log-mel (B, frames, num_mels)."""
+    return spec_to_mel(spectrogram(y, n_fft, hop, win), n_fft, num_mels, sr, fmin, fmax)
+
+
 @lru_cache(maxsize=None)
 def _inverse_dft_basis(n_fft: int, win_length: int):
     """Windowed inverse real-DFT basis (n_fft+2, n_fft): pinv of
     [cos_k ; -sin_k] times the window (the inverse half of the JAX
     package's ``_dft_bases``)."""
-    cutoff = n_fft // 2 + 1
-    k = np.arange(cutoff)[:, None]
-    n = np.arange(n_fft)[None, :]
-    ang = 2.0 * np.pi * k * n / n_fft
-    fourier = np.vstack([np.cos(ang), -np.sin(ang)])  # (n_fft+2, n_fft)
-
-    window = np.zeros(n_fft)
-    off = (n_fft - win_length) // 2
-    window[off: off + win_length] = hann_window(win_length)
+    fourier, window = _fourier_and_window(n_fft, win_length)
     return (np.linalg.pinv(fourier).T * window[None, :]).astype(np.float32)
 
 

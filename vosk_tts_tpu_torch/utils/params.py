@@ -16,22 +16,29 @@ as numpy arrays, into the port's layouts once, at load:
 
 A leaf's layout follows from its name and rank: ``"w"`` of rank 2 is a
 Linear (``ada_in``, ``ada_out``, ``bert_proj``, ``time_mlp``, every BERT
-linear); ``"w"`` of shape (1, I, O) a 1x1 conv (DiT ``q``/``k``/``v``/``o``,
-``film``, ``in_proj``, ``final_proj``, encoder ``proj``); other ``"w"`` a
-Conv1d (``cond_proj``, ``lsc``, the FFN convs), or a ConvTranspose1d under
-``ups``. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
-``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``, ``fake_content``;
-norm ``gamma``/``beta``; biases) keeps its layout. The StableTTS DiT
-attention's fused qkv projection is a layout of that model alone:
-``models.stabletts.port_layout`` makes it from this one.
+and HuBERT linear); ``"w"`` of shape (1, I, O) a 1x1 conv (DiT
+``q``/``k``/``v``/``o``, ``film``, ``in_proj``, ``final_proj``, encoder
+``proj``, QuickVC's ``enc_p.pre`` over 768 ContentVec features); other
+``"w"`` a Conv1d (``cond_proj``, ``lsc``, the FFN convs, HuBERT's strided
+feature convs, its grouped ``pos_conv`` (K, I/groups, O) -> (O, I/groups,
+K), ms-iSTFT's ``multistream_conv_post`` (63, sub, 1) -> (1, sub, 63)), or
+a ConvTranspose1d under ``ups``. An LSTM's ``w_ih`` (I, 4H) and ``w_hh``
+(H, 4H) become torch's (4H, I) and (4H, H), gates in the same i, f, g, o
+order. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
+``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``,
+``fake_content``; norm ``gamma``/``beta``, ``gn_gamma``/``gn_beta``;
+biases) keeps its layout. The StableTTS DiT attention's fused qkv
+projection is a layout of that model alone: ``models.stabletts.port_layout``
+makes it from this one.
 
-The posterior encoder (``enc_q``) is training-only and is dropped.
+The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
+reads it.
 
-:func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init` and
-:func:`bert_init` draw trees in the BUNDLE layout (the JAX one) from the
-same distributions and shapes as the JAX package's inits, so a full-width
-bundle can be made where JAX is absent; their numbers differ from JAX's
-draws.
+:func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init`,
+:func:`bert_init`, :func:`hubert_init` and :func:`quickvc_init` draw trees
+in the BUNDLE layout (the JAX one) from the same distributions and shapes
+as the JAX package's inits, so a full-width bundle can be made where JAX is
+absent; their numbers differ from JAX's draws.
 """
 
 from __future__ import annotations
@@ -42,9 +49,6 @@ import numpy as np
 import torch
 
 from ..models.vits2 import check_decoder, check_ported
-
-#: top-level subtrees the serving path does not read
-_DROPPED = ("enc_q",)
 
 
 def _pack_ddsconv(p):
@@ -70,11 +74,12 @@ def _convert(node, path):
     if isinstance(node, dict):
         if {"sep", "pw", "norm1", "norm2"} <= set(node):
             return _pack_ddsconv(node)
-        return {k: _convert(v, path + (k,)) for k, v in node.items()
-                if not (not path and k in _DROPPED)}
+        return {k: _convert(v, path + (k,)) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_convert(v, path + (str(i),)) for i, v in enumerate(node)]
     a = np.asarray(node)
+    if path[-1] in ("w_ih", "w_hh"):  # LSTM (I, 4H) -> (4H, I)
+        return np.ascontiguousarray(a.T)
     if path[-1] != "w":
         return a
     if "ups" in path:  # ConvTranspose1d (K, I, O) -> (I, O, K)
@@ -107,12 +112,14 @@ def to_torch(tree, device, dtype=torch.float32):
 
 def perturb_zero_init(tree, seed: int):
     """Give the zero-initialised projections random values, in place on a
-    BUNDLE-layout tree: the flow ``post`` convs (std 0.02) and the SDP
-    ConvFlow ``proj`` convs (std 0.2, which spreads the noise-free durations
-    over about 1-6 frames per token, away from the integer edges of the
-    ceil). As initialised they make the flow an identity and the durations
-    independent of every DDSConv output, so a comparison of two
-    implementations would not see attention or DDSConv in those paths."""
+    BUNDLE-layout VITS2 or QuickVC tree: the flow ``post`` convs (std 0.02;
+    ``pre_conv2`` layers or plain couplings) and, where the tree has an SDP,
+    its ConvFlow ``proj`` convs (std 0.2, which spreads the noise-free
+    durations over about 1-6 frames per token, away from the integer edges
+    of the ceil). As initialised they make the flow an identity and the
+    durations independent of every DDSConv output, so a comparison of two
+    implementations would not see attention, the couplings or DDSConv in
+    those paths."""
     rng = np.random.default_rng(seed)
 
     def fill(p, scale):
@@ -120,8 +127,8 @@ def perturb_zero_init(tree, seed: int):
             p[k] = (rng.standard_normal(np.shape(p[k])) * scale).astype(np.float32)
 
     for layer in tree["flow"]["flows"]:
-        fill(layer["post"], 0.02)
-    for key in ("flows", "post_flows"):
+        fill(layer["coupling"]["post"] if "coupling" in layer else layer["post"], 0.02)
+    for key in ("flows", "post_flows") if "dp" in tree else ():
         for cf in tree["dp"][key][1:]:
             fill(cf["proj"], 0.2)
     return tree
@@ -225,8 +232,8 @@ def perturb_matcha_zero_init(tree, seed: int):
     return tree
 
 
-def _generator(rng, cfg, post_channels: int):
-    """The generator trunk + bias-free ``conv_post`` (vits2 generator_init)."""
+def _generator(rng, cfg, post_channels: int, post_bias: bool = False):
+    """The generator trunk + ``conv_post`` (vits2 generator_init)."""
     uic = cfg.upsample_initial_channel
     dec = {"conv_pre": _conv(rng, 7, cfg.inter_channels, uic), "ups": [], "resblocks": []}
     ch = uic
@@ -244,9 +251,18 @@ def _generator(rng, cfg, post_channels: int):
             else:
                 dec["resblocks"].append({"convs": [_conv(rng, kk, c, c) for _ in d]})
     post = _conv(rng, 7, ch, post_channels)
-    post["b"] = None
+    if not post_bias:
+        post["b"] = None
     dec["conv_post"] = post
     return dec
+
+
+def _posterior(rng, cfg):
+    """Posterior encoder over ``spec_channels`` inputs (vits2 posterior_init)."""
+    h = cfg.hidden_channels
+    return {"pre": _conv(rng, 1, cfg.spec_channels, h),
+            "enc": _wn(rng, h, 5, cfg.posterior_wn_layers, cfg.gin_channels),
+            "proj": _conv(rng, 1, h, cfg.inter_channels * 2)}
 
 
 def hifigan_init(cfg, seed: int):
@@ -346,9 +362,7 @@ def synthesizer_init(cfg, seed: int):
 
     dec = _generator(rng, cfg, cfg.subbands * (cfg.gen_istft_n_fft + 2))
 
-    enc_q = {"pre": _conv(rng, 1, cfg.spec_channels, h),
-             "enc": _wn(rng, h, 5, cfg.posterior_wn_layers, gin),
-             "proj": _conv(rng, 1, h, inter * 2)}
+    enc_q = _posterior(rng, cfg)
 
     flow = {"flows": [{
         "pre": _conv(rng, 1, half, h),
@@ -374,3 +388,62 @@ def synthesizer_init(cfg, seed: int):
     if cfg.n_speakers > 1:
         p["emb_g"] = rng.standard_normal((cfg.n_speakers, gin)).astype(np.float32)
     return p
+
+
+def hubert_init(cfg, seed: int):
+    """Bundle-layout HuBERT/ContentVec tree (``hubert.hubert_init``): feature
+    convs N(0, 1/(I*K)) without bias, the first with its group norm;
+    linears U(-1/sqrt(I), 1/sqrt(I)) with zero biases; ``pos_conv``
+    N(0, 0.02^2); unit layer norms."""
+    rng = np.random.default_rng(seed)
+    h = cfg.hidden_size
+    lin = lambda i, o: {"w": _u(rng, (i, o), i**-0.5), "b": np.zeros((o,), np.float32)}
+    convs, in_dim = [], 1
+    for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        c = {"w": (rng.standard_normal((k, in_dim, dim)) * (in_dim * k) ** -0.5).astype(np.float32)}
+        if i == 0:
+            c["gn_gamma"], c["gn_beta"] = np.ones((dim,), np.float32), np.zeros((dim,), np.float32)
+        convs.append(c)
+        in_dim = dim
+    groups = cfg.num_conv_pos_embedding_groups
+    return {
+        "conv_layers": convs, "fp_ln": _norm(cfg.conv_dim[-1]), "fp": lin(cfg.conv_dim[-1], h),
+        "pos_conv": {"w": (rng.standard_normal((cfg.num_conv_pos_embeddings, h // groups, h))
+                           * 0.02).astype(np.float32),
+                     "b": np.zeros((h,), np.float32)},
+        "enc_ln": _norm(h),
+        "layers": [{"q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "attn_out": lin(h, h),
+                    "attn_ln": _norm(h), "ffn_in": lin(h, cfg.intermediate_size),
+                    "ffn_out": lin(cfg.intermediate_size, h), "ffn_ln": _norm(h)}
+                   for _ in range(cfg.num_hidden_layers)],
+    }
+
+
+def quickvc_init(cfg, seed: int):
+    """Bundle-layout QuickVC tree (``quickvc.synthesizer_init``): the
+    posterior encoders over ContentVec (no speaker conditioning) and over
+    the linear spectrogram, four plain mean-only couplings (zero ``post``),
+    the ms-iSTFT generator (``conv_post`` with its bias,
+    ``multistream_conv_post`` N(0, 0.01^2)) and the LSTM speaker encoder
+    (U(-1/sqrt(H), 1/sqrt(H)) gates, zero linear bias)."""
+    rng = np.random.default_rng(seed)
+    v = cfg.as_vits2()
+    h, half, gin = v.hidden_channels, v.inter_channels // 2, v.gin_channels
+    dec = _generator(rng, v, v.subbands * (v.gen_istft_n_fft + 2), post_bias=True)
+    dec["multistream_conv_post"] = {
+        "w": (rng.standard_normal((63, v.subbands, 1)) * 0.01).astype(np.float32), "b": None}
+    s, hid = gin**-0.5, gin
+    lstm = [{"w_ih": _u(rng, (cfg.n_mel_channels if i == 0 else hid, 4 * hid), s),
+             "w_hh": _u(rng, (hid, 4 * hid), s), "b_ih": _u(rng, (4 * hid,), s),
+             "b_hh": _u(rng, (4 * hid,), s)} for i in range(3)]
+    return {
+        "enc_p": _posterior(rng, cfg.as_vits2(spec_channels=cfg.ssl_dim, gin=0)),
+        "enc_q": _posterior(rng, v),
+        "flow": {"flows": [{"coupling": {"pre": _conv(rng, 1, half, h),
+                                         "enc": _wn(rng, h, 5, 4, gin),
+                                         "post": _zeros_conv(h, half)}}
+                           for _ in range(v.n_flows)]},
+        "dec": dec,
+        "enc_spk": {"lstm": lstm, "linear": {"w": _u(rng, (hid, gin), s),
+                                             "b": np.zeros((gin,), np.float32)}},
+    }
