@@ -74,7 +74,27 @@ result line is printed):
    target at 16 kHz: RTF, each stage's time between CUDA events, the busy
    share and launches under torch.profiler, no hand-written kernel
    launched; then a 3 s source on the card and on the CPU within 1e-3 x
-   peak, equal lengths.
+   peak, equal lengths;
+7. zero-shot cloning (``[clone]``): GPT-SoVITS at full width (ARConfig()
+   24 x 512, SoVITSConfig() with its 512-channel HiFiGAN at 32 kHz,
+   HubertConfig(); random weights from the seed, couplings perturbed), a
+   5 s reference: 3 Russian requests through pipelines.clone_tts (RTF,
+   launches: exactly 12 banded attention a sovits_decode call, nothing
+   else); at bench.py's shapes (text 128, prompt 64, 256 new tokens with
+   min_new = max_new) the prefill, the decode step eager and replayed from
+   its CUDA graph (ms a token; greedy tokens of the two equal), AR tokens/s
+   at B1 and B8 through ar_infer/ar_infer_batch, sovits_decode at 512 codes
+   with a 200-frame reference (ms, audio s per s); busy share under
+   torch.profiler, peak memory; the card against the CPU under greedy
+   decoding, 32 tokens, noise 0: equal prompt codes, tokens and n,
+   teacher-forced logits within 1e-4 x max |logit|, the waveform within
+   1e-3 x peak; the banded attention kernel against its plain version at
+   the clone shapes (B1 T1024, B1 T128, and a 5-phone text);
+8. long-text cloning (``[clone-long]``): pipelines.clone_tts_long on a
+   six-sentence paragraph, max_batch 8, greedy: chunks, tokens, audio
+   seconds, wall, AR and decode groups, 12 banded attention launches a
+   decode group; each row of each batched AR decode equal to its text run
+   alone through ar_infer on the card.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -101,20 +121,20 @@ sys.path.insert(0, ROOT)
 
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
 from vosk_tts_tpu_torch import pipelines  # noqa: E402
-from vosk_tts_tpu_torch.models import bert, hubert, quickvc, stabletts, vits2  # noqa: E402
+from vosk_tts_tpu_torch.models import bert, gpt_sovits, hubert, quickvc, stabletts, vits2  # noqa: E402
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
-from vosk_tts_tpu_torch.ops.stft import mel_spectrogram  # noqa: E402
+from vosk_tts_tpu_torch.ops.stft import mel_spectrogram, spectrogram  # noqa: E402
 from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
-from vosk_tts_tpu_torch.text import multistream_symbol_map, plain_symbol_map  # noqa: E402
+from vosk_tts_tpu_torch.text import Cleaner, multistream_symbol_map, plain_symbol_map  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import save_params  # noqa: E402
-from vosk_tts_tpu_torch.utils.params import (bert_init, hifigan_init, hubert_init,  # noqa: E402
-                                             matcha_init, perturb_matcha_zero_init,
-                                             perturb_zero_init, quickvc_init, synthesizer_init,
-                                             to_port_layout)
+from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, hifigan_init,  # noqa: E402
+                                             hubert_init, matcha_init, perturb_matcha_zero_init,
+                                             perturb_zero_init, quickvc_init, sovits_init,
+                                             synthesizer_init, to_port_layout, to_torch)
 
 # H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
 # f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
@@ -1005,6 +1025,242 @@ def vc_phase(kernels):
           f"[vc] card vs CPU: {err} > {tol} or lengths differ")
 
 
+def clone_models():
+    """Full-width GPT-SoVITS and ContentVec trees (port layout, numpy) from
+    the seed: ARConfig(), SoVITSConfig() (couplings perturbed),
+    HubertConfig()."""
+    cfgs = gpt_sovits.ARConfig(), gpt_sovits.SoVITSConfig(), hubert.HubertConfig()
+    trees = (to_port_layout(ar_init(cfgs[0], seed=SEED + 10)),
+             to_port_layout(perturb_zero_init(sovits_init(cfgs[1], seed=SEED + 11), seed=SEED + 12)),
+             to_port_layout(hubert_init(cfgs[2], seed=SEED + 13)))
+    return cfgs, trees
+
+
+def clone_phase(kernels, cfgs, trees):
+    """``[clone]``: see the module docstring (phase 7). Returns (kernel 1's
+    launches over the main path, its cases at the clone shapes)."""
+    (acfg, scfg, hcfg), dev = cfgs, torch.device("cuda")
+    ap, sp, hp = (to_torch(t, dev) for t in trees)
+    n_params = lambda tree: sum(a.size for a in tree_leaves(tree))
+    print(f"[clone] AR {n_params(trees[0]) / 1e6:.1f} M, SoVITS {n_params(trees[1]) / 1e6:.1f} M, "
+          f"HuBERT {n_params(trees[2]) / 1e6:.1f} M weights")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 14)
+    ref16 = (rng.standard_normal(5 * 16000) * 0.1).astype(np.float32)
+    ref32 = torch.as_tensor((rng.standard_normal(5 * 32000) * 0.1).astype(np.float32))[None]
+    ref_spec = spectrogram(ref32, 2048, 640, 2048)[0].numpy()  # (frames, 1025)
+    cleaner = Cleaner()
+    ids = lambda text: np.asarray(cleaner.to_ids(cleaner.clean_text(text, "ru")[0]), np.int64)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    clone = lambda text, **kw: pipelines.clone_tts(
+        ap, acfg, sp, scfg, hp, hcfg, ids(text), np.zeros((len(ids(text)), acfg.bert_dim), np.float32),
+        ref16, ref_spec, generator=gen, max_new=256, **kw)
+    upf = gpt_sovits.upsample_factor(scfg)
+
+    # the main path: 3 requests, launch counts from 0
+    clone(TEXTS[2])  # warm-up (cuDNN algorithms, the nvcc-built kernel's first load)
+    for k in kernels.values():
+        k.launches = 0
+    decodes = []
+    record = recording(gpt_sovits, "sovits_decode", decodes)
+    try:
+        for text in (TEXTS[1], TEXTS[3], TEXTS[13]):
+            t0 = time.perf_counter()
+            wav, n = clone(text)
+            dt = time.perf_counter() - t0
+            dur = len(wav) / 32000
+            print(f"[clone] clone_tts {len(ids(text))} phones -> {n} tokens, {dur:.2f} s audio in "
+                  f"{dt:.3f} s, RTF {dt / dur:.4f}")
+            check(wav.dtype == np.float32 and len(wav) == n * upf and np.isfinite(wav).all()
+                  and np.abs(wav).max() > 0, f"[clone] bad waveform for {text!r}")
+    finally:
+        record()
+    got = {name: k.launches for name, k in kernels.items()}
+    expected = {name: 0 for name in kernels} | {"banded_attention": 12 * len(decodes)}
+    print(f"[clone] launches over 3 requests ({len(decodes)} sovits_decode calls): {got} "
+          f"(expected {expected})")
+    check(got == expected, f"[clone] kernel launches {got} != {expected}")
+    launches = got["banded_attention"]
+
+    # bench.py's shapes (bench.py:267): text 128, prompt 64, 256 new tokens
+    tx, tp, new = 128, 64, 256
+    x = torch.as_tensor(rng.integers(0, 300, (8, tx)), device=dev)
+    xl = torch.full((8,), tx, dtype=torch.int64, device=dev)
+    bert_z = torch.zeros(8, tx, acfg.bert_dim, device=dev)
+    prompts = torch.as_tensor(rng.integers(0, 1024, (8, tp)), device=dev)
+    with torch.inference_mode():
+        pf = cuda_ms(lambda: gpt_sovits.prefill(ap, acfg, x[:1], xl[:1], bert_z[:1], prompts[:1],
+                                                max_new=new), 10)
+        dec = lambda: gpt_sovits.Decode(ap, acfg, x[:1], xl[:1], bert_z[:1], prompts[:1],
+                                        max_new=new, min_new=new, top_k=1)
+        eager = dec()
+        eager_ms = cuda_ms(eager.step, 32)
+        replayed = dec()
+        t0 = time.perf_counter()
+        graph = replayed.capture()
+        torch.cuda.synchronize()
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        graph_tok_ms = cuda_ms(graph.replay, 200)
+        same = torch.equal(eager.tokens[:, :35], replayed.tokens[:, :35])
+    print(f"[clone] B1 prefill (text {tx}, prompt {tp}) {pf:.3f} ms; decode step eager "
+          f"{eager_ms:.4f} ms/token, replayed {graph_tok_ms:.4f} ms/token "
+          f"(capture with its eager warm-up step {capture_ms:.1f} ms); greedy tokens 0-34 of the "
+          f"two equal: {same}")
+    check(same, "[clone] the replayed decode step's greedy tokens differ from the eager step's")
+    for b in (1, 8):
+        run = (lambda: gpt_sovits.ar_infer(ap, acfg, x[:1], bert_z[:1], prompts[:1], generator=gen,
+                                           max_new=new, min_new=new)) if b == 1 else \
+              (lambda: gpt_sovits.ar_infer_batch(ap, acfg, x, xl, bert_z, prompts, generator=gen,
+                                                 max_new=new, min_new=new))
+        with torch.inference_mode():
+            run()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                toks, _ = run()
+                toks.cpu()
+                walls.append(time.perf_counter() - t0)
+        print(f"[clone] AR B{b}: {b * new} tokens in {', '.join(f'{w:.4f}' for w in walls)} s "
+              f"(prefill, capture and replays), {b * new / min(walls):.1f} tokens/s")
+
+    tc, tr = 512, 200
+    codes = torch.as_tensor(rng.integers(0, 1024, (1, tc)), device=dev)
+    text = torch.as_tensor(rng.integers(0, 300, (1, tx)), device=dev)
+    refer = torch.as_tensor(ref_spec[:tr], device=dev)[None]
+    ints = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+    decode = lambda: gpt_sovits.sovits_decode(sp, scfg, codes, text, ints(tx), refer, ints(tr),
+                                              generator=gen, code_lengths=ints(tc))
+    with torch.inference_mode():
+        dec_ms = cuda_ms(decode, 5)
+    audio_s = tc * upf / 32000
+    print(f"[clone] sovits_decode {tc} codes (text {tx}, reference {tr} frames): {dec_ms:.3f} ms "
+          f"for {audio_s:.2f} s audio, {audio_s / (dec_ms / 1e3):.1f} audio s per s")
+    with torch.inference_mode():
+        profile_requests([("clone_tts", lambda: clone(TEXTS[1])),
+                          ("sovits_decode 512 codes", decode)])
+    print(f"[clone] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the card against the CPU: greedy, 32 tokens, noise 0
+    apc, spc, hpc = (to_torch(t, "cpu") for t in trees)
+    t0 = time.perf_counter()
+    x1 = ids(TEXTS[1])
+    runs = []
+    for a, s_, h, d in ((ap, sp, hp, dev), (apc, spc, hpc, torch.device("cpu"))):
+        with torch.inference_mode():
+            ssl = hubert.hubert_apply(h, hcfg, torch.as_tensor(ref16, device=d)[None])
+            pr = gpt_sovits.sovits_extract_latent(s_, scfg, ssl)
+            xs = torch.as_tensor(x1, device=d)[None]
+            bz = torch.zeros(1, len(x1), acfg.bert_dim, device=d)
+            p0 = runs[0]["prompts"].to(d) if runs else pr  # both AR runs on the card's codes
+            tok, n = gpt_sovits.ar_infer(a, acfg, xs, bz, p0, max_new=32, top_k=1)
+            y = torch.cat([p0, runs[0]["tok"].to(d) if runs else tok], dim=1)
+            logits = gpt_sovits.ar_logits(a, acfg, xs, torch.tensor([len(x1)], device=d), y,
+                                          torch.tensor([y.shape[1]], device=d), bz)
+            codes32 = runs[0]["tok"].to(d) if runs else tok
+            wav = gpt_sovits.sovits_decode(s_, scfg, codes32, xs,
+                                           torch.tensor([len(x1)], dtype=torch.int32, device=d),
+                                           torch.as_tensor(ref_spec, device=d)[None],
+                                           torch.tensor([ref_spec.shape[0]], dtype=torch.int32,
+                                                        device=d), noise_scale=0.0)
+        runs.append({"prompts": pr.cpu(), "tok": tok.cpu(), "n": int(n), "logits": logits.cpu(),
+                     "wav": wav.cpu()})
+    g, c = runs
+    code_diff = int((g["prompts"] != c["prompts"]).sum())
+    logit_err = float((g["logits"] - c["logits"]).abs().max())
+    logit_scale = float(c["logits"].abs().max())
+    wav_err = float((g["wav"] - c["wav"]).abs().max())
+    peak = float(c["wav"].abs().max())
+    print(f"[clone] parity card vs CPU ({time.perf_counter() - t0:.1f} s): prompt codes differ at "
+          f"{code_diff} of {g['prompts'].numel()}; greedy tokens equal "
+          f"{torch.equal(g['tok'], c['tok'])}, n {g['n']} and {c['n']}; teacher-forced logits "
+          f"{logit_err:.3e} (max |logit| {logit_scale:.3f}, tol {1e-4 * logit_scale:.3e}); "
+          f"waveform at 32 codes {wav_err:.3e} (peak {peak:.4f}, tol {1e-3 * peak:.3e})")
+    check(code_diff == 0, "[clone] the card's prompt codes differ from the CPU's")
+    check(torch.equal(g["tok"], c["tok"]) and g["n"] == c["n"], "[clone] tokens or n differ")
+    check(logit_err <= 1e-4 * logit_scale, f"[clone] logits differ by {logit_err}")
+    check(peak > 0 and np.isfinite(g["wav"].numpy()).all() and wav_err <= 1e-3 * peak,
+          f"[clone] waveform differs by {wav_err}")
+
+    cases = [attention_case(1, 1024, [1024], 50, 20, 31), attention_case(1, tx, [tx], 50, 20, 32),
+             attention_case(1, 5, [5], 0, 0, 33)]
+    return launches, cases
+
+
+def clone_long_phase(kernels, cfgs, trees):
+    """``[clone-long]``: see the module docstring (phase 8). Returns kernel
+    1's launches over the run."""
+    (acfg, scfg, hcfg), dev = cfgs, torch.device("cuda")
+    ap, sp, hp = (to_torch(t, dev) for t in trees)
+    rng = np.random.default_rng(SEED + 15)
+    ref16 = (rng.standard_normal(5 * 16000) * 0.1).astype(np.float32)
+    ref32 = torch.as_tensor((rng.standard_normal(5 * 32000) * 0.1).astype(np.float32))[None]
+    ref_spec = spectrogram(ref32, 2048, 640, 2048)[0].numpy()
+    paragraph = " ".join(TEXTS[i] for i in (1, 3, 4, 6, 7, 10))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ar_calls, dec_calls = [], []
+    for k in kernels.values():
+        k.launches = 0
+    restore = [recording(gpt_sovits, "ar_infer_batch", ar_calls),
+               recording(gpt_sovits, "sovits_decode", dec_calls)]
+    try:
+        t0 = time.perf_counter()
+        wav, n = pipelines.clone_tts_long(ap, acfg, sp, scfg, hp, hcfg, paragraph, ref16, ref_spec,
+                                          frontend=Cleaner(), generator=gen, top_k=1, max_new=256,
+                                          max_batch=8)
+        wall = time.perf_counter() - t0
+    finally:
+        for r in restore:
+            r()
+    got = {name: k.launches for name, k in kernels.items()}
+    expected = {name: 0 for name in kernels} | {"banded_attention": 12 * len(dec_calls)}
+    dur = len(wav) / 32000
+    chunks = len(pipelines.cut_text(paragraph))
+    print(f"[clone-long] {chunks} chunks, {n} tokens, {dur:.2f} s audio in {wall:.3f} s "
+          f"(RTF {wall / dur:.4f}; the first call of its shapes); AR groups "
+          f"{[tuple(a[2].shape) for a, _, _ in ar_calls]}, decode groups "
+          f"{[tuple(a[2].shape) for a, _, _ in dec_calls]}; launches {got} (expected {expected})")
+    check(np.isfinite(wav).all() and np.abs(wav).max() > 0 and chunks == 6,
+          "[clone-long] bad output")
+    check(got == expected, f"[clone-long] kernel launches {got} != {expected}")
+    rows = 0
+    with torch.inference_mode():
+        for args, kw, (toks, _) in ar_calls:
+            params, cfg, x, xl, bert_z, prompts = args
+            for r in range(x.shape[0]):
+                alone, _ = gpt_sovits.ar_infer(
+                    params, cfg, x[r:r + 1], bert_z[r:r + 1], prompts[r:r + 1], x_len=int(xl[r]),
+                    **{k: v for k, v in kw.items() if k != "generator"})
+                check(torch.equal(alone[0], toks[r]),
+                      f"[clone-long] batched AR row {r} differs from its text run alone")
+                rows += 1
+    print(f"[clone-long] {rows} batched AR rows (pad rows included) equal their texts run alone "
+          f"(greedy)")
+    return got["banded_attention"]
+
+
+def recording(module, name, log):
+    """Replace ``module.name`` by a wrapper that appends (args, kwargs,
+    result) of each call to ``log``; returns the function that restores it."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        log.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, rec)
+    return lambda: setattr(module, name, fn)
+
+
+def tree_leaves(tree):
+    """The array leaves of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in tree_leaves(v)]
+    return [] if tree is None else [np.asarray(tree)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -1165,6 +1421,19 @@ def main() -> int:
 
     # 6. voice conversion: full-width ContentVec/HuBERT + QuickVC
     vc_phase(kernels)
+    torch.cuda.empty_cache()
+
+    # 7-8. zero-shot cloning: full-width GPT-SoVITS
+    t0 = time.perf_counter()
+    cfgs, trees = clone_models()
+    print(f"[clone] full-width AR, SoVITS and HuBERT trees made in {time.perf_counter() - t0:.1f} s")
+    clone_launches, clone_cases = clone_phase(kernels, cfgs, trees)
+    for c in clone_cases:
+        print(f"[kernel] banded_attention (clone) {json.dumps(c)} tol {att_tol}")
+        check(np.isfinite(c["max_abs_err"]) and c["max_abs_err"] <= att_tol,
+              f"banded_attention at {c['shape']} disagrees with its plain version")
+    torch.cuda.empty_cache()
+    long_launches = clone_long_phase(kernels, cfgs, trees)
 
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
@@ -1185,6 +1454,13 @@ def main() -> int:
                "bound_formula": BOUND_FORMULA,
                **({"note": notes[name]} if name in notes else {})}
               for name, k in kernels.items()]
+    # kernel 1 at the clone shapes (the SSL encoders' 2 x 512 codes, a 128-phone text)
+    record += [{"name": "banded_attention", "route": "cuda", "source": record[0]["source"],
+                "replaces": replaces["banded_attention"], "launches": clone_launches,
+                "clone_long_launches": long_launches, "max_abs_err": c["max_abs_err"],
+                **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None, "shape": c["shape"], "path": "clone",
+                "bound_formula": BOUND_FORMULA} for c in clone_cases[:2]]
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -8,8 +8,10 @@ and the unfused tails: ``voice_conversion`` on that configuration, and
 QuickVC (models/quickvc.py) on plain residual-coupling flows and the
 ``ms_istft`` decoder. The generator also runs as the HiFiGAN v1 vocoder of
 the multistream bundles (``decoder_type="hifigan"`` without speaker
-conditioning, models/vocoder.py). Other flow types and decoders and the
-deterministic duration predictor raise NotImplementedError.
+conditioning, models/vocoder.py) and as GPT-SoVITS's speaker-conditioned
+``hifigan`` decoder with padded-frame masking (models/gpt_sovits.py).
+Other flow types and decoders and the deterministic duration predictor
+raise NotImplementedError.
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -108,12 +110,9 @@ def check_flow(cfg: VITS2Config):
 
 def check_decoder(cfg: VITS2Config):
     """Raise NotImplementedError for a generator the port does not run: it
-    runs ``mb_istft`` and ``ms_istft`` with the torch iSTFT, and ``hifigan``
-    without speaker conditioning (the vocoder form)."""
-    if cfg.decoder_type == "hifigan":
-        if cfg.gin_channels:
-            raise NotImplementedError("the speaker-conditioned hifigan decoder is not ported")
-    elif cfg.decoder_type not in ("mb_istft", "ms_istft") or cfg.istft_mode != "torch":
+    runs ``hifigan``, and ``mb_istft`` and ``ms_istft`` with the torch iSTFT."""
+    if cfg.decoder_type != "hifigan" and (cfg.decoder_type not in ("mb_istft", "ms_istft")
+                                          or cfg.istft_mode != "torch"):
         raise NotImplementedError(f"decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT) "
                                   "is not ported")
 
@@ -242,10 +241,17 @@ def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bo
 # ---------------------------------------------------------------------------
 
 
-def _generator_trunk(params, cfg: VITS2Config, x, g=None):
+def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None):
+    """``x_lengths`` (B,), where given, re-zeroes every conv input beyond
+    each row's length (scaled by each upsample), so that the samples below
+    the length equal an unpadded run's."""
+    lengths = x_lengths
+    mask = None if lengths is None else sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
     x = conv1d(x, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
     if g is not None and "cond" in params:
         x = x + conv1d(g, params["cond"]["w"], params["cond"]["b"])
+    if mask is not None:
+        x = x * mask
     n_kernels = len(cfg.resblock_kernel_sizes)
     resblock_apply = wnops.resblock1_apply if cfg.resblock == "1" else wnops.resblock2_apply
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
@@ -254,9 +260,13 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None):
         opad = cfg.upsample_output_paddings[i] if cfg.upsample_output_paddings else 0
         x = conv_transpose1d(x, params["ups"][i]["w"], params["ups"][i]["b"], stride=u,
                              padding=pad, output_padding=opad)
+        if lengths is not None:
+            lengths = lengths * u
+            mask = sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
+            x = x * mask
         xs = None
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
-            r = resblock_apply(params["resblocks"][i * n_kernels + j], x, kernel_size=rk,
+            r = resblock_apply(params["resblocks"][i * n_kernels + j], x, mask, kernel_size=rk,
                                dilation=tuple(rd))
             xs = r if xs is None else xs + r
         x = xs / n_kernels
@@ -264,16 +274,20 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None):
     return wnops.leaky_relu(x, 0.01)
 
 
-def generator_apply(params, cfg: VITS2Config, x, g=None, *, fused_tail: bool = False):
+def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
+                    fused_tail: bool = False):
     """x: (B, T, inter), g: (B, 1, gin) or None (read where the bundle has a
-    ``cond`` conv) -> waveform (B, T * upsample_factor, 1). ``hifigan``:
+    ``cond`` conv) -> waveform (B, T * upsample_factor, 1). ``x_lengths``
+    (B,) masks padded frames in the trunk (:func:`_generator_trunk`): for
+    ``hifigan`` the samples below length * upsample_factor then equal an
+    unpadded decode's. ``hifigan``:
     ``conv_post`` (padding 3, no reflection pad) and tanh. ``mb_istft``:
     the multiband iSTFT and PQMF synthesis, or with ``fused_tail`` the
     fused tail of the serving path (ops/stft.mb_decoder_tail_fused).
     ``ms_istft``: the multiband iSTFT, then the learned upsampling filter
     ``multistream_conv_post``."""
     check_decoder(cfg)
-    x = _generator_trunk(params, cfg, x, g)
+    x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths)
     if cfg.decoder_type == "hifigan":
         return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3))
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))

@@ -3,11 +3,15 @@ stack (vosk_tts_tpu/ops/attention.py), for inference.
 
 Every banded self-attention goes through ``flash_attention.banded_flash_
 attention``: its CUDA kernel on the card at any T, its plain version on the
-CPU. The forms this slice does not run (cross-attention, attention without
-a relative window, proximal bias, dropout) raise NotImplementedError.
+CPU. Cross-attention without a relative window (GPT-SoVITS's MRTE) is plain
+torch, as in the JAX package, where no Pallas kernel computes it. The forms
+no ported path runs (windowless self-attention, banded cross-attention,
+proximal bias, dropout) raise NotImplementedError.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,24 +20,37 @@ from .conv import conv1d
 from .norm import layer_norm
 
 
-def mha_apply(params, x: torch.Tensor, c: torch.Tensor, *, n_heads: int,
-              window_size: int | None = None, kv_len: torch.Tensor | None = None) -> torch.Tensor:
-    """x (queries) and c (keys/values): the same (B, T, C) tensor. ``kv_len``
-    (B,) int32 is the valid key prefix (defaults to T); it stands for the
-    JAX version's sequence-mask ``attn_mask``."""
-    if c is not x or window_size is None:
-        raise NotImplementedError("only banded relative-position self-attention is ported")
+def mha_apply(params, x: torch.Tensor, c: torch.Tensor, attn_mask: torch.Tensor | None = None, *,
+              n_heads: int, window_size: int | None = None,
+              kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """Banded self-attention (``window_size`` set, ``c`` is ``x``, (B, T, C)):
+    ``kv_len`` (B,) int32 is the valid key prefix (defaults to T); it stands
+    for the JAX version's sequence-mask ``attn_mask``.
+
+    Cross-attention (``window_size`` None, ``c`` (B, Ts, C) another tensor):
+    ``attn_mask`` broadcastable to (B, H, Tt, Ts), 0 where a score is masked
+    (to -1e4, as the JAX version masks it)."""
+    if (window_size is None) == (c is x):
+        raise NotImplementedError("only banded self-attention and windowless cross-attention "
+                                  "are ported")
     b, t, channels = x.shape
+    t_s = c.shape[1]
     d = channels // n_heads
     q = conv1d(x, params["q"]["w"], params["q"]["b"])
     k = conv1d(c, params["k"]["w"], params["k"]["b"])
     v = conv1d(c, params["v"]["w"], params["v"]["b"])
-    heads = lambda a: a.reshape(b, t, n_heads, d).transpose(1, 2).contiguous()
-    q, k, v = heads(q), heads(k), heads(v)
-    if kv_len is None:
-        kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
-    out = fa.banded_flash_attention(q * d**-0.5, k, v, params["emb_rel_k"], params["emb_rel_v"],
-                                    kv_len, window=window_size)
+    heads = lambda a, n: a.reshape(b, n, n_heads, d).transpose(1, 2).contiguous()
+    q, k, v = heads(q, t), heads(k, t_s), heads(v, t_s)
+    if window_size is None:
+        scores = torch.matmul(q / math.sqrt(d), k.transpose(-1, -2))
+        if attn_mask is not None:
+            scores = scores.masked_fill(attn_mask == 0, -1e4)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+    else:
+        if kv_len is None:
+            kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        out = fa.banded_flash_attention(q * d**-0.5, k, v, params["emb_rel_k"],
+                                        params["emb_rel_v"], kv_len, window=window_size)
     out = out.transpose(1, 2).reshape(b, t, channels)
     return conv1d(out, params["o"]["w"], params["o"]["b"])
 

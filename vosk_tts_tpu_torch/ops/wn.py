@@ -39,22 +39,29 @@ def wn_apply(params, x, x_mask, g=None, *, kernel_size: int, dilation_rate: int)
     return output * x_mask
 
 
-def resblock1_apply(params, x, *, kernel_size: int = 3, dilation=(1, 3, 5)):
-    """HiFiGAN ResBlock1 (serving: no padded-frame mask)."""
+def resblock1_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3, 5)):
+    """HiFiGAN ResBlock1. ``x_mask`` (B, T, 1), where given, zeroes every
+    conv input and the output beyond each row's length (bucketed decodes)."""
     for c1, c2, d in zip(params["convs1"], params["convs2"], dilation):
-        xt = conv1d(leaky_relu(x), c1["w"], c1["b"], padding=(kernel_size * d - d) // 2,
-                    dilation=d)
-        xt = conv1d(leaky_relu(xt), c2["w"], c2["b"], padding=(kernel_size - 1) // 2)
-        x = xt + x
-    return x
+        xt = leaky_relu(x)
+        if x_mask is not None:
+            xt = xt * x_mask
+        xt = conv1d(xt, c1["w"], c1["b"], padding=(kernel_size * d - d) // 2, dilation=d)
+        xt = leaky_relu(xt)
+        if x_mask is not None:
+            xt = xt * x_mask
+        x = conv1d(xt, c2["w"], c2["b"], padding=(kernel_size - 1) // 2) + x
+    return x if x_mask is None else x * x_mask
 
 
-def resblock2_apply(params, x, *, kernel_size: int = 3, dilation=(1, 3)):
-    """HiFiGAN ResBlock2 (serving: no padded-frame mask)."""
+def resblock2_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3)):
+    """HiFiGAN ResBlock2; ``x_mask`` as in :func:`resblock1_apply`."""
     for c, d in zip(params["convs"], dilation):
-        x = conv1d(leaky_relu(x), c["w"], c["b"], padding=(kernel_size * d - d) // 2,
-                   dilation=d) + x
-    return x
+        xt = leaky_relu(x)
+        if x_mask is not None:
+            xt = xt * x_mask
+        x = conv1d(xt, c["w"], c["b"], padding=(kernel_size * d - d) // 2, dilation=d) + x
+    return x if x_mask is None else x * x_mask
 
 
 def ddsconv_apply(params, x, x_mask, g=None, *, kernel_size: int):

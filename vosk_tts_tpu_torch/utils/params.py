@@ -35,10 +35,17 @@ The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
 reads it.
 
 :func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init`,
-:func:`bert_init`, :func:`hubert_init` and :func:`quickvc_init` draw trees
-in the BUNDLE layout (the JAX one) from the same distributions and shapes
-as the JAX package's inits, so a full-width bundle can be made where JAX is
-absent; their numbers differ from JAX's draws.
+:func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
+:func:`ar_init` and :func:`sovits_init` draw trees in the BUNDLE layout
+(the JAX one) from the same distributions and shapes as the JAX package's
+inits, so a full-width bundle can be made where JAX is absent; their
+numbers differ from JAX's draws. The GPT-SoVITS trees convert by the same
+rules: the AR's ``qkv``, ``out``, ``ff1``, ``ff2``, ``bert_proj`` and
+``predict`` are Linears, ``text_emb``/``audio_emb``/``codebook`` tables
+and ``text_alpha``/``audio_alpha`` scalars keep their layout; SoVITS's
+strided ``ssl_proj`` (2, 768, 768) is a Conv1d, its MRTE and ``enc_p``
+projections 1x1 convs, the style encoder's ``spec1``..``fc`` Linears and
+its GLU convs Conv1d.
 """
 
 from __future__ import annotations
@@ -254,6 +261,8 @@ def _generator(rng, cfg, post_channels: int, post_bias: bool = False):
     if not post_bias:
         post["b"] = None
     dec["conv_post"] = post
+    if cfg.gin_channels and cfg.decoder_type == "hifigan":
+        dec["cond"] = _conv(rng, 1, cfg.gin_channels, uic)
     return dec
 
 
@@ -446,4 +455,69 @@ def quickvc_init(cfg, seed: int):
         "dec": dec,
         "enc_spk": {"lstm": lstm, "linear": {"w": _u(rng, (hid, gin), s),
                                              "b": np.zeros((gin,), np.float32)}},
+    }
+
+
+def ar_init(cfg, seed: int):
+    """Bundle-layout GPT-SoVITS AR tree (``gpt_sovits.ar_init``): embeddings
+    N(0, 0.02^2), linears U(-1/sqrt(I), 1/sqrt(I)) with zero biases (no
+    bias on ``predict``), unit alphas and layer norms."""
+    rng = np.random.default_rng(seed)
+    d = cfg.hidden_dim
+    lin = lambda i, o: {"w": _u(rng, (i, o), i**-0.5), "b": np.zeros((o,), np.float32)}
+    normal = lambda shape: (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    return {
+        "text_emb": normal((cfg.phoneme_vocab_size, cfg.embedding_dim)),
+        "audio_emb": normal((cfg.vocab_size, cfg.embedding_dim)),
+        "bert_proj": lin(cfg.bert_dim, cfg.embedding_dim),
+        "text_alpha": np.ones((), np.float32),
+        "audio_alpha": np.ones((), np.float32),
+        "predict": {"w": _u(rng, (d, cfg.vocab_size), d**-0.5)},
+        "layers": [{"qkv": lin(d, 3 * d), "out": lin(d, d), "ln1": _norm(d),
+                    "ff1": lin(d, cfg.ff_mult * d), "ff2": lin(cfg.ff_mult * d, d), "ln2": _norm(d)}
+                   for _ in range(cfg.num_layers)],
+    }
+
+
+def sovits_init(cfg, seed: int):
+    """Bundle-layout GPT-SoVITS SoVITS tree (``gpt_sovits.sovits_init``):
+    the strided SSL projection and the N(0, 1) codebook; the text encoder
+    (SSL, text and second relative-position encoders, N(0, 1) symbol
+    embeddings, MRTE with 4-head cross-attention); the posterior, four
+    plain mean-only couplings (zero ``post``) and the speaker-conditioned
+    HiFiGAN generator of ``cfg.as_vits2()``; the mel style encoder
+    (linears and GLU convs with zero biases)."""
+    rng = np.random.default_rng(seed)
+    v = cfg.as_vits2()
+    h, mh, sh = cfg.hidden_channels, cfg.mrte_hidden, cfg.style_hidden
+    half, gin = v.inter_channels // 2, v.gin_channels
+    enc = lambda layers: _encoder(rng, h, cfg.filter_channels, cfg.n_heads, layers, cfg.kernel_size)
+    lin = lambda i, o: {"w": _u(rng, (i, o), i**-0.5), "b": np.zeros((o,), np.float32)}
+    glu = lambda: {"w": _u(rng, (5, sh, 2 * sh), (sh * 5) ** -0.5),
+                   "b": np.zeros((2 * sh,), np.float32)}
+    return {
+        "ssl_proj": _conv(rng, 2 if cfg.semantic_frame_rate == "25hz" else 1, cfg.ssl_dim,
+                          cfg.ssl_dim),
+        "codebook": rng.standard_normal((cfg.n_codes, cfg.ssl_dim)).astype(np.float32),
+        "enc_p": {
+            "ssl_proj": _conv(rng, 1, cfg.ssl_dim, h),
+            "encoder_ssl": enc(cfg.n_layers // 2),
+            "text_emb": rng.standard_normal((cfg.n_symbols, h)).astype(np.float32),
+            "encoder_text": enc(cfg.n_layers),
+            "mrte": {"c_pre": _conv(rng, 1, h, mh), "text_pre": _conv(rng, 1, h, mh),
+                     "attn": {k: _xavier(rng, mh, mh) for k in ("q", "k", "v", "o")},
+                     "c_post": _conv(rng, 1, mh, h)},
+            "encoder2": enc(cfg.n_layers // 2),
+            "proj": _conv(rng, 1, h, cfg.inter_channels * 2),
+        },
+        "enc_q": _posterior(rng, v),
+        "flow": {"flows": [{"coupling": {"pre": _conv(rng, 1, half, v.hidden_channels),
+                                         "enc": _wn(rng, v.hidden_channels, 5, 4, gin),
+                                         "post": _zeros_conv(v.hidden_channels, half)}}
+                           for _ in range(v.n_flows)]},
+        "dec": _generator(rng, v, 1),
+        "ref_enc": {"spec1": lin(cfg.spec_channels, sh), "spec2": lin(sh, sh),
+                    "glu1": glu(), "glu2": glu(),
+                    **{k: lin(sh, sh) for k in ("wq", "wk", "wv", "fc_attn")},
+                    "fc": lin(sh, gin)},
     }
