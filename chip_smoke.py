@@ -8,9 +8,9 @@ result line is printed):
 
 1. device: requires CUDA (no CPU run), prints the card's name and power
    limit, turns TF32 off for matmuls and cuDNN convolutions (f32 parity);
-2. build: compiles every CUDA kernel of the serving paths from
-   vosk_tts_tpu_torch/csrc/ with nvcc for sm_90a, one nvcc per source, all
-   started together;
+2. build: compiles every CUDA kernel of the serving and training paths
+   from vosk_tts_tpu_torch/csrc/ with nvcc for sm_90a, one nvcc per
+   source, all started together;
 3. kernels vs plain: each kernel's wrapper on card tensors at the shapes
    the serving paths give it, held against its plain PyTorch version on the
    same inputs, then timed with CUDA events beside that plain version (the
@@ -94,7 +94,26 @@ result line is printed):
    six-sentence paragraph, max_batch 8, greedy: chunks, tokens, audio
    seconds, wall, AR and decode groups, 12 banded attention launches a
    decode group; each row of each batched AR decode equal to its text run
-   alone through ar_infer on the card.
+   alone through ar_infer on the card;
+9. VITS2 GAN training (``[train]``): a synthetic corpus from the seed (48
+   utterances of 2-6 s at 22.05 kHz, texts of TEXTS through the port's
+   G2P) and the reference config.json at full width (VITS2Config(),
+   TrainConfig(): periods 2/3/5/7/11, spectral FFTs 1024/2048/512, the
+   duration discriminator; batch 24, 32-frame segments);
+   train.run_vits2.main for 3 steps, its STATE_3 restored into a fresh
+   state (step, params, AdamW state equal), a resumed run for one more
+   step, finite losses; over those 4 steps the MAS kernel launches 4 times
+   and kernels 1-2 none (training takes their differentiable routes), and
+   one step of the timed five launches MAS once; ms a step by CUDA events
+   after 2 warm-up steps, steps/s, segment audio s per s, peak memory, one
+   step under torch.profiler (busy share, launches, top kernels); the MAS
+   kernel exactly equal to its plain version at the step's shape and at
+   B24 T_y 800 T_x 200, with times and bound; one f32 step at B2 on the
+   card and on the CPU (fed the card's alignment) from the same params,
+   noise and batch: losses within 1e-3 relative, the largest gradient
+   difference of each network printed; the exported G_*.npz written as a
+   bundle and served through Model (10 banded attention and 4 DDSConv
+   launches); one bf16 step with finite losses.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -111,6 +130,7 @@ import sys
 import tempfile
 import threading
 import time
+import wave
 
 import numpy as np
 import torch
@@ -125,12 +145,18 @@ from vosk_tts_tpu_torch.models import bert, gpt_sovits, hubert, quickvc, stablet
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from vosk_tts_tpu_torch.ops import mas  # noqa: E402
 from vosk_tts_tpu_torch.ops.stft import mel_spectrogram, spectrogram  # noqa: E402
 from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
 from vosk_tts_tpu_torch.text import Cleaner, multistream_symbol_map, plain_symbol_map  # noqa: E402
+from vosk_tts_tpu_torch.train import run_vits2  # noqa: E402
+from vosk_tts_tpu_torch.train import vits2_train as tt  # noqa: E402
+from vosk_tts_tpu_torch.train.data import BucketBatcher, TTSDataset  # noqa: E402
+from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # noqa: E402
+from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
-from vosk_tts_tpu_torch.utils.checkpoint import save_params  # noqa: E402
+from vosk_tts_tpu_torch.utils.checkpoint import load_params, save_params  # noqa: E402
 from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, hifigan_init,  # noqa: E402
                                              hubert_init, matcha_init, perturb_matcha_zero_init,
                                              perturb_zero_init, quickvc_init, sovits_init,
@@ -438,7 +464,11 @@ def trace(run):
         run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], wall_us
+    # user annotations (the optimizers' "Optimizer.step#AdamW.step" ranges) are
+    # spans over kernels, not kernels: counting them would count time twice
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")], wall_us
 
 
 def profile_requests(runs):
@@ -991,7 +1021,7 @@ def vc_phase(kernels):
             torch.tensor([frames], dtype=torch.int32, device=dev), noise=noise)
         z = vits2.flow_block_apply(vc.params["flow"], v, z_p, mask, g, reverse=True)
         ev[3].record()
-        staged = vits2.generator_apply(vc.params["dec"], v, z * mask, g)[0, :, 0]
+        staged = vits2.generator_apply(vc.params["dec"], v, z * mask, g)[0][0, :, 0]
         ev[4].record()
     torch.cuda.synchronize()
     stages = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
@@ -1261,6 +1291,334 @@ def tree_leaves(tree):
     return [] if tree is None else [np.asarray(tree)]
 
 
+# ---------------------------------------------------------------------------
+# 9. VITS2 GAN training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = SEED + 40
+TRAIN_UTTERANCES = 48
+
+
+def write_corpus(root, n=TRAIN_UTTERANCES):
+    """n utterances of 2-6 s at 22.05 kHz made from the seed (five harmonics
+    of a wandering f0 under a syllable-rate envelope, plus noise), each with
+    one of TEXTS (through the port's G2P, the data pipeline's g2p mode) and
+    a speaker; the metadata file ``meta.csv``."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    lines = []
+    for i in range(n):
+        t = np.arange(int(rng.uniform(2.0, 6.0) * 22050)) / 22050
+        f0 = rng.uniform(90, 220) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 0.8) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 22050
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 6) * t + rng.uniform(0, 2 * np.pi))
+        x = 0.3 * voiced * env + 0.02 * rng.standard_normal(len(t))
+        path = os.path.join(root, f"u{i:02d}.wav")
+        with wave.open(path, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(22050)
+            f.writeframes((np.clip(x, -1, 1) * 20000).astype(np.int16).tobytes())
+        text = TEXTS[i % len(TEXTS)].replace(" —", ",")  # the G2P has no dash symbol
+        lines.append(f"{path}|{(7 * i) % 200}|{text}|{text}")
+    with open(os.path.join(root, "meta.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def train_config(root):
+    """The reference config.json of the shipped VITS2 (mb_istft_vits2_multi's
+    flags) at its full width: every width is the reader's default, the
+    flags are set; batch 24 (run_vits2's default), 8192-sample segments
+    (32 frames)."""
+    return {
+        "train": {"batch_size": 24, "epochs": 1000, "log_interval": 1, "eval_interval": 10 ** 6,
+                  "segment_size": 8192, "seed": TRAIN_SEED},
+        "data": {"training_files": os.path.join(root, "meta.csv"), "sampling_rate": 22050,
+                 "filter_length": 1024, "hop_length": 256, "win_length": 1024,
+                 "n_mel_channels": 80, "g2p_text": True, "n_speakers": 200,
+                 "use_mel_posterior_encoder": True},
+        "model": {"use_mel_posterior_encoder": True, "mb_istft_vits": True,
+                  "use_transformer_flows": True, "transformer_flow_type": "pre_conv2",
+                  "use_spk_conditioned_encoder": True, "use_sdp": True, "gin_channels": 256,
+                  "use_duration_discriminator": True},
+    }
+
+
+def same_state(a, b):
+    """Equal step, parameters and AdamW state (step, moments) of two TrainStates."""
+    if a.step != b.step:
+        return False
+    for k in tt.NETS:
+        for x, y in zip(a.params[k].parameters(), b.params[k].parameters()):
+            if not torch.equal(x, y):
+                return False
+        sa, sb = a.opt[k].state_dict()["state"], b.opt[k].state_dict()["state"]
+        if sa.keys() != sb.keys():
+            return False
+        for i in sa:
+            if any(not torch.equal(sa[i][n].cpu(), sb[i][n].cpu())
+                   for n in ("step", "exp_avg", "exp_avg_sq")):
+                return False
+    return True
+
+
+def mas_case(args, shape, iters, plain_iters):
+    """The MAS kernel against its plain version on (neg_cent, t_ys, t_xs):
+    exactly equal; times and the bound (neg_cent's valid rows read once, the
+    path written once)."""
+    neg_cent, t_ys, t_xs = args
+    got = mas.mas_path(*args)
+    want = mas.maximum_path_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"mas kernel differs from its plain version at {shape}")
+    b, t_y, t_x = neg_cent.shape
+    nbytes = 4 * int((t_ys.long() * t_xs.long()).sum()) + 4 * b * t_y * t_x
+    bound_ms, bound_by = bound(0, nbytes)
+    return {"shape": shape, "max_abs_err": float((got - want).abs().max()),
+            "ms": cuda_ms(lambda: mas.mas_path(*args), iters),
+            "plain_ms": cuda_ms(lambda: mas.maximum_path_plain(*args), plain_iters, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def grad_errors(a, ref):
+    """A network's gradients against a reference: the largest max|g_a - g_ref|
+    / max|g_ref| over its tensors (a tensor whose reference gradient is below
+    1e-6 x the network's largest, 0 in exact arithmetic as the attention key
+    biases, is taken over that floor) and its path, and the relative L2 error
+    of all its gradients together."""
+    ga = {p: t.grad for p, t in a.leaves().items() if t.grad is not None}
+    gr = {p: t.grad.to(ga[p].device) for p, t in ref.leaves().items() if p in ga}
+    floor = 1e-6 * max(float(g.abs().max()) for g in gr.values())
+    errs = {p: float((ga[p] - g).abs().max()) / max(float(g.abs().max()), floor)
+            for p, g in gr.items()}
+    where = max(errs, key=errs.get)
+    l2 = (sum(float((ga[p] - g).double().pow(2).sum()) for p, g in gr.items())
+          / sum(float(g.double().pow(2).sum()) for g in gr.values())) ** 0.5
+    return errs[where], where, l2
+
+
+# the card's f32 gradients against the CPU's f64 step: the limit of each
+# network's relative L2 error, all its tensors together. The H100 readings
+# (PERF.md section 2) reach 1e-3; a wrong backward is off by 1e-1 or more;
+# a ReLU kink crossed on one side only moves one row of one weight.
+PARITY_GRAD_L2 = 1e-2
+
+
+def train_parity(mcfg, tcfg, trees, pair, seed, dev):
+    """One train step of the B2 batch ``pair`` (numpy) in f32 on the card, in
+    f32 on the CPU and in f64 on the CPU (a differentiable cast of the f32
+    parameters, as the bf16 step), from the same trees, noise and alignment
+    (the card's). The D and durD learning rates are 0, so G's loss runs
+    through the same discriminators on every side (AdamW's first step moves
+    each parameter by about lr x sign(grad): float noise in a near-zero D
+    gradient would become a D parameter that differs by ~lr).
+
+    Checks the card's losses against the CPU's f32 ones (1e-3 relative), and
+    each network's gradients, all together, against the f64 step
+    (PARITY_GRAD_L2). A single tensor is not held to a limit: the f32 step
+    is badly conditioned in places (a weight gradient summed from terms that
+    nearly cancel; ReLU kinks near 0), so one tensor's error can reach a few
+    1e-2 of its own max on either f32 side; each network's worst tensor is
+    printed."""
+    t_x, t_y = pair["x"].shape[1], pair["mel"].shape[1]
+    rng = np.random.default_rng(seed)
+    noise = {"posterior": rng.standard_normal((2, t_y, mcfg.inter_channels)),
+             "e_q": rng.standard_normal((2, t_x, 2)), "z": rng.standard_normal((2, t_x, 2))}
+    noise = {k: torch.tensor(v.astype(np.float32)) for k, v in noise.items()}
+    noise["ids_slice"] = torch.tensor(
+        (rng.uniform(size=2) * np.maximum(pair["mel_lengths"] - mcfg.segment_size + 1, 1)
+         ).astype(np.int32))
+    sides, t0 = {}, time.perf_counter()
+    cpu = torch.device("cpu")
+    for name, device, dtype in (("card", dev, None), ("CPU", cpu, None),
+                                ("CPU f64", cpu, torch.float64)):
+        state = tt.init_train_state(mcfg, tcfg, device=device, trees=trees)
+        for k in ("d", "dur"):
+            for group in state.opt[k].param_groups:
+                group["lr"] = 0.0
+        batch = to_device(pair, device)
+        nz = {k: v.to(device) for k, v in noise.items()}
+        if name == "card":
+            with torch.no_grad():
+                attn = vits2.forward_train(state.params["g"].params, mcfg, batch["x"],
+                                           batch["x_lengths"], batch["mel"],
+                                           batch["mel_lengths"], batch["sid"], noise=nz)["attn"]
+        else:
+            nz["attn"] = attn.cpu()
+        step = tt.make_train_step(mcfg, tcfg, compute_dtype=dtype)
+        sides[name] = (state, {k: float(v) for k, v in step(state, batch, noise=nz).items()})
+    (card, got), (ref, want), (ref64, exact) = sides["card"], sides["CPU"], sides["CPU f64"]
+    rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
+    print(f"[train-parity] one step, B2 T_x {t_x} T_y {t_y}, card f32 vs CPU f32 and f64 (the "
+          f"CPU's and the card's {time.perf_counter() - t0:.1f} s, fed the card's alignment; D "
+          f"and durD lr 0): losses card {got}, CPU {want}, CPU f64 {exact}, card vs CPU f32 "
+          f"relative differences {rel} (tol 1e-3)")
+    check(all(r <= 1e-3 for r in rel.values()), f"card vs CPU losses differ: {rel}")
+    for k in tt.NETS:
+        (e_card, w_card, l2_card), (e_cpu, w_cpu, l2_cpu) = \
+            grad_errors(card.params[k], ref64.params[k]), grad_errors(ref.params[k], ref64.params[k])
+        e_pair, w_pair, l2_pair = grad_errors(card.params[k], ref.params[k])
+        print(f"[train-parity] {k} gradients against the f64 step: relative L2, all tensors "
+              f"together, card {l2_card:.3e} (tol {PARITY_GRAD_L2}), CPU f32 {l2_cpu:.3e}; "
+              f"largest max|err| / max|f64| a tensor card {e_card:.3e} ({w_card}), CPU f32 "
+              f"{e_cpu:.3e} ({w_cpu}); card vs CPU f32: L2 {l2_pair:.3e}, largest a tensor "
+              f"{e_pair:.3e} ({w_pair})")
+        check(l2_card <= PARITY_GRAD_L2,
+              f"card {k} gradients differ from the f64 step: relative L2 {l2_card}")
+
+
+def train_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[train]``: run_vits2 at full width on a synthetic corpus (3 steps,
+    then a resume for one more), a timed and a profiled step, MAS against
+    its plain version, card against CPU at B2, the exported generator served
+    through Model, one bf16 step. Each timing line ends with ``smi``, the
+    card's name and power limit. Returns (MAS launches over run_vits2's
+    runs, MAS cases)."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    with tempfile.TemporaryDirectory(prefix="vits2-train-") as root:
+        t0 = time.perf_counter()
+        write_corpus(root)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(train_config(root), f)
+        mcfg, tcfg, dcfg = run_vits2.build_configs(train_config(root))
+        check(mcfg == vits2.VITS2Config() and tcfg == tt.TrainConfig(),
+              f"the training config is not the full-width default: {mcfg} {tcfg}")
+        print(f"[train] {TRAIN_UTTERANCES} utterances of 2-6 s written in "
+              f"{time.perf_counter() - t0:.1f} s; VITS2Config() and TrainConfig() (periods "
+              f"{tcfg.disc_periods}, spectral FFTs {tcfg.disc_spec_ffts}), batch 24, "
+              f"segment {mcfg.segment_size} frames")
+        model_dir = os.path.join(root, "model")
+
+        # run_vits2: 3 steps, then a resume for one more
+        for k in all_kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        first, m1 = run_vits2.main(["-c", cfg_path, "-m", model_dir, "--max-steps", "3"])
+        t_first = time.perf_counter() - t0
+        check(first.step == 3 and m1 and all(np.isfinite(v) for v in m1.values()),
+              f"run_vits2: step {first.step}, metrics {m1}")
+        print(f"[train] run_vits2 --max-steps 3 in {t_first:.1f} s (init, mels, 3 steps, "
+              f"save): last step {m1}")
+        restored = tt.init_train_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev)
+        resume_state(model_dir, restored)
+        check(same_state(first, restored), "STATE_3 did not restore the step, the params and "
+              "the optimizer state")
+        del restored, first
+        t0 = time.perf_counter()
+        state, m2 = run_vits2.main(["-c", cfg_path, "-m", model_dir, "--max-steps", "4"])
+        check(state.step == 4 and m2 and all(np.isfinite(v) for v in m2.values()),
+              f"resumed run_vits2: step {state.step}, metrics {m2}")
+        print(f"[train] resumed from STATE_3 (step, params and AdamW state equal to the "
+              f"saved ones), one more step in {time.perf_counter() - t0:.1f} s: {m2}")
+        got = {n: k.launches for n, k in all_kernels.items()}
+        expected = {n: 0 for n in all_kernels} | {"mas": 4}
+        print(f"[train] launches over run_vits2's 4 steps: {got} (expected {expected})")
+        check(got == expected, f"kernel launches {got} != {expected}")
+        main_launches = got["mas"]
+
+        # one batch of the corpus, timed steps
+        batch_np = next(BucketBatcher(TTSDataset(dcfg), 24).epoch(0))
+        batch = to_device(batch_np, dev)
+        b, t_x = batch_np["x"].shape
+        t_y = batch_np["mel"].shape[1]
+        step = tt.make_train_step(mcfg, tcfg)
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        for _ in range(2):
+            step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times, host = [], []
+        for i in range(5):
+            if i == 0:
+                for k in all_kernels.values():
+                    k.launches = 0
+            t0 = time.perf_counter()
+            start.record()
+            metrics = step(state, batch, generator=gen)
+            end.record()
+            end.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+            times.append(start.elapsed_time(end))
+            if i == 0:
+                got = {n: k.launches for n, k in all_kernels.items()}
+                check(got == {n: 0 for n in all_kernels} | {"mas": 1},
+                      f"one train step launched {got}: expected MAS once, nothing else")
+            vals = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in vals.values()), f"a loss is not finite: {vals}")
+            print(f"[train] timed step {i + 1}/5, B{b} T_x {t_x} T_y {t_y}: {times[-1]:.3f} ms "
+                  f"(CUDA events), {host[-1]:.3f} ms (host clock); {smi}")
+        seg_s = b * mcfg.segment_size * tcfg.hop_length / tcfg.sampling_rate
+        ms = float(np.mean(times))
+        print(f"[train] launches in one step: {got}")
+        print(f"[train] mean {ms:.3f} ms a step: {1e3 / ms:.3f} steps/s; "
+              f"{seg_s * 1e3 / ms:.2f} segment audio s per s ({seg_s:.3f} s a step); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}; last "
+              f"losses { {k: round(v, 4) for k, v in vals.items()} }")
+        kern, wall_us = trace(lambda: step(state, batch, generator=gen))
+        if kern:
+            busy_us = sum(e.self_device_time_total for e in kern)
+            print(f"[train] profile of one step: wall {wall_us / 1e3:.3f} ms, device busy "
+                  f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
+                  f"{sum(e.count for e in kern)} kernel launches; {smi}")
+            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+                print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+                      f"{e.key[:110]}")
+        else:
+            print("[train] profile: no device events in the trace (device time not measured)")
+
+        # MAS at the step's shapes and at B24 T_y 800 T_x 200
+        log = []
+        restore = recording(mas, "mas_path", log)
+        try:
+            step(state, batch, generator=gen)
+        finally:
+            restore()
+        cases = [mas_case(log[0][0], f"B{b} T_y {t_y} T_x {t_x} (the step's)", 50, 2)]
+        g = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        args = (torch.randn(24, 800, 200, generator=g, device=dev) * 3,
+                torch.tensor([800 - 8 * i for i in range(24)], dtype=torch.int32, device=dev),
+                torch.tensor([200 - 2 * i for i in range(24)], dtype=torch.int32, device=dev))
+        cases.append(mas_case(args, "B24 T_y 800 T_x 200", 50, 1))
+        for c in cases:
+            print(f"[kernel] mas {json.dumps(c)} tol 0 (exact)")
+
+        # card against the CPU: one f32 step at full width, B2, for two pairs of rows
+        trees = {k: m.numpy_tree() for k, m in state.params.items()}
+        for i in range(2):
+            train_parity(mcfg, tcfg, trees, {k: v[2 * i:2 * i + 2] for k, v in batch_np.items()},
+                         TRAIN_SEED + i, dev)
+        del trees
+
+        # the exported generator, served
+        g_path = ckpt.latest_checkpoint(model_dir, "G_")
+        with tempfile.TemporaryDirectory(prefix="vits2-trained-") as bundle:
+            write_bundle(bundle, mcfg, load_params(g_path))
+            model = api.Model(bundle)
+            for k in all_kernels.values():
+                k.launches = 0
+            audio = api.Synth(model).synth_audio(TEXTS[1])
+            got = {n: k.launches for n, k in all_kernels.items()}
+            check(audio.dtype == np.int16 and len(audio) > 0 and np.any(audio != 0),
+                  "the exported generator gave no audio")
+            check(got == {n: 0 for n in all_kernels} | {"banded_attention": 10, "ddsconv": 4},
+                  f"serving the export launched {got}")
+            print(f"[train] {os.path.basename(g_path)} (the bundle layout) served through "
+                  f"Model: {len(audio)} samples, launches {got}")
+            del model
+
+        # mixed precision: one bf16 step
+        bf16 = tt.make_train_step(mcfg, tcfg, compute_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        vals = {k: float(v) for k, v in bf16(state, batch, generator=gen).items()}
+        print(f"[train] one bf16 step in {1e3 * (time.perf_counter() - t0):.1f} ms (host "
+              f"clock, first call); {smi}: {vals}")
+        check(all(np.isfinite(v) for v in vals.values()), f"a bf16 loss is not finite: {vals}")
+        del state
+    return main_launches, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -1282,15 +1640,16 @@ def main() -> int:
                "global_attention_packed": fa.GLOBAL_PACKED_KERNEL,
                "global_attention": fa.GLOBAL_KERNEL}
     t0 = time.perf_counter()
-    cuda_build.build(list(kernels.values()))
-    print(f"[build] {len({k.source for k in kernels.values()})} sources for {len(kernels)} wrappers "
-          f"in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    for name, k in kernels.items():
+    cuda_build.build(list(kernels.values()) + [mas.KERNEL])
+    print(f"[build] {len({k.source for k in kernels.values()}) + 1} sources for "
+          f"{len(kernels) + 1} wrappers in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    for name, k in {**kernels, "mas": mas.KERNEL}.items():
         k.fn()
         log = k.library.with_suffix(".log")
         usage = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln] \
             if log.exists() else []
         print(f"[build] {name}: {k.library.name} {'; '.join(usage)}")
+    # MAS is a serial recurrence with no product: no tensor-core instruction to count
     for source in sorted({k.library for k in kernels.values()}):
         counts = tensor_core_instructions(source)
         if counts is None:
@@ -1434,6 +1793,11 @@ def main() -> int:
               f"banded_attention at {c['shape']} disagrees with its plain version")
     torch.cuda.empty_cache()
     long_launches = clone_long_phase(kernels, cfgs, trees)
+    del cfgs, trees
+    torch.cuda.empty_cache()
+
+    # 9. VITS2 GAN training at full width
+    train_launches, mas_cases = train_phase(kernels, smi)
 
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
@@ -1461,6 +1825,16 @@ def main() -> int:
                 **{key: c[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": None, "shape": c["shape"], "path": "clone",
                 "bound_formula": BOUND_FORMULA} for c in clone_cases[:2]]
+    # the port's own kernel (no Pallas counterpart): MAS at the training step's shape
+    record.append({"name": "mas", "route": "cuda",
+                   "source": os.path.relpath(mas.KERNEL.source, ROOT),
+                   "replaces": "vosk_tts_tpu/ops/mas.py:24", "launches": train_launches,
+                   "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
+                   **{key: mas_cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                   "library_ms": None, "shape": mas_cases[0]["shape"], "path": "train",
+                   "bound_formula": BOUND_FORMULA,
+                   "note": "the JAX package's MAS is a lax.scan wavefront, not a Pallas kernel; "
+                           "no PyTorch call computes MAS"})
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

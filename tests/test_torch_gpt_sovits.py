@@ -362,7 +362,9 @@ def test_hifigan_generator_with_speaker_and_lengths(sovits):
     lengths = np.array([20, 13], np.int32)
     want, _ = jax.jit(jv.generator_apply, static_argnums=1)(tree["dec"], jcfg.as_vits2(), z, g,
                                                            x_lengths=lengths)
-    got = tv.generator_apply(tp["dec"], tcfg.as_vits2(), _t(z), _t(g), x_lengths=_t(lengths))
+    got, got_mb = tv.generator_apply(tp["dec"], tcfg.as_vits2(), _t(z), _t(g),
+                                     x_lengths=_t(lengths))
+    assert got_mb is None
     assert got.shape == (2, 20 * 16, 1)
     for r, n in enumerate(lengths * 16):
         _close_wav(got[r, :n], np.asarray(want)[r, :n])

@@ -19,6 +19,7 @@ import torch
 
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
+from vosk_tts_tpu_torch.ops import mas
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -40,6 +41,23 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stderr
     count, bad = r.stdout.strip().split(" ", 1)
     assert int(count) >= 15 and bad == "[]", r.stdout
+
+
+_IMPORT_TRAIN = textwrap.dedent("""
+    import importlib, sys
+    for name in ("data", "driver_common", "losses", "run_vits2", "vits2_train"):
+        importlib.import_module("vosk_tts_tpu_torch.train." + name)
+    importlib.import_module("vosk_tts_tpu_torch.models.discriminators")
+    print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))
+""")
+
+
+def test_train_imports_no_jax():
+    """The training package (train/, the discriminators) in a fresh process."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN], capture_output=True, text=True,
+                       cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
 
 
 def test_port_sources_name_no_jax():
@@ -71,7 +89,8 @@ def test_model_needs_cuda_without_device(tmp_path):
                                            (ddf.ddsconv_fused, "ddsconv_plain"),
                                            (fa.global_flash_attention_rope, "global_attention_plain"),
                                            (fa.global_flash_attention_packed, "global_attention_plain"),
-                                           (fa.global_flash_attention, "global_attention_plain")])
+                                           (fa.global_flash_attention, "global_attention_plain"),
+                                           (mas.mas_path, "maximum_path_plain")])
 def test_wrapper_takes_plain_only_for_cpu(wrapper, plain):
     """The plain version appears once in the wrapper: as the return of its
     first statement, ``if not <x>.is_cuda``; the rest launches the kernel

@@ -157,7 +157,7 @@ def test_spline_transform_inverse(seed):
     want = jtr.piecewise_rational_quadratic_transform(x, uw, uh, ud, inverse=True,
                                                       tails="linear", tail_bound=5.0)
     got = ttr.piecewise_rational_quadratic_transform(_t(x), _t(uw), _t(uh), _t(ud),
-                                                     tail_bound=5.0)
+                                                     inverse=True, tail_bound=5.0)
     _close(got[0], want[0], 1e-4)
     _close(got[1], want[1], 1e-4)
 
@@ -179,8 +179,8 @@ def test_flows_reverse():
                                  filter_channels=64, kernel_size=3)
     want = jflows.elementwise_affine_apply(ea, jflows.flip_flow(want, reverse=True), m, reverse=True)
     got = tflows.convflow_apply(_port(cf), tflows.flip_flow(_t(z)), _t(m), g=_t(g),
-                                filter_channels=64, kernel_size=3)
-    got = tflows.elementwise_affine_apply(_port(ea), tflows.flip_flow(got), _t(m))
+                                reverse=True, filter_channels=64, kernel_size=3)
+    got = tflows.elementwise_affine_apply(_port(ea), tflows.flip_flow(got), _t(m), reverse=True)
     _close(got, want, 1e-4)
 
 

@@ -1,0 +1,230 @@
+"""The port's VITS2 training driver on the CPU (tests/test_train_drivers.py's
+VITS2 cases, ported), on a tiny synthetic corpus: two 64 x 48-sample wavs
+with aligned phone texts, the shipped flags (``pre_conv2`` flows, SDP,
+``mb_istft``, the duration discriminator) at tiny widths.
+
+* the mel loss falls below 0.7 x its first value within 25 steps on one
+  fixed batch;
+* ``--finetune`` keeps the duration discriminator's parameters exactly
+  frozen while G and D move;
+* a second run resumes from the newest STATE: step, params and optimizer
+  state as saved, then trains on;
+* ``from_port_layout(to_port_layout(t)) == t`` for JAX ``synthesizer_init``,
+  ``mpmsd_init`` and ``duration_disc_init`` trees, and the port's numpy
+  ``mpmsd_init``/``duration_disc_init`` have the JAX inits' structure and
+  shapes;
+* the port's ``G_*.npz`` is read by the JAX package's ``load_params`` and
+  equals the trained generator in the JAX layout.
+"""
+
+import dataclasses
+import json
+import wave
+
+import numpy as np
+import pytest
+
+import jax
+import torch
+
+from vosk_tts_tpu.models import discriminators as jd
+from vosk_tts_tpu.models import vits2 as jv
+from vosk_tts_tpu.utils import checkpoint as jckpt
+from vosk_tts_tpu_torch.models import vits2 as tv
+from vosk_tts_tpu_torch.ops import pqmf as tpqmf
+from vosk_tts_tpu_torch.ops import stft as tstft
+from vosk_tts_tpu_torch.train import losses as tl
+from vosk_tts_tpu_torch.train import run_vits2
+from vosk_tts_tpu_torch.train import vits2_train as tt
+from vosk_tts_tpu_torch.train.data import BucketBatcher, TTSDataset
+from vosk_tts_tpu_torch.train.driver_common import to_device
+from vosk_tts_tpu_torch.utils import checkpoint as ckpt
+from vosk_tts_tpu_torch.utils import params as P
+
+ALIGNED = ["m_a1 vj_i1_r", "d_o1_m u1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("vits2_torch")
+    lines = []
+    for i, aligned in enumerate(ALIGNED):
+        data = (np.random.default_rng(20 + i).standard_normal(64 * 48) * 3000).astype(np.int16)
+        with wave.open(str(root / f"t{i}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(22050)
+            f.writeframes(data.tobytes())
+        lines.append(f"{root}/t{i}.wav|{i}|{aligned}|{aligned}")
+    (root / "meta.csv").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return root
+
+
+def cfg_dict(root):
+    return {
+        "train": {"batch_size": 2, "epochs": 1, "log_interval": 1, "eval_interval": 1,
+                  "segment_size": 2048, "fft_sizes": [64, 128, 32],
+                  "hop_sizes": [8, 16, 4], "win_lengths": [32, 64, 16]},
+        "data": {"training_files": f"{root}/meta.csv", "sampling_rate": 22050,
+                 "filter_length": 256, "hop_length": 64, "win_length": 256,
+                 "n_mel_channels": 40, "aligned_text": True, "n_speakers": 4,
+                 "use_mel_posterior_encoder": True},
+        "model": {"use_mel_posterior_encoder": True, "mb_istft_vits": True,
+                  "use_transformer_flows": True, "transformer_flow_type": "pre_conv2",
+                  "use_spk_conditioned_encoder": True,
+                  "inter_channels": 16, "hidden_channels": 16, "filter_channels": 32,
+                  "n_heads": 2, "n_layers": 1, "n_flows": 1, "posterior_wn_layers": 2,
+                  "sdp_n_flows": 1, "resblock_kernel_sizes": [3],
+                  "resblock_dilation_sizes": [[1, 3]], "upsample_rates": [4],
+                  "upsample_kernel_sizes": [8], "upsample_initial_channel": 32,
+                  "n_speakers": 4, "gin_channels": 8, "use_duration_discriminator": True},
+    }
+
+
+def _write_cfg(tmp_path, corpus):
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg_dict(corpus)), encoding="utf-8")
+    return str(path)
+
+
+def _leaves(state, net):
+    return {k: v.detach().clone() for k, v in state.params[net].state_dict().items()}
+
+
+def test_gan_loss_decreases(corpus):
+    mcfg, tcfg, dcfg = run_vits2.build_configs(cfg_dict(corpus))
+    # one period and one FFT size: the full discriminator makes 25 steps slow here
+    tcfg = dataclasses.replace(tcfg, disc_periods=(2,), disc_spec_ffts=(256,))
+    batch = to_device(next(iter(BucketBatcher(TTSDataset(dcfg), 2).epoch(0))), "cpu")
+    state = tt.init_train_state(mcfg, tcfg, seed=0, device="cpu")
+    step = tt.make_train_step(mcfg, tcfg)
+    gen = torch.Generator().manual_seed(0)
+    mel = [float(step(state, batch, generator=gen)["loss_mel"]) for _ in range(25)]
+    assert all(np.isfinite(mel))
+    assert min(mel[-5:]) < mel[0] * 0.7, mel[:3] + mel[-3:]
+
+
+def test_step_after_inference_mode_serving(corpus):
+    """Serving under torch.inference_mode makes the cached iSTFT, PQMF and
+    STFT constants first; a train step after it can still save them for
+    backward."""
+    mcfg, tcfg, dcfg = run_vits2.build_configs(cfg_dict(corpus))
+    tcfg = dataclasses.replace(tcfg, disc_periods=(2,), disc_spec_ffts=(256,))
+    batch = to_device(next(iter(BucketBatcher(TTSDataset(dcfg), 2).epoch(0))), "cpu")
+    state = tt.init_train_state(mcfg, tcfg, seed=0, device="cpu")
+    with torch.inference_mode():
+        tv.generator_apply(state.params["g"].params["dec"], mcfg,
+                           torch.zeros(2, mcfg.segment_size, mcfg.inter_channels),
+                           torch.zeros(2, 1, mcfg.gin_channels))
+        tpqmf.pqmf_analysis(batch["wav"][..., None])
+        tl.subband_stft_loss(torch.zeros(2, 512, 4), torch.zeros(2, 512, 4), tcfg.fft_sizes,
+                             tcfg.hop_sizes, tcfg.win_lengths)
+        tstft.mel_spectrogram(batch["wav"], tcfg.filter_length, tcfg.n_mel_channels,
+                              tcfg.sampling_rate, tcfg.hop_length, tcfg.win_length, 0.0, None)
+    metrics = tt.make_train_step(mcfg, tcfg)(state, batch, generator=torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+def test_finetune_freezes_duration_disc(corpus, tmp_path):
+    cfg = _write_cfg(tmp_path, corpus)
+    pre, _ = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "pre"), "--device", "cpu"])
+    ft, metrics = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "ft"), "--device", "cpu",
+                                  "--finetune", str(tmp_path / "pre")])
+    assert metrics and all(np.isfinite(v) for v in metrics.values()), metrics
+    before, after = _leaves(pre, "dur"), _leaves(ft, "dur")
+    for k in before:
+        torch.testing.assert_close(after[k], before[k], rtol=0, atol=0)
+    assert ft.opt["dur"].state_dict()["state"][0]["step"] > 0  # its optimizer still advanced
+    for net in ("g", "d"):
+        a, b = _leaves(pre, net), _leaves(ft, net)
+        assert max(float((a[k] - b[k]).abs().max()) for k in a) > 0, net
+
+
+def test_resume_restores_state(corpus, tmp_path):
+    cfg = _write_cfg(tmp_path, corpus)
+    model_dir = str(tmp_path / "m")
+    first, _ = run_vits2.main(["-c", cfg, "-m", model_dir, "--device", "cpu", "--max-steps", "1"])
+    saved = ckpt.load_full_state(model_dir, "STATE")
+    assert saved["step"] == first.step == 1
+
+    mcfg, tcfg, _ = run_vits2.build_configs(cfg_dict(corpus))
+    state = tt.init_train_state(mcfg, tcfg, seed=99, device="cpu")
+    assert run_vits2.resume_state(model_dir, state) == saved["epoch"]
+    assert state.step == 1
+    for net in tt.NETS:
+        for k, v in saved[f"params_{net}"].items():
+            torch.testing.assert_close(state.params[net].state_dict()[k], v, rtol=0, atol=0)
+        opt = state.opt[net].state_dict()
+        for i, s in saved[f"opt_{net}"]["state"].items():
+            for name in ("step", "exp_avg", "exp_avg_sq"):
+                torch.testing.assert_close(opt["state"][i][name], s[name], rtol=0, atol=0)
+
+    again, _ = run_vits2.main(["-c", cfg, "-m", model_dir, "--device", "cpu", "--max-steps", "2"])
+    assert again.step == 2
+    assert ckpt.latest_checkpoint(model_dir, "STATE_", ".pt").endswith("STATE_2.pt")
+
+
+def test_generator_export_loads_in_jax(corpus, tmp_path):
+    cfg = _write_cfg(tmp_path, corpus)
+    state, _ = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "m"), "--device", "cpu",
+                               "--max-steps", "1"])
+    got = jckpt.load_params(str(tmp_path / "m" / "G_1.npz"))
+    want = P.from_port_layout(state.params["g"].numpy_tree())
+    flat_got, flat_want = jax.tree.leaves_with_path(got), jax.tree.leaves_with_path(want)
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (_, a), (_, b) in zip(flat_got, flat_want):
+        np.testing.assert_array_equal(a, b)
+    # and it has the JAX init's structure and shapes
+    mcfg, _, _ = run_vits2.build_configs(cfg_dict(corpus))
+    jcfg = jv.VITS2Config(**{f: getattr(mcfg, f) for f in mcfg.__dataclass_fields__})
+    shapes = jax.eval_shape(lambda k: jv.synthesizer_init(k, jcfg), jax.random.PRNGKey(0))
+    assert jax.tree.structure(shapes) == jax.tree.structure(got)
+    assert [s.shape for s in jax.tree.leaves(shapes)] == [a.shape for a in jax.tree.leaves(got)]
+
+
+def _assert_same_tree(got, want):
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_from_port_layout_inverts_to_port_layout():
+    cfg = jv.VITS2Config(inter_channels=32, hidden_channels=32, filter_channels=64, n_layers=2,
+                         upsample_initial_channel=64, n_speakers=4, gin_channels=16)
+    rng = np.random.default_rng(0)
+    inits = [lambda k: jv.synthesizer_init(k, cfg),
+             lambda k: jd.mpmsd_init(k, periods=(2, 3), spec_ffts=(256,)),
+             lambda k: jd.duration_disc_init(k, 32, 32, 3, variant=2)]
+    # the JAX inits' trees (structure and shapes), random values: an eager
+    # init draws op by op and takes tens of seconds here
+    trees = [jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
+                          jax.eval_shape(init, jax.random.PRNGKey(0))) for init in inits]
+    for tree in trees:
+        _assert_same_tree(P.from_port_layout(P.to_port_layout(tree)), tree)
+    # the port's numpy inits have the JAX inits' structure and shapes
+    for mine, theirs in ((P.mpmsd_init(0, (2, 3), (256,)), trees[1]),
+                         (P.duration_disc_init(0, 32, 32, 3), trees[2])):
+        assert jax.tree.structure(mine) == jax.tree.structure(theirs)
+        assert ([a.shape for a in jax.tree.leaves(mine)]
+                == [a.shape for a in jax.tree.leaves(theirs)])
+
+
+def test_wavlm_dir_is_refused(corpus, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        run_vits2.main(["-c", _write_cfg(tmp_path, corpus), "-m", str(tmp_path / "m"),
+                        "--device", "cpu", "--wavlm-dir", str(tmp_path)])
+
+
+def test_driver_needs_cuda_without_device(corpus, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_vits2.main(["-c", _write_cfg(tmp_path, corpus), "-m", str(tmp_path / "m")])

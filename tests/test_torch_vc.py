@@ -225,8 +225,9 @@ def test_ms_istft_generator(quickvc):
     rng = np.random.default_rng(10)
     z = rng.standard_normal((2, 30, 32)).astype(np.float32)
     g = rng.standard_normal((2, 1, 16)).astype(np.float32)
-    want, _ = jv.generator_apply(tree["dec"], jcfg.as_vits2(), z, g)
-    got = tv.generator_apply(tp["dec"], tcfg.as_vits2(), _t(z), _t(g))
+    want, want_mb = jv.generator_apply(tree["dec"], jcfg.as_vits2(), z, g)
+    got, got_mb = tv.generator_apply(tp["dec"], tcfg.as_vits2(), _t(z), _t(g))
+    _close_wav(got_mb, want_mb)
     assert got.shape == (2, 30 * 320, 1)
     _close_wav(got, want)
 
@@ -234,12 +235,13 @@ def test_ms_istft_generator(quickvc):
 def test_mb_istft_unfused_tail(vits2):
     jcfg, tcfg, tree, tp = vits2
     z = np.random.default_rng(11).standard_normal((2, 40, 32)).astype(np.float32)
-    want, _ = jv.generator_apply(tree["dec"], jcfg, z)
-    got = tv.generator_apply(tp["dec"], tcfg, _t(z))
+    want, want_mb = jv.generator_apply(tree["dec"], jcfg, z)
+    got, got_mb = tv.generator_apply(tp["dec"], tcfg, _t(z))
+    _close_wav(got_mb, want_mb)  # the subband waveforms training reads
     assert got.shape == (2, 40 * tcfg.upsample_factor, 1)
     _close_wav(got, want)
     # the fused serving tail computes the same waveform
-    fused = tv.generator_apply(tp["dec"], tcfg, _t(z), fused_tail=True)
+    fused, _ = tv.generator_apply(tp["dec"], tcfg, _t(z), fused_tail=True)
     _close_wav(fused, want)
 
 

@@ -498,6 +498,6 @@ def sovits_decode(params, cfg: SoVITSConfig, codes, text, text_lengths, refer, r
     z_p = (m_p + noise * torch.exp(logs_p) * noise_scale) * y_mask
     v, g = cfg.as_vits2(), ge[:, None, :]
     z = vits2.flow_block_apply(params["flow"], v, z_p, y_mask, g, reverse=True)
-    o = vits2.generator_apply(params["dec"], v, z * y_mask, g,
-                              x_lengths=None if code_lengths is None else y_lengths)
+    o, _ = vits2.generator_apply(params["dec"], v, z * y_mask, g,
+                                 x_lengths=None if code_lengths is None else y_lengths)
     return o[..., 0]

@@ -114,7 +114,7 @@ def infer(params, cfg: QuickVCConfig, c, tgt_mel, *, generator=None, noise=None)
         generator=generator, noise=noise)
     v = cfg.as_vits2()
     z = vits2.flow_block_apply(params["flow"], v, z_p, c_mask, g, reverse=True)
-    return vits2.generator_apply(params["dec"], v, z * c_mask, g)[..., 0]
+    return vits2.generator_apply(params["dec"], v, z * c_mask, g)[0][..., 0]
 
 
 class QuickVC(TreeModule):

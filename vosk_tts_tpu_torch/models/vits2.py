@@ -1,4 +1,5 @@
-"""MB-iSTFT-VITS2 inference (vosk_tts_tpu/models/vits2.py), channels-last.
+"""MB-iSTFT-VITS2 (vosk_tts_tpu/models/vits2.py), channels-last: inference
+and the training forward.
 
 The serving passes (``Synthesizer``) run the shipped configuration:
 ``pre_conv2`` transformer flows, the ``mb_istft`` decoder with the fused
@@ -10,8 +11,12 @@ QuickVC (models/quickvc.py) on plain residual-coupling flows and the
 the multistream bundles (``decoder_type="hifigan"`` without speaker
 conditioning, models/vocoder.py) and as GPT-SoVITS's speaker-conditioned
 ``hifigan`` decoder with padded-frame masking (models/gpt_sovits.py).
-Other flow types and decoders and the deterministic duration predictor
-raise NotImplementedError.
+Training (``forward_train``, train/vits2_train.py) runs the shipped
+configuration with the SDP's NLL and the monotonic alignment search
+(ops/mas.py); its attention and DDSConv take the differentiable routes
+(``flash=False``, ``fused=False``) where the JAX package takes its XLA
+branches. Other flow types and decoders and the deterministic duration
+predictor raise NotImplementedError.
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -31,8 +36,9 @@ import torch.nn.functional as F
 from ..ops import attention as att
 from ..ops import flows as fl
 from ..ops import wn as wnops
-from ..ops.commons import generate_path, sequence_mask
+from ..ops.commons import generate_path, rand_slice_segments, sequence_mask
 from ..ops.conv import conv1d, conv_transpose1d
+from ..ops.mas import maximum_path
 from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
 from ..ops.stft import istft_multiband, mb_decoder_tail_fused
 from .tree import TreeModule
@@ -91,6 +97,44 @@ class VITS2Config:
         return up
 
     @classmethod
+    def from_reference_json(cls, model_cfg: dict, data_cfg: dict, train_cfg: dict) -> "VITS2Config":
+        """From the reference config.json's model, data and train blocks
+        (training/vits2/configs/mb_istft_vits2_multi.json), as the JAX
+        package reads them."""
+        decoder = next((d for key, d in (("mb_istft_vits", "mb_istft"), ("ms_istft_vits", "ms_istft"),
+                                          ("istft_vits", "istft")) if model_cfg.get(key)), "hifigan")
+        spec_channels = (data_cfg.get("n_mel_channels", 80)
+                         if model_cfg.get("use_mel_posterior_encoder", False)
+                         else data_cfg.get("filter_length", 1024) // 2 + 1)
+        get = model_cfg.get
+        return cls(
+            n_vocab=get("n_vocab", 62), spec_channels=spec_channels,
+            segment_size=train_cfg.get("segment_size", 8192) // data_cfg.get("hop_length", 256),
+            inter_channels=get("inter_channels", 192), hidden_channels=get("hidden_channels", 192),
+            filter_channels=get("filter_channels", 768), n_heads=get("n_heads", 2),
+            n_layers=get("n_layers", 6), n_flows=get("n_flows", 4),
+            posterior_wn_layers=get("posterior_wn_layers", 16), sdp_n_flows=get("sdp_n_flows", 4),
+            kernel_size=get("kernel_size", 3), p_dropout=get("p_dropout", 0.1),
+            resblock=get("resblock", "1"),
+            resblock_kernel_sizes=tuple(get("resblock_kernel_sizes", (3, 7, 11))),
+            resblock_dilation_sizes=tuple(tuple(d) for d in get(
+                "resblock_dilation_sizes", ((1, 3, 5), (1, 3, 5), (1, 3, 5)))),
+            upsample_rates=tuple(get("upsample_rates", (4, 4))),
+            upsample_initial_channel=get("upsample_initial_channel", 512),
+            upsample_kernel_sizes=tuple(get("upsample_kernel_sizes", (16, 16))),
+            gen_istft_n_fft=get("gen_istft_n_fft", 16),
+            gen_istft_hop_size=get("gen_istft_hop_size", 4), subbands=get("subbands", 4),
+            n_speakers=data_cfg.get("n_speakers", get("n_speakers", 0)),
+            gin_channels=get("gin_channels", 0), use_sdp=get("use_sdp", True),
+            use_spk_conditioned_encoder=get("use_spk_conditioned_encoder", False),
+            use_transformer_flows=get("use_transformer_flows", False),
+            transformer_flow_type=get("transformer_flow_type", "pre_conv"),
+            decoder_type=decoder, use_noise_scaled_mas=get("use_noise_scaled_mas", False),
+            mas_noise_scale_initial=get("mas_noise_scale_initial", 0.01),
+            noise_scale_delta=get("noise_scale_delta", 2e-6),
+        )
+
+    @classmethod
     def from_dict(cls, d: dict) -> "VITS2Config":
         """From a bundle's ``"model"`` block, where JSON lists stand for tuples."""
         tup = lambda v: tuple(tup(e) for e in v) if isinstance(v, list) else v
@@ -136,44 +180,103 @@ def check_ported(cfg: VITS2Config):
 # ---------------------------------------------------------------------------
 
 
-def text_encoder_apply(params, cfg: VITS2Config, x_ids, x_lengths, g=None):
-    """x_ids: (B, T) int -> (x (B, T, H), m, logs, x_mask (B, T, 1))."""
+def text_encoder_apply(params, cfg: VITS2Config, x_ids, x_lengths, g=None, *,
+                       flash: bool = True):
+    """x_ids: (B, T) int -> (x (B, T, H), m, logs, x_mask (B, T, 1)).
+    ``flash`` picks the attention route (ops/attention.py)."""
     h = cfg.hidden_channels
     x = params["emb"][x_ids.long()] * math.sqrt(h)
     x_mask = sequence_mask(x_lengths, x_ids.shape[1]).to(x.dtype)[..., None]
     x = att.encoder_apply(params["encoder"], x * x_mask, x_mask, g,
-                          n_heads=cfg.n_heads, kernel_size=cfg.kernel_size)
+                          n_heads=cfg.n_heads, kernel_size=cfg.kernel_size, flash=flash)
     stats = conv1d(x, params["proj"]["w"], params["proj"]["b"]) * x_mask
     return x, stats[..., :cfg.inter_channels], stats[..., cfg.inter_channels:], x_mask
 
 
 # ---------------------------------------------------------------------------
-# Stochastic duration predictor, reverse pass
+# Stochastic duration predictor: the sampling (reverse) pass and the NLL
 # ---------------------------------------------------------------------------
 
 
-def _sdp_context(params, x, x_mask, g, *, kernel_size=3):
-    x = conv1d(x, params["pre"]["w"], params["pre"]["b"])
+# the SDP's DDSConv and ConvFlow widths (the reference's fixed 256 and 3)
+SDP_FILTER_CHANNELS, SDP_KERNEL = 256, 3
+
+
+def _sdp_context(params, x, x_mask, g, *, fused: bool):
+    """The condition net over the detached encoder output (and speaker)."""
+    x = conv1d(x.detach(), params["pre"]["w"], params["pre"]["b"])
     if g is not None:
-        x = x + conv1d(g, params["cond"]["w"], params["cond"]["b"])
-    x = wnops.ddsconv_apply(params["convs"], x, x_mask, kernel_size=kernel_size)
+        x = x + conv1d(g.detach(), params["cond"]["w"], params["cond"]["b"])
+    x = wnops.ddsconv_apply(params["convs"], x, x_mask, kernel_size=SDP_KERNEL, fused=fused)
     return conv1d(x, params["proj"]["w"], params["proj"]["b"]) * x_mask
 
 
-def sdp_reverse(params, cfg: VITS2Config, x, x_mask, g=None, *, generator=None,
-                noise_scale=1.0, filter_channels=256, kernel_size=3):
+def sdp_reverse(params, cfg: VITS2Config, x, x_mask, g=None, *, generator=None, noise=None,
+                noise_scale=1.0, fused: bool = True):
     """Sample log-durations (B, T, 1). Runs four DDSConv stacks: the context
-    net, then ConvFlows 4, 3 and 2 (ConvFlow 1 is dropped in reverse)."""
-    ctx = _sdp_context(params, x, x_mask, g, kernel_size=kernel_size)
+    net, then ConvFlows 4, 3 and 2 (ConvFlow 1 is dropped in reverse).
+    ``noise`` (B, T, 2) is the standard normal draw (else from
+    ``generator``). ``fused`` (serving) takes the DDSConv kernel; training
+    passes False: its duration-discriminator branch differentiates this
+    pass."""
+    ctx = _sdp_context(params, x, x_mask, g, fused=fused)
     b, t, _ = x.shape
-    z = torch.randn((b, t, 2), generator=generator, device=x.device, dtype=x.dtype) * noise_scale
+    if noise is None:
+        noise = torch.randn((b, t, 2), generator=generator, device=x.device, dtype=x.dtype)
+    z = noise * noise_scale
     for cf in params["flows"][:0:-1][:-1]:  # CF4, CF3, CF2
         z = fl.flip_flow(z)
-        z = fl.convflow_apply(cf, z, x_mask, g=ctx, filter_channels=filter_channels,
-                              kernel_size=kernel_size)
+        z = fl.convflow_apply(cf, z, x_mask, g=ctx, reverse=True,
+                              filter_channels=SDP_FILTER_CHANNELS, kernel_size=SDP_KERNEL,
+                              fused=fused)
     z = fl.flip_flow(z)
-    z = fl.elementwise_affine_apply(params["flows"][0], z, x_mask)
+    z = fl.elementwise_affine_apply(params["flows"][0], z, x_mask, reverse=True)
     return z[..., :1]
+
+
+def sdp_forward_nll(params, cfg: VITS2Config, x, x_mask, w, g=None, *, generator=None,
+                    noise=None):
+    """Training NLL (B,) of the observed durations w (B, T, 1): the
+    posterior flows turn the draw e_q (B, T, 2) (``noise``, else from
+    ``generator``) into the dequantisation u and the second channel, the
+    main flows map (log(w - u), z1) to the prior. Every DDSConv stack takes
+    the differentiable route. Flip's log-determinant is 0."""
+    ctx = _sdp_context(params, x, x_mask, g, fused=False)
+    b, t, _ = x.shape
+    h_w = conv1d(w, params["post_pre"]["w"], params["post_pre"]["b"])
+    h_w = wnops.ddsconv_apply(params["post_convs"], h_w, x_mask, kernel_size=SDP_KERNEL,
+                              fused=False)
+    h_w = conv1d(h_w, params["post_proj"]["w"], params["post_proj"]["b"]) * x_mask
+    if noise is None:
+        noise = torch.randn((b, t, 2), generator=generator, device=x.device, dtype=x.dtype)
+    e_q = noise * x_mask
+    gq = ctx + h_w
+    z_q, logdet_q = fl.elementwise_affine_apply(params["post_flows"][0], e_q, x_mask,
+                                                reverse=False)
+    for cf in params["post_flows"][1:]:
+        z_q, ld = fl.convflow_apply(cf, z_q, x_mask, g=gq, reverse=False,
+                                    filter_channels=SDP_FILTER_CHANNELS, kernel_size=SDP_KERNEL,
+                                    fused=False)
+        logdet_q = logdet_q + ld
+        z_q = fl.flip_flow(z_q)
+    z_u, z1 = z_q[..., :1], z_q[..., 1:]
+    u = torch.sigmoid(z_u) * x_mask
+    z0 = (w - u) * x_mask
+    logdet_q = logdet_q + ((F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * x_mask).sum(dim=(1, 2))
+    logq = (-0.5 * (math.log(2 * math.pi) + e_q**2) * x_mask).sum(dim=(1, 2)) - logdet_q
+
+    z0, logdet = fl.log_flow(z0, x_mask)
+    z, ld = fl.elementwise_affine_apply(params["flows"][0], torch.cat([z0, z1], dim=-1), x_mask,
+                                        reverse=False)
+    logdet = logdet + ld
+    for cf in params["flows"][1:]:
+        z, ld = fl.convflow_apply(cf, z, x_mask, g=ctx, reverse=False,
+                                  filter_channels=SDP_FILTER_CHANNELS, kernel_size=SDP_KERNEL,
+                                  fused=False)
+        logdet = logdet + ld
+        z = fl.flip_flow(z)
+    nll = (0.5 * (math.log(2 * math.pi) + z**2) * x_mask).sum(dim=(1, 2)) - logdet
+    return nll + logq
 
 
 # ---------------------------------------------------------------------------
@@ -201,23 +304,25 @@ def posterior_apply(params, cfg: VITS2Config, y, y_lengths, g=None, *, generator
 # ---------------------------------------------------------------------------
 
 
-def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g, *, reverse: bool):
+def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g, *, reverse: bool, flash: bool):
     """One ``pre_conv2`` coupling layer (mean-only)."""
     half = cfg.inter_channels // 2
     x0, x1 = x[..., :half], x[..., half:]
     hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
     # the flow block's kernel_size is 5 (inherited by Layer2's pre_transformer)
     hid = hid + att.encoder_apply(layer["pre_transformer"], hid * x_mask, x_mask,
-                                  n_heads=2, kernel_size=5, window_size=4)
+                                  n_heads=2, kernel_size=5, window_size=4, flash=flash)
     hid = wnops.wn_apply(layer["enc"], hid, x_mask, g, kernel_size=5, dilation_rate=1)
     m = conv1d(hid, layer["post"]["w"], layer["post"]["b"]) * x_mask
     x1 = (x1 - m) * x_mask if reverse else m + x1 * x_mask
     return torch.cat([x0, x1], dim=-1)
 
 
-def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bool):
+def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bool,
+                     flash: bool = True):
     """The flow: groups of (coupling layer, Flip). Forward runs each group
-    from the first; reverse runs them from the last, Flip first."""
+    from the first; reverse runs them from the last, Flip first. ``flash``
+    picks the attention route of the ``pre_conv2`` layers."""
     check_flow(cfg)
     plain = flow_type(cfg) == "plain"
 
@@ -225,7 +330,7 @@ def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bo
         if plain:
             return fl.residual_coupling_apply(layer["coupling"], x, x_mask, g, reverse=rev,
                                               kernel_size=5, dilation_rate=1)
-        return _flow_layer_apply(layer, cfg, x, x_mask, g, reverse=rev)
+        return _flow_layer_apply(layer, cfg, x, x_mask, g, reverse=rev, flash=flash)
 
     if not reverse:
         for layer in params["flows"]:
@@ -277,33 +382,37 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None):
 def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
                     fused_tail: bool = False):
     """x: (B, T, inter), g: (B, 1, gin) or None (read where the bundle has a
-    ``cond`` conv) -> waveform (B, T * upsample_factor, 1). ``x_lengths``
+    ``cond`` conv) -> (waveform (B, T * upsample_factor, 1), the subband
+    waveforms (B, T * upsample_factor / subbands, subbands) of the unfused
+    ``mb_istft`` and ``ms_istft`` tails, else None). ``x_lengths``
     (B,) masks padded frames in the trunk (:func:`_generator_trunk`): for
     ``hifigan`` the samples below length * upsample_factor then equal an
     unpadded decode's. ``hifigan``:
     ``conv_post`` (padding 3, no reflection pad) and tanh. ``mb_istft``:
     the multiband iSTFT and PQMF synthesis, or with ``fused_tail`` the
-    fused tail of the serving path (ops/stft.mb_decoder_tail_fused).
+    fused tail of the serving path (ops/stft.mb_decoder_tail_fused), which
+    gives no subband waveforms: training reads them, serving does not.
     ``ms_istft``: the multiband iSTFT, then the learned upsampling filter
     ``multistream_conv_post``."""
     check_decoder(cfg)
     x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths)
     if cfg.decoder_type == "hifigan":
-        return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3))
+        return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"],
+                                 padding=3)), None
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
     x = conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3)
     n_fft, hop, sub = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands
     if cfg.decoder_type == "mb_istft" and fused_tail:
-        return mb_decoder_tail_fused(x, n_fft, hop, n_fft, subbands=sub)
+        return mb_decoder_tail_fused(x, n_fft, hop, n_fft, subbands=sub), None
     b, t, _ = x.shape
     x = x.reshape(b, t, sub, n_fft + 2)
     cutoff = n_fft // 2 + 1
     y_mb = istft_multiband(torch.exp(x[..., :cutoff]), math.pi * torch.sin(x[..., cutoff:]),
                            n_fft, hop, n_fft)
     if cfg.decoder_type == "mb_istft":
-        return pqmf_synthesis(y_mb, subbands=sub)
+        return pqmf_synthesis(y_mb, subbands=sub), y_mb
     return polyphase_upfir(y_mb, params["multistream_conv_post"]["w"], stride=sub,
-                           gain=float(sub))
+                           gain=float(sub)), y_mb
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +466,7 @@ def decode_from_durations(params, cfg: VITS2Config, enc: dict, sid=None, *, gene
         zy = zy[:, :gen_frames]
         y_lengths = torch.minimum(y_lengths, torch.tensor(gen_frames, dtype=y_lengths.dtype,
                                                           device=y_lengths.device))
-    wav = generator_apply(params["dec"], cfg, zy, g, fused_tail=True)
+    wav, _ = generator_apply(params["dec"], cfg, zy, g, fused_tail=True)
     return {"wav": wav, "wav_lengths": y_lengths * cfg.upsample_factor, "attn": attn,
             "y_mask": y_mask, "durations": w_ceil}
 
@@ -398,7 +507,76 @@ def voice_conversion(params, cfg: VITS2Config, y, y_lengths, sid_src, sid_tgt, *
                                       generator=generator, noise=noise)
     z_p = flow_block_apply(params["flow"], cfg, z, y_mask, g_src, reverse=False)
     z_hat = flow_block_apply(params["flow"], cfg, z_p, y_mask, g_tgt, reverse=True)
-    return generator_apply(params["dec"], cfg, z_hat * y_mask, g_tgt), y_mask
+    return generator_apply(params["dec"], cfg, z_hat * y_mask, g_tgt)[0], y_mask
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _neg_cent(z_p, m_p, logs_p):
+    """Log-likelihood of each frame z_p (B, Ty, C) under each token's prior
+    (m_p, logs_p (B, Tx, C)) -> (B, Ty, Tx)."""
+    s_p_sq_r = torch.exp(-2 * logs_p)
+    nc1 = (-0.5 * math.log(2 * math.pi) - logs_p).sum(dim=-1)
+    nc2 = torch.bmm(-0.5 * z_p**2, s_p_sq_r.transpose(1, 2))
+    nc3 = torch.bmm(z_p, (m_p * s_p_sq_r).transpose(1, 2))
+    nc4 = (-0.5 * m_p**2 * s_p_sq_r).sum(dim=-1)
+    return nc1[:, None, :] + nc2 + nc3 + nc4[:, None, :]
+
+
+def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=None, *,
+                  generator=None, noise=None):
+    """The training forward (vosk_tts_tpu/models/vits2.py forward_train):
+    text encoder, posterior over the mel y (B, T_y, spec_channels), flow
+    forward, the alignment by MAS (no gradient), the SDP's NLL and a
+    differentiable SDP sample (read by the duration discriminator), and the
+    generator on a random ``segment_size``-frame slice of z (unfused tail,
+    so ``wav_mb`` holds the subband waveforms). Returns the JAX package's
+    dict.
+
+    ``noise`` (a dict, else everything is drawn from ``generator``) pins the
+    random draws: ``"posterior"`` (B, T_y, inter_channels), ``"e_q"`` and
+    ``"z"`` (B, T_x, 2) (the NLL's and the sample's standard normals),
+    ``"ids_slice"`` (B,) the slice starts; and optionally ``"attn"``
+    (B, T_y, T_x), an alignment that replaces MAS (a parity run feeds one
+    device's alignment to the other, as the serving parity feeds durations).
+
+    MAS runs on the clean log-likelihoods: the JAX trainer's noise-scaled
+    MAS is added at scale 0 (its driver never passes another)."""
+    check_ported(cfg)
+    noise = {k: v.to(y.dtype) if v.is_floating_point() else v for k, v in (noise or {}).items()}
+    g = _speaker(params, cfg, sid)
+    x, m_p, logs_p, x_mask = text_encoder_apply(params["enc_p"], cfg, x_ids, x_lengths,
+                                                g if cfg.enc_gin_channels else None, flash=False)
+    z, m_q, logs_q, y_mask = posterior_apply(params["enc_q"], cfg, y, y_lengths, g,
+                                             generator=generator, noise=noise.get("posterior"))
+    z_p = flow_block_apply(params["flow"], cfg, z, y_mask, g, reverse=False, flash=False)
+
+    attn = noise.get("attn")
+    if attn is None:
+        with torch.no_grad():
+            attn = maximum_path(_neg_cent(z_p, m_p, logs_p),
+                                y_mask[..., 0][:, :, None] * x_mask[..., 0][:, None, :])
+    attn = attn.to(m_p.dtype)
+
+    w = attn.sum(dim=1)[..., None]
+    l_length = sdp_forward_nll(params["dp"], cfg, x, x_mask, w, g, generator=generator,
+                               noise=noise.get("e_q")) / x_mask.sum()
+    logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator, noise=noise.get("z"),
+                       noise_scale=1.0, fused=False)
+    logw_ = torch.log(w + 1e-6) * x_mask
+
+    m_p = torch.bmm(attn, m_p)
+    logs_p = torch.bmm(attn, logs_p)
+    z_slice, ids_slice = rand_slice_segments(z, y_lengths, cfg.segment_size,
+                                             generator=generator, ids=noise.get("ids_slice"))
+    o, o_mb = generator_apply(params["dec"], cfg, z_slice, g)
+    return {"x": x, "wav": o, "wav_mb": o_mb, "l_length": l_length, "attn": attn,
+            "ids_slice": ids_slice, "x_mask": x_mask, "y_mask": y_mask, "z": z, "z_p": z_p,
+            "m_p": m_p, "logs_p": logs_p, "m_q": m_q, "logs_q": logs_q, "logw": logw,
+            "logw_": logw_}
 
 
 class Synthesizer(TreeModule):

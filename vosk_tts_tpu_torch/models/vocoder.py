@@ -28,4 +28,4 @@ def hifigan_v1_config() -> VITS2Config:
 def hifigan_apply(params, mel: torch.Tensor, cfg: VITS2Config | None = None) -> torch.Tensor:
     """mel: (B, T, 80) -> wav (B, T*256), clipped to [-1, 1]."""
     cfg = cfg or hifigan_v1_config()
-    return torch.clamp(generator_apply(params, cfg, mel)[..., 0], -1.0, 1.0)
+    return torch.clamp(generator_apply(params, cfg, mel)[0][..., 0], -1.0, 1.0)

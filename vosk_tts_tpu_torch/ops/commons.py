@@ -1,4 +1,4 @@
-"""Mask / alignment utilities (vosk_tts_tpu/ops/commons.py)."""
+"""Mask / alignment / slicing utilities (vosk_tts_tpu/ops/commons.py)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,32 @@ def fused_gate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s = a + b
     n = s.shape[-1] // 2
     return torch.tanh(s[..., :n]) * torch.sigmoid(s[..., n:])
+
+
+def intersperse(lst, item):
+    """Insert ``item`` between consecutive symbols: [a, b, c] -> [a, 0, b, 0, c]."""
+    result = [item] * (len(lst) * 2 - 1)
+    result[0::2] = lst
+    return result
+
+
+def slice_segments(x: torch.Tensor, ids_str: torch.Tensor, segment_size: int) -> torch.Tensor:
+    """Fixed-size windows: x (B, T, C), ids_str (B,) -> (B, segment_size, C).
+    A start is clamped so that its window lies in [0, T), as JAX's
+    dynamic_slice clamps it."""
+    start = ids_str.long().clamp(0, max(x.shape[1] - segment_size, 0))
+    idx = start[:, None] + torch.arange(segment_size, device=x.device)[None, :]
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor, segment_size: int, *,
+                        generator: torch.Generator | None = None, ids: torch.Tensor | None = None):
+    """Random windows within each row's valid length: start =
+    floor(u * max(length - segment_size + 1, 1)) for u uniform in [0, 1)
+    from ``generator``, or the given ``ids`` (B,). Returns (segments, ids
+    int32)."""
+    if ids is None:
+        u = torch.rand((x.shape[0],), generator=generator, device=x.device)
+        ids_max = (lengths - segment_size + 1).clamp(min=1)
+        ids = (u * ids_max.to(u.dtype)).to(torch.int32)
+    return slice_segments(x, ids, segment_size), ids

@@ -13,6 +13,14 @@ import torch
 import torch.nn.functional as F
 
 
+def constant(a, device, dtype=None) -> torch.Tensor:
+    """A tensor of a cached constant (a filter, a basis), made outside
+    inference mode: a serving call under ``torch.inference_mode`` may make
+    it first, and a training graph must be able to save it for backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+
 def _norm_padding(padding, k: int, dilation: int):
     if padding == "same":
         p = (k - 1) * dilation // 2

@@ -1,8 +1,9 @@
-"""Normalizing-flow layers (vosk_tts_tpu/ops/flows.py), for inference:
-Flip (its own inverse), the mean-only residual coupling layer in both
-directions, and the reverse directions of ElementwiseAffine and ConvFlow
-(the SDP reverse pass). The coupling's forward direction returns y alone:
-no inference path reads a log-determinant. Channels-last: x (B, T, C),
+"""Normalizing-flow layers (vosk_tts_tpu/ops/flows.py): Log, Flip (its own
+inverse, log-determinant 0), the mean-only residual coupling layer in both
+directions (its log-determinant is 0 too: no caller reads it), and
+ElementwiseAffine and ConvFlow in both directions. Forward returns
+``(y, logdet)`` with logdet (B,), reverse returns y: the SDP's training NLL
+runs them forward, its sampling pass in reverse. Channels-last: x (B, T, C),
 mask (B, T, 1)."""
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ import torch
 from .conv import conv1d
 from .transforms import piecewise_rational_quadratic_transform
 from .wn import ddsconv_apply, wn_apply
+
+
+def log_flow(x, x_mask):
+    """Forward Log flow: y = log(max(x, 1e-5)) * mask, logdet = -sum(y)."""
+    y = torch.log(x.clamp(min=1e-5)) * x_mask
+    return y, -y.sum(dim=(1, 2))
 
 
 def flip_flow(x):
@@ -36,19 +43,26 @@ def residual_coupling_apply(params, x, x_mask, g=None, *, reverse: bool, kernel_
     return torch.cat([x0, x1], dim=-1)
 
 
-def elementwise_affine_apply(params, x, x_mask):
-    """Reverse of ElementwiseAffine."""
-    return (x - params["m"]) * torch.exp(-params["logs"]) * x_mask
+def elementwise_affine_apply(params, x, x_mask, *, reverse: bool):
+    """ElementwiseAffine: y = (m + exp(logs) * x) * mask forward (with
+    logdet sum(logs * mask)), its inverse in reverse."""
+    if reverse:
+        return (x - params["m"]) * torch.exp(-params["logs"]) * x_mask
+    y = (params["m"] + torch.exp(params["logs"]) * x) * x_mask
+    return y, (params["logs"] * x_mask).sum(dim=(1, 2))
 
 
-def convflow_apply(params, x, x_mask, g=None, *, filter_channels: int, kernel_size: int,
-                   num_bins: int = 10, tail_bound: float = 5.0):
-    """Reverse of ConvFlow: neural spline coupling over half the channels;
-    its DDSConv stack runs through ``wn.ddsconv_apply``."""
+def convflow_apply(params, x, x_mask, g=None, *, reverse: bool, filter_channels: int,
+                   kernel_size: int, num_bins: int = 10, tail_bound: float = 5.0,
+                   fused: bool = True):
+    """ConvFlow: neural spline coupling over half the channels, forward
+    (with logdet) or in reverse. Its DDSConv stack runs through
+    ``wn.ddsconv_apply`` (``fused``: the kernel on the card; training passes
+    False, the differentiable form)."""
     half = x.shape[-1] // 2
     x0, x1 = x[..., :half], x[..., half:]
     h = conv1d(x0, params["pre"]["w"], params["pre"]["b"])
-    h = ddsconv_apply(params["convs"], h, x_mask, g=g, kernel_size=kernel_size)
+    h = ddsconv_apply(params["convs"], h, x_mask, g=g, kernel_size=kernel_size, fused=fused)
     h = conv1d(h, params["proj"]["w"], params["proj"]["b"]) * x_mask
 
     b, t, _ = x0.shape
@@ -57,5 +71,9 @@ def convflow_apply(params, x, x_mask, g=None, *, filter_channels: int, kernel_si
     uw = h[..., :num_bins] / denom
     uh = h[..., num_bins: 2 * num_bins] / denom
     ud = h[..., 2 * num_bins:]
-    x1, _ = piecewise_rational_quadratic_transform(x1, uw, uh, ud, tail_bound=tail_bound)
-    return torch.cat([x0, x1], dim=-1) * x_mask
+    x1, logabsdet = piecewise_rational_quadratic_transform(x1, uw, uh, ud, inverse=reverse,
+                                                           tail_bound=tail_bound)
+    y = torch.cat([x0, x1], dim=-1) * x_mask
+    if reverse:
+        return y
+    return y, (logabsdet * x_mask).sum(dim=(1, 2))

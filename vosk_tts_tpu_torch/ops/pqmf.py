@@ -1,7 +1,8 @@
-"""Pseudo-QMF synthesis filterbank (the MB-iSTFT combine stage) and the
-ms-iSTFT learned upsampling filter (vosk_tts_tpu/ops/pqmf.py). Filters are
-built once in numpy; each stage is one strided transposed conv (the JAX
-package's block-Toeplitz form of the same FIR is a TPU lowering)."""
+"""Pseudo-QMF filterbank: analysis (training's subband STFT loss) and
+synthesis (the MB-iSTFT combine stage), and the ms-iSTFT learned upsampling
+filter (vosk_tts_tpu/ops/pqmf.py). Filters are built once in numpy; each
+stage is one strided conv or transposed conv (the JAX package's
+block-Toeplitz form of the same FIR is a TPU lowering)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 from scipy.signal.windows import kaiser
 
-from .conv import conv_transpose1d
+from .conv import constant, conv1d, conv_transpose1d
 
 
 def design_prototype_filter(taps: int = 62, cutoff_ratio: float = 0.15, beta: float = 9.0) -> np.ndarray:
@@ -39,10 +40,25 @@ def pqmf_filters(subbands: int = 4, taps: int = 62, cutoff_ratio: float = 0.15, 
 
 
 @lru_cache(maxsize=16)
+def _analysis_weight(subbands, device, dtype):
+    """The analysis filters (the default prototype) as a conv weight
+    (C_out=subbands, C_in=1, K)."""
+    h_a, _ = pqmf_filters(subbands)
+    return constant(h_a[:, None, :], dtype=dtype, device=device)
+
+
+def pqmf_analysis(x: torch.Tensor, subbands: int = 4) -> torch.Tensor:
+    """x: (B, T, 1) -> (B, T//subbands, subbands): zero-pad taps/2 a side,
+    correlate with the analysis filters, keep every ``subbands``-th sample."""
+    w = _analysis_weight(subbands, x.device, x.dtype)
+    return conv1d(x, w, stride=subbands, padding=(w.shape[-1] - 1) // 2)
+
+
+@lru_cache(maxsize=16)
 def _synthesis_weight(subbands, taps, cutoff_ratio, beta, device, dtype):
     """The synthesis filter as a correlation weight (C_out=1, C_in=subbands, K)."""
     _, h_s = pqmf_filters(subbands, taps, cutoff_ratio, beta)
-    return torch.as_tensor(h_s[None], dtype=dtype, device=device)
+    return constant(h_s[None], dtype=dtype, device=device)
 
 
 def polyphase_upfir(x: torch.Tensor, w: torch.Tensor, *, stride: int,

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .conv import conv1d, conv_transpose1d
+from .conv import constant, conv1d, conv_transpose1d
 from .pqmf import pqmf_filters, pqmf_synthesis
 
 
@@ -54,7 +54,7 @@ def _forward_dft_weight(n_fft: int, win_length: int, device, dtype):
     half of the JAX package's ``_dft_bases``)."""
     fourier, window = _fourier_and_window(n_fft, win_length)
     w = (fourier * window[None, :]).astype(np.float32)[:, None, :]
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    return constant(w, dtype=dtype, device=device)
 
 
 @lru_cache(maxsize=None)
@@ -95,10 +95,14 @@ def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
 
 
-def stft(y: torch.Tensor, n_fft: int, hop: int, win: int):
+def stft(y: torch.Tensor, n_fft: int, hop: int, win: int, *, pad: int | None = None):
     """Real STFT. y: (B, T) -> (real, imag), each (B, frames, n_fft//2+1):
-    reflect-padded by (n_fft-hop)//2, center=False framing."""
-    y = _reflect_pad(y, (n_fft - hop) // 2)
+    reflect-padded by ``pad``, default (n_fft-hop)//2 (spectrogram_torch),
+    center=False framing; pad=n_fft//2 gives torch.stft(center=True) (the
+    STFT losses and the spectral discriminator). Odd n_fft works (683, 171)."""
+    if pad is None:
+        pad = (n_fft - hop) // 2
+    y = _reflect_pad(y, pad)
     w = _forward_dft_weight(n_fft, win, y.device, y.dtype)
     frames = conv1d(y[..., None], w, stride=hop, padding=0)
     cutoff = n_fft // 2 + 1
@@ -161,14 +165,14 @@ def _multiband_weight(n_fft, win, sub, device, dtype):
     w = np.zeros((sub * per, sub, n_fft), np.float32)
     for s in range(sub):
         w[s * per: (s + 1) * per, s, :] = inv
-    return torch.as_tensor(w, dtype=dtype, device=device)
+    return constant(w, dtype=dtype, device=device)
 
 
 @lru_cache(maxsize=64)
 def _safe_envelope(n_fft, hop, win, t, device, dtype):
     env = _window_envelope_np(n_fft, hop, win, t)
     env = np.where(env > 1.1754944e-38, env, 1.0)
-    return torch.as_tensor(env, dtype=dtype, device=device)
+    return constant(env, dtype=dtype, device=device)
 
 
 def istft_multiband(mag, phase, n_fft: int, hop: int, win: int):
@@ -218,7 +222,7 @@ def _fused_mb_kernel(n_fft: int, hop: int, win: int, sub: int, taps: int,
 @lru_cache(maxsize=16)
 def _fused_weight(n_fft, hop, win, sub, taps, cutoff_ratio, beta, device, dtype):
     g2, off = _fused_mb_kernel(n_fft, hop, win, sub, taps, cutoff_ratio, beta)
-    return torch.as_tensor(np.ascontiguousarray(g2.transpose(1, 2, 0)), dtype=dtype,
+    return constant(np.ascontiguousarray(g2.transpose(1, 2, 0)), dtype=dtype,
                            device=device), off
 
 
@@ -248,8 +252,8 @@ def _specphase_lanes(n_fft: int, sub: int, device, dtype):
             else:  # im lane: mag bin j-cutoff, phase bin j-cutoff
                 mag_src[c] = g * per + (j - cutoff)
                 phase_src[c] = g * per + j
-    return (torch.as_tensor(mag_src, device=device), torch.as_tensor(phase_src, device=device),
-            torch.as_tensor(off, dtype=dtype, device=device))
+    return (constant(mag_src, device=device), constant(phase_src, device=device),
+            constant(off, dtype=dtype, device=device))
 
 
 def mb_decoder_tail_fused(x, n_fft: int, hop: int, win: int, *, subbands: int, taps: int = 62,

@@ -1,6 +1,6 @@
 """Gated/dilated conv stacks: WN, ResBlock1/2, DDSConv
-(vosk_tts_tpu/ops/wn.py), inference only. Weight norm is folded into the
-stored weights, as in the bundle."""
+(vosk_tts_tpu/ops/wn.py), without dropout (training runs none). Weight norm
+is folded into the stored weights, as in the bundle."""
 
 from __future__ import annotations
 
@@ -64,9 +64,13 @@ def resblock2_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1
     return x if x_mask is None else x * x_mask
 
 
-def ddsconv_apply(params, x, x_mask, g=None, *, kernel_size: int):
-    """DDSConv stack (x + g first). Runs through the fused CUDA kernel on the
-    card and its plain version on the CPU (ops/ddsconv_fused.py)."""
+def ddsconv_apply(params, x, x_mask, g=None, *, kernel_size: int, fused: bool = True):
+    """DDSConv stack (x + g first). ``fused`` (serving) runs it through the
+    fused kernel's wrapper (ops/ddsconv_fused.py: the CUDA kernel on the card,
+    its plain version on the CPU); training passes False and takes the plain
+    version, which autograd differentiates (the kernel has no backward)."""
     if g is not None:
         x = x + g
+    if not fused:
+        return ddf.ddsconv_plain(x, x_mask, params, kernel_size=kernel_size)
     return ddf.ddsconv_fused(x, x_mask, params, kernel_size=kernel_size)

@@ -1,0 +1,157 @@
+"""VITS2 training driver (vosk_tts_tpu/train/run_vits2.py), on the card.
+
+Usage:
+  python -m vosk_tts_tpu_torch.train.run_vits2 -c config.json -m MODEL_DIR \
+      [--finetune PRETRAINED_DIR] [--epochs N] [--max-steps N] [--device cpu]
+
+``config.json`` follows the reference schema the JAX package reads
+(training/vits2/configs/mb_istft_vits2_multi.json: train, data and model
+blocks). Each step runs D -> durD -> G (train/vits2_train.py). Every
+``eval_interval`` steps, and at the end, the driver writes ``STATE_{step}.pt``
+(the whole state, for resume) and ``G_{step}.npz`` (the generator in the
+bundle layout, loadable by both packages); a later run with the same model
+directory resumes from the newest STATE. ``--finetune DIR`` starts from
+DIR's newest STATE and keeps the duration discriminator's parameters
+frozen (restored after every step, while its optimizer state advances, as
+the JAX driver does). It runs on the card unless ``--device cpu`` is given
+and raises without CUDA. ``--wavlm-dir`` (the SLM loss) is not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+
+import torch
+
+from ..api import resolve_device
+from ..models.vits2 import VITS2Config
+from ..utils import checkpoint as ckpt
+from ..utils.params import from_port_layout
+from . import vits2_train as T
+from .data import BucketBatcher, DataConfig, TTSDataset
+from .driver_common import format_metrics, log, resume_state, to_device
+
+
+def build_configs(cfg: dict):
+    train, data, model = cfg["train"], cfg["data"], cfg["model"]
+    mcfg = VITS2Config.from_reference_json(model, data, train)
+    tcfg = T.TrainConfig(
+        learning_rate=train.get("learning_rate", 2e-4),
+        betas=tuple(train.get("betas", (0.8, 0.99))),
+        eps=train.get("eps", 1e-9),
+        lr_decay=train.get("lr_decay", 0.999875),
+        c_mel=train.get("c_mel", 45.0),
+        c_kl=train.get("c_kl", 1.0),
+        sampling_rate=data.get("sampling_rate", 22050),
+        filter_length=data.get("filter_length", 1024),
+        hop_length=data.get("hop_length", 256),
+        win_length=data.get("win_length", 1024),
+        n_mel_channels=data.get("n_mel_channels", 80),
+        mel_fmin=data.get("mel_fmin", 0.0),
+        mel_fmax=data.get("mel_fmax"),
+        fft_sizes=tuple(train.get("fft_sizes", (384, 683, 171))),
+        hop_sizes=tuple(train.get("hop_sizes", (30, 60, 10))),
+        win_lengths=tuple(train.get("win_lengths", (150, 300, 60))),
+        use_dur_disc=model.get("use_duration_discriminator", True),
+    )
+    dcfg = DataConfig(
+        metadata=data["training_files"],
+        sampling_rate=tcfg.sampling_rate,
+        filter_length=tcfg.filter_length,
+        hop_length=tcfg.hop_length,
+        win_length=tcfg.win_length,
+        n_mel_channels=tcfg.n_mel_channels,
+        mel_fmin=tcfg.mel_fmin,
+        mel_fmax=tcfg.mel_fmax,
+        add_blank=data.get("add_blank", True),
+        text_mode="aligned" if data.get("aligned_text") else ("g2p" if data.get("g2p_text") else "aligned"),
+    )
+    return mcfg, tcfg, dcfg
+
+
+def save(model_dir: str, state: T.TrainState, epoch: int) -> None:
+    ckpt.save_full_state(model_dir, "STATE", state.step, {**state.state_dict(), "epoch": epoch})
+    ckpt.save_train_state(model_dir, "G", state.step,
+                          from_port_layout(state.params["g"].numpy_tree()))
+    log.info("saved checkpoint at step %d", state.step)
+
+
+def main(argv=None):
+    """Train; returns (the TrainState, the last step's metrics as floats,
+    empty where no step ran)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-c", "--config", required=True)
+    ap.add_argument("-m", "--model-dir", required=True)
+    ap.add_argument("--finetune", default=None, help="pretrained model directory (its STATE_*)")
+    ap.add_argument("--wavlm-dir", default=None, help="not ported (ROADMAP A.7)")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--max-steps", type=int, default=None,
+                    help="stop (and save) once the step count reaches this")
+    ap.add_argument("--log-interval", type=int, default=None)
+    ap.add_argument("--save-interval-steps", type=int, default=None)
+    ap.add_argument("--device", default=None, help="default: the card")
+    args = ap.parse_args(argv)
+    if args.wavlm_dir:
+        raise NotImplementedError("--wavlm-dir: the WavLM/SLM loss branch is not ported "
+                                  "(ROADMAP A.7, models/wavlm.py and ops/resample.py)")
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO)
+
+    with open(args.config, encoding="utf-8") as f:
+        cfg = json.load(f)
+    mcfg, tcfg, dcfg = build_configs(cfg)
+    train_cfg = cfg["train"]
+    epochs = args.epochs or train_cfg.get("epochs", 20000)
+    log_interval = args.log_interval or train_cfg.get("log_interval", 200)
+    save_interval = args.save_interval_steps or train_cfg.get("eval_interval", 1000)
+    batcher = BucketBatcher(TTSDataset(dcfg), train_cfg.get("batch_size", 24))
+    log.info("dataset: %d utterances, %d batches an epoch", len(batcher.ds), batcher.num_batches())
+
+    seed = train_cfg.get("seed", 1234)
+    state = T.init_train_state(mcfg, tcfg, seed=seed, device=device)
+    start_epoch = resume_state(args.model_dir, state)
+    if start_epoch is None and args.finetune:
+        pre = ckpt.load_full_state(args.finetune, "STATE", map_location=device)
+        if pre is None:
+            raise FileNotFoundError(f"no pretrained STATE_* in {args.finetune}")
+        for k, m in state.params.items():
+            m.load_state_dict(pre[f"params_{k}"])
+        log.info("finetuning from %s", args.finetune)
+    start_epoch = start_epoch or 0
+    frozen_dur = ({k: v.detach().clone() for k, v in state.params["dur"].state_dict().items()}
+                  if args.finetune and "dur" in state.params else None)
+
+    step_fn = T.make_train_step(mcfg, tcfg)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    cut = args.max_steps is not None and state.step >= args.max_steps
+    epoch, metrics = start_epoch, {}
+    for epoch in range(start_epoch, epochs):
+        if cut:
+            break
+        T.set_lr(state, T.lr_at_epoch(tcfg, epoch))
+        t_epoch = time.time()
+        for batch in batcher.epoch(epoch):
+            metrics = step_fn(state, to_device(batch, device), generator=generator)
+            if frozen_dur is not None:
+                state.params["dur"].load_state_dict(frozen_dur)
+            if state.step % log_interval == 0:
+                log.info("epoch %d step %d %s", epoch, state.step, format_metrics(metrics))
+            if state.step % save_interval == 0:
+                save(args.model_dir, state, epoch)
+            cut = args.max_steps is not None and state.step >= args.max_steps
+            if cut:
+                break
+        log.info("epoch %d done in %.1f s", epoch, time.time() - t_epoch)
+        if cut:
+            break
+    else:
+        epoch = epochs
+    save(args.model_dir, state, epoch)  # a run cut by --max-steps saves the epoch it was in
+    return state, format_metrics(metrics) if metrics else {}
+
+
+if __name__ == "__main__":
+    main()

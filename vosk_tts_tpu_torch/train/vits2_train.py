@@ -1,0 +1,237 @@
+"""VITS2 GAN training step (vosk_tts_tpu/train/vits2_train.py), in PyTorch.
+
+One step runs the JAX package's order:
+
+  * one generator forward (``vits2.forward_train``), its graph kept;
+  * the discriminator update on the detached generated segment;
+  * the duration discriminator update on the detached encoder output and
+    log-durations;
+  * the generator loss through the UPDATED discriminators, backpropagated
+    through the one kept generator graph; the discriminators' parameters
+    take no gradient there (``requires_grad`` is off around it), so
+    nothing accumulates into their next step.
+
+Each network is a ``TreeModule`` of ``nn.Parameter`` leaves in the port's
+layouts; each has its own ``torch.optim.AdamW`` (betas (0.8, 0.99), eps
+1e-9, weight decay 0.01: optax ``adamw``'s update, decoupled decay of the
+old parameter and eps outside the root), all on one per-epoch exponential
+learning-rate schedule. The WavLM/SLM branch waits for its port.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import torch
+
+from ..models import discriminators as D
+from ..models import vits2
+from ..models.tree import TreeModule
+from ..ops.commons import slice_segments
+from ..ops.pqmf import pqmf_analysis
+from ..ops.stft import mel_spectrogram
+from ..utils import params as P
+from . import losses as L
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 2e-4
+    betas: Sequence[float] = (0.8, 0.99)
+    eps: float = 1e-9
+    lr_decay: float = 0.999875  # a factor an epoch
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    sampling_rate: int = 22050
+    filter_length: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mel_channels: int = 80
+    mel_fmin: float = 0.0
+    mel_fmax: float | None = None
+    fft_sizes: Sequence[int] = (384, 683, 171)
+    hop_sizes: Sequence[int] = (30, 60, 10)
+    win_lengths: Sequence[int] = (150, 300, 60)
+    use_dur_disc: bool = True
+    disc_periods: Sequence[int] = field(default=D.PERIODS)
+    disc_spec_ffts: Sequence[int] = field(default=D.SPEC_FFTS)
+
+
+def make_optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
+    return torch.optim.AdamW(params, lr=tcfg.learning_rate, betas=tuple(tcfg.betas),
+                             eps=tcfg.eps, weight_decay=0.01)
+
+
+NETS = ("g", "d", "dur")
+
+
+class TrainState:
+    """The networks (``params["g"]``, ``["d"]`` and, with the duration
+    discriminator, ``["dur"]``: trainable TreeModules), their optimizers
+    (``opt``, same keys) and the step count. Updated in place by a step."""
+
+    def __init__(self, tcfg: TrainConfig, trees: dict, device):
+        self.params = {k: TreeModule(t, trainable=True).to(device)
+                       for k, t in trees.items() if t is not None}
+        self.opt = {k: make_optimizer(m.parameters(), tcfg) for k, m in self.params.items()}
+        self.step = 0
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, **{f"params_{k}": m.state_dict() for k, m in self.params.items()},
+                **{f"opt_{k}": o.state_dict() for k, o in self.opt.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        for k, m in self.params.items():
+            m.load_state_dict(state[f"params_{k}"])
+        for k, o in self.opt.items():
+            o.load_state_dict(state[f"opt_{k}"])
+
+
+def init_trees(mcfg: vits2.VITS2Config, tcfg: TrainConfig, seed: int) -> dict:
+    """Port-layout trees of the generator and discriminators from numpy
+    inits (utils/params.py), the generator's zero projections as
+    initialised (the JAX package's ``init_train_state`` draws other numbers)."""
+    return {
+        "g": P.to_port_layout(P.synthesizer_init(mcfg, seed)),
+        "d": P.to_port_layout(P.mpmsd_init(seed + 1, tuple(tcfg.disc_periods),
+                                           tuple(tcfg.disc_spec_ffts))),
+        "dur": (P.to_port_layout(P.duration_disc_init(seed + 2, mcfg.hidden_channels,
+                                                      mcfg.hidden_channels, 3))
+                if tcfg.use_dur_disc else None),
+    }
+
+
+def init_train_state(mcfg: vits2.VITS2Config, tcfg: TrainConfig, *, seed: int = 0, device,
+                     trees: dict | None = None) -> TrainState:
+    """A fresh state on ``device`` from ``trees`` (port layout; default
+    :func:`init_trees` of ``seed``)."""
+    return TrainState(tcfg, trees if trees is not None else init_trees(mcfg, tcfg, seed), device)
+
+
+def lr_at_epoch(tcfg: TrainConfig, epoch: int) -> float:
+    return tcfg.learning_rate * (tcfg.lr_decay**epoch)
+
+
+def set_lr(state: TrainState, lr: float) -> None:
+    """One schedule for every optimizer (and every param group)."""
+    for opt in state.opt.values():
+        for group in opt.param_groups:
+            group["lr"] = lr
+
+
+@contextlib.contextmanager
+def _frozen(*modules):
+    """requires_grad off for the modules' parameters inside the block."""
+    params = [p for m in modules if m is not None for p in m.parameters()]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def _cast(tree, dtype):
+    """A differentiable cast of a tree's floating leaves (None: no cast)."""
+    if dtype is None or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=None):
+    """Returns ``step(state, batch, *, generator=None, noise=None) ->
+    metrics`` (0-dim tensors, not synchronised). ``batch``: x (B, Tx) int,
+    x_lengths (B,), mel (B, Tf, n_mel), mel_lengths (B,), wav (B, Ts),
+    sid (B,), tensors on the state's device. ``noise`` pins
+    ``forward_train``'s draws. After the step each parameter's ``.grad``
+    holds the gradient its optimizer applied.
+
+    ``compute_dtype`` (e.g. torch.bfloat16) runs forward and backward in
+    that type through a differentiable cast of the f32 master parameters
+    and of mel and wav, with no loss scaling (bf16 keeps f32's exponent
+    range), as the JAX package's mixed-precision step; the optimizers and
+    their state stay f32."""
+    seg_frames = mcfg.segment_size
+    seg_samples = seg_frames * tcfg.hop_length
+    periods, spec_ffts = tuple(tcfg.disc_periods), tuple(tcfg.disc_spec_ffts)
+
+    def mel_of(wav):
+        return mel_spectrogram(wav, tcfg.filter_length, tcfg.n_mel_channels, tcfg.sampling_rate,
+                               tcfg.hop_length, tcfg.win_length, tcfg.mel_fmin, tcfg.mel_fmax)
+
+    def step(state: TrainState, batch: dict, *, generator=None, noise=None) -> dict:
+        net_g, net_d, net_dur = (state.params.get(k) for k in NETS)
+        opt_g, opt_d, opt_dur = (state.opt.get(k) for k in NETS)
+        mel = _cast(batch["mel"], compute_dtype)
+        wav = _cast(batch["wav"], compute_dtype)
+
+        opt_g.zero_grad(set_to_none=True)
+        out = vits2.forward_train(_cast(net_g.params, compute_dtype), mcfg, batch["x"],
+                                  batch["x_lengths"], mel, batch["mel_lengths"], batch["sid"],
+                                  generator=generator, noise=noise)
+        ids = out["ids_slice"]
+        y_hat = out["wav"][..., 0]
+        y_real = slice_segments(wav[..., None], ids * tcfg.hop_length, seg_samples)[..., 0]
+        y_mel = slice_segments(mel, ids, seg_frames)
+        metrics = {}
+
+        # the discriminator, on the detached generated segment
+        opt_d.zero_grad(set_to_none=True)
+        yr, yg, _, _ = D.mpmsd_apply(_cast(net_d.params, compute_dtype), y_real, y_hat.detach(),
+                                     periods, spec_ffts)
+        loss_disc = L.discriminator_loss(yr, yg)[0] + L.discriminator_tprls_loss(yr, yg)
+        loss_disc.backward()
+        opt_d.step()
+        metrics["loss_disc"] = loss_disc.detach()
+
+        # the duration discriminator, on the detached encoder output and durations
+        if net_dur is not None:
+            opt_dur.zero_grad(set_to_none=True)
+            pr, pg = D.duration_disc_apply(_cast(net_dur.params, compute_dtype),
+                                           out["x"].detach(), out["x_mask"],
+                                           out["logw_"].detach(), out["logw"].detach())
+            loss_dur_disc = L.discriminator_loss([pr], [pg])[0]
+            loss_dur_disc.backward()
+            opt_dur.step()
+            metrics["loss_dur_disc"] = loss_dur_disc.detach()
+
+        # the generator, through the updated discriminators
+        with _frozen(net_d, net_dur):
+            yh_mel = mel_of(y_hat)
+            yr_, yg_, fmap_r, fmap_g = D.mpmsd_apply(_cast(net_d.params, compute_dtype), y_real,
+                                                     y_hat, periods, spec_ffts)
+            loss_gen = L.generator_loss(yg_)[0]
+            loss_gen_tprls = L.generator_tprls_loss(yr_, yg_)
+            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            n = min(y_mel.shape[1], yh_mel.shape[1])
+            loss_mel = torch.mean(torch.abs(y_mel[:, :n] - yh_mel[:, :n])) * tcfg.c_mel
+            loss_dur = torch.sum(out["l_length"])
+            loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
+                                out["y_mask"]) * tcfg.c_kl
+            y_mb = pqmf_analysis(y_real[..., None], subbands=mcfg.subbands)
+            loss_subband = L.subband_stft_loss(y_mb, out["wav_mb"], tcfg.fft_sizes,
+                                               tcfg.hop_sizes, tcfg.win_lengths)
+            total = (loss_gen + loss_gen_tprls + loss_fm + loss_mel + loss_dur + loss_kl
+                     + loss_subband)
+            if net_dur is not None:
+                _, pg = D.duration_disc_apply(_cast(net_dur.params, compute_dtype), out["x"],
+                                              out["x_mask"], out["logw_"], out["logw"])
+                total = total + L.generator_loss([pg])[0]
+            total.backward()
+        opt_g.step()
+        state.step += 1
+        metrics.update({"loss_gen_all": total.detach(), "loss_gen": loss_gen.detach(),
+                        "loss_fm": loss_fm.detach(), "loss_mel": loss_mel.detach(),
+                        "loss_dur": loss_dur.detach(), "loss_kl": loss_kl.detach(),
+                        "loss_subband": loss_subband.detach()})
+        return metrics
+
+    return step

@@ -11,6 +11,7 @@ as numpy arrays, into the port's layouts once, at load:
   1x1 conv         (1, I, O)    (O, I)      -- ``F.linear``
   Linear           (I, O)       (O, I)      -- ``F.linear``
   ConvTranspose1d  (K, I, O)    (I, O, K)   -- ``F.conv_transpose1d``
+  Conv2d           (kh,kw,I,O)  (O,I,kh,kw) -- ``F.conv2d``
   DDSConv stack    per layer    stacked, see :func:`_pack_ddsconv`
   ===============  ===========  =====================================
 
@@ -22,7 +23,8 @@ and HuBERT linear); ``"w"`` of shape (1, I, O) a 1x1 conv (DiT
 ``"w"`` a Conv1d (``cond_proj``, ``lsc``, the FFN convs, HuBERT's strided
 feature convs, its grouped ``pos_conv`` (K, I/groups, O) -> (O, I/groups,
 K), ms-iSTFT's ``multistream_conv_post`` (63, sub, 1) -> (1, sub, 63)), or
-a ConvTranspose1d under ``ups``. An LSTM's ``w_ih`` (I, 4H) and ``w_hh``
+a ConvTranspose1d under ``ups``; a ``"w"`` of rank 4 a Conv2d (the
+discriminators' period and spectral stacks). An LSTM's ``w_ih`` (I, 4H) and ``w_hh``
 (H, 4H) become torch's (4H, I) and (4H, H), gates in the same i, f, g, o
 order. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
 ``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``,
@@ -33,6 +35,10 @@ makes it from this one.
 
 The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
 reads it.
+
+:func:`from_port_layout` inverts the conversion for the trees the VITS2
+trainer holds (synthesizer, discriminators, duration discriminator), so
+the port writes generators in the bundle layout that either package loads.
 
 :func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init`,
 :func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
@@ -91,6 +97,8 @@ def _convert(node, path):
         return a
     if "ups" in path:  # ConvTranspose1d (K, I, O) -> (I, O, K)
         return np.ascontiguousarray(a.transpose(1, 2, 0))
+    if a.ndim == 4:  # Conv2d (kh, kw, I, O) -> (O, I, kh, kw)
+        return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if a.ndim == 2:  # Linear (I, O) -> (O, I)
         return np.ascontiguousarray(a.T)
     if a.shape[0] == 1:  # 1x1 conv (1, I, O) -> (O, I)
@@ -101,6 +109,50 @@ def _convert(node, path):
 def to_port_layout(tree):
     """JAX bundle tree (numpy leaves) -> port-layout tree (numpy leaves)."""
     return _convert(tree, ())
+
+
+def _unpack_ddsconv(p, n_layers: int):
+    """Inverse of :func:`_pack_ddsconv`."""
+    return {
+        "sep": [{"w": np.ascontiguousarray(p["sep_w"][i].T[:, None, :]), "b": p["sep_b"][i]}
+                for i in range(n_layers)],
+        "pw": [{"w": np.ascontiguousarray(p["pw_w"][i].T[None]), "b": p["pw_b"][i]}
+               for i in range(n_layers)],
+        "norm1": [{"gamma": p["norm1_g"][i], "beta": p["norm1_b"][i]} for i in range(n_layers)],
+        "norm2": [{"gamma": p["norm2_g"][i], "beta": p["norm2_b"][i]} for i in range(n_layers)],
+    }
+
+
+# the Linears of the VITS2 trainer's trees: every other rank-2 "w" is a 1x1 conv
+_LINEARS = ("spk_emb", "output")
+
+
+def _restore(node, path):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        if "sep_w" in node:
+            return _unpack_ddsconv(node, len(node["sep_w"]))
+        return {k: _restore(v, path + (k,)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_restore(v, path + (str(i),)) for i, v in enumerate(node)]
+    a = np.asarray(node)
+    if path[-1] != "w":
+        return a
+    if "ups" in path:  # (I, O, K) -> (K, I, O)
+        return np.ascontiguousarray(a.transpose(2, 0, 1))
+    if a.ndim == 4:  # (O, I, kh, kw) -> (kh, kw, I, O)
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if a.ndim == 2:  # Linear (O, I) -> (I, O); 1x1 conv (O, I) -> (1, I, O)
+        return np.ascontiguousarray(a.T if path[-2] in _LINEARS else a.T[None])
+    return np.ascontiguousarray(a.transpose(2, 1, 0))  # (O, I, K) -> (K, I, O)
+
+
+def from_port_layout(tree):
+    """Port-layout tree (numpy leaves) -> the JAX bundle layout: the inverse
+    of :func:`to_port_layout` for a VITS2 synthesizer, ``mpmsd_init`` or
+    ``duration_disc_init`` tree (DDSConv stacks unpacked per layer)."""
+    return _restore(tree, ())
 
 
 def to_torch(tree, device, dtype=torch.float32):
@@ -520,4 +572,59 @@ def sovits_init(cfg, seed: int):
                     "glu1": glu(), "glu2": glu(),
                     **{k: lin(sh, sh) for k in ("wq", "wk", "wv", "fc_attn")},
                     "fc": lin(sh, gin)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# The discriminators (vosk_tts_tpu/models/discriminators.py), bundle layout
+# ---------------------------------------------------------------------------
+
+
+def _conv2d(rng, kh, kw, c_in, c_out):
+    s = (c_in * kh * kw) ** -0.5
+    return {"w": _u(rng, (kh, kw, c_in, c_out), s), "b": _u(rng, (c_out,), s)}
+
+
+_P_CHANNELS = (1, 32, 128, 512, 1024, 1024)
+# DiscriminatorS: (kernel, stride, groups, c_in, c_out, padding)
+S_SPECS = ((15, 1, 1, 1, 16, 7), (41, 4, 4, 16, 64, 20), (41, 4, 16, 64, 256, 20),
+           (41, 4, 64, 256, 1024, 20), (41, 4, 256, 1024, 1024, 20), (5, 1, 1, 1024, 1024, 2))
+SPEC_BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
+
+
+def mpmsd_init(seed: int, periods=(2, 3, 5, 7, 11), spec_ffts=(1024, 2048, 512)):
+    """Bundle-layout MultiPeriodMultiSpec discriminator (``mpmsd_init``):
+    DiscriminatorS (grouped Conv1d), a DiscriminatorP a period (kernel
+    (5, 1) Conv2d, 1 -> 1024 channels) and a DiscriminatorSpec an FFT size
+    (five frequency bands of 32-channel Conv2d), every weight and bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    rng = np.random.default_rng(seed)
+    disc_s = {"convs": [_conv(rng, k, c_in // g, c_out) for k, _, g, c_in, c_out, _ in S_SPECS],
+              "post": _conv(rng, 3, 1024, 1)}
+    disc_p = [{"convs": [_conv2d(rng, 5, 1, _P_CHANNELS[i], _P_CHANNELS[i + 1]) for i in range(5)],
+               "post": _conv2d(rng, 3, 1, 1024, 1)} for _ in periods]
+    ch = 32
+    disc_spec = [{"band_convs": [[_conv2d(rng, 3, 9, 2, ch), _conv2d(rng, 3, 9, ch, ch),
+                                  _conv2d(rng, 3, 9, ch, ch), _conv2d(rng, 3, 9, ch, ch),
+                                  _conv2d(rng, 3, 3, ch, ch)] for _ in SPEC_BANDS],
+                  "post": _conv2d(rng, 3, 3, ch, 1)} for _ in spec_ffts]
+    return {"s": disc_s, "p": disc_p, "spec": disc_spec}
+
+
+def duration_disc_init(seed: int, in_channels: int, filter_channels: int, kernel_size: int = 3):
+    """Bundle-layout duration discriminator, variant 2 (``duration_disc_init``:
+    convs U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the output Linear
+    N(0, 1/filter_channels) with a zero bias, unit layer norms)."""
+    rng = np.random.default_rng(seed)
+    fc = filter_channels
+    return {
+        "conv1": _conv(rng, kernel_size, in_channels, fc),
+        "conv2": _conv(rng, kernel_size, fc, fc),
+        "dur_proj": _conv(rng, 1, 1, fc),
+        "pre_out_conv1": _conv(rng, kernel_size, 2 * fc, fc),
+        "pre_out_conv2": _conv(rng, kernel_size, fc, fc),
+        "output": {"w": (rng.standard_normal((fc, 1)) * fc**-0.5).astype(np.float32),
+                   "b": np.zeros((1,), np.float32)},
+        "norm1": _norm(fc), "norm2": _norm(fc), "pre_out_norm1": _norm(fc),
+        "pre_out_norm2": _norm(fc),
     }
