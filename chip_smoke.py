@@ -26,7 +26,9 @@ result line is printed):
    the launch geometry the built kernel's plan gives it (grid, cluster
    size, row tile, dynamic shared bytes, product, weight stages, clusters
    resident at once, waves), and a single request's shapes must spread
-   over 16 SMs or more;
+   over 16 SMs or more; kernel 5 (global attention over separate q, k, v)
+   also at the windowless flow attention's shapes (C 96 = 2 heads x 48, B16
+   T2048 and B1 T397 with valid lengths below T);
 4. VITS2 main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(),
    random weights from a seed, zero-initialised projections perturbed)
    answers 3 requests through Model/Synth.synth_audio and one synth_batch of
@@ -68,6 +70,25 @@ result line is printed):
    encode call and 60 per decode group; the parity of 4 of them at
    temperature 0; ``[serve-grpc]``: one multistream request over the wire
    (or ``[serve-grpc] not run: <module> is not installed``);
+   5c. the VITS2 variants (``[variants ...]``): four full-width bundles
+   (VITS2Config() widths, random weights from the seed, projections
+   perturbed, 256 samples a frame): ``pre_conv`` + ``istft`` (upsampling
+   8 x 8), ``fft`` + ``hifigan`` (8 x 8 x 2 x 2),
+   ``mono_layer_inter_residual`` + ``ms_istft``/onnx + the deterministic
+   duration predictor, ``mono_layer_post_residual`` + ``mb_istft``/onnx
+   (fused tail); each answers 3 requests through Model/Synth.synth_audio
+   (the first also a synth_batch of 16), launches held per synthesis call
+   to 6 of kernel 1, 4 of kernel 2 with the SDP (else 0) and 8 of kernel 5
+   for pre_conv and the mono flows (4 flows x 2 windowless layers, else
+   0); one request profiled; one request card vs CPU as ``[parity]``;
+   on the ``pre_conv`` bundle ``voice_conversion`` B2 as ``[vits2-vc]``
+   with 16 launches of kernel 5 a call, and kernel 5 against its plain
+   version at that shape;
+   5d. the multistream vocoders (``[ms-vocoders ...]``): the ``[ms-main]``
+   bundle written with a Vocos() vocoder (head scaled by 0.1) and with a
+   BigVGANConfig() vocoder: 3 requests each (RTF, 68 launches of kernel 3
+   a call, no other kernel), the vocoder alone on a 32-frame mel on the
+   card and on the CPU within 1e-3 x peak, one request profiled;
 6. voice conversion (``[vc]``): pipelines.convert_voice at full width
    (ContentVec/HuBERT 12 x 768 and QuickVC with its 512-channel ms-iSTFT
    generator, random weights from the seed), a 10 s source and a 5 s
@@ -131,6 +152,7 @@ import tempfile
 import threading
 import time
 import wave
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -141,7 +163,8 @@ sys.path.insert(0, ROOT)
 
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
 from vosk_tts_tpu_torch import pipelines  # noqa: E402
-from vosk_tts_tpu_torch.models import bert, gpt_sovits, hubert, quickvc, stabletts, vits2  # noqa: E402
+from vosk_tts_tpu_torch.models import (bert, bigvgan, gpt_sovits, hubert, quickvc,  # noqa: E402
+                                        stabletts, vits2)
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -157,10 +180,12 @@ from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # no
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import load_params, save_params  # noqa: E402
-from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, hifigan_init,  # noqa: E402
-                                             hubert_init, matcha_init, perturb_matcha_zero_init,
-                                             perturb_zero_init, quickvc_init, sovits_init,
-                                             synthesizer_init, to_port_layout, to_torch)
+from vosk_tts_tpu_torch.models.tree import TreeModule  # noqa: E402
+from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  # noqa: E402
+                                             hifigan_init, hubert_init, matcha_init,
+                                             perturb_matcha_zero_init, perturb_zero_init,
+                                             quickvc_init, sovits_init, synthesizer_init,
+                                             to_port_layout, to_torch, vocos_init)
 
 # H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
 # f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
@@ -378,9 +403,10 @@ def write_bundle(path, cfg, tree):
         f.write("привет 1.0 p rj i0 vj e1 t\nмир 1.0 mj i1 r\n")
 
 
-def main_path(model):
-    """3 requests through Synth.synth_audio and one synth_batch of 16 texts.
-    Returns the number of synthesis calls and the 3 requests' audio."""
+def main_path(model, tag="main", with_batch=True):
+    """3 requests through Synth.synth_audio and (with ``with_batch``) one
+    synth_batch of 16 texts. Returns the number of synthesis calls and the
+    3 requests' audio."""
     synth = api.Synth(model)
     up = model.model_config.upsample_factor
     audio_s, elapsed_s, calls, audios = 0.0, 0.0, 0, []
@@ -392,25 +418,27 @@ def main_path(model):
         calls += 1
         dur = len(audio) / model.sample_rate
         audio_s, elapsed_s = audio_s + dur, elapsed_s + dt
-        print(f"[main] synth_audio {len(audio)} samples ({dur:.2f} s audio) in {dt:.3f} s, "
+        print(f"[{tag}] synth_audio {len(audio)} samples ({dur:.2f} s audio) in {dt:.3f} s, "
               f"RTF {dt / dur:.4f}")
         check(audio.dtype == np.int16 and len(audio) > 0 and np.any(audio != 0)
-              and len(audio) % up == 0, f"bad audio for {text!r}")
-    print(f"[main] RTF over the 3 requests: {elapsed_s / audio_s:.4f}")
+              and len(audio) % up == 0, f"[{tag}] bad audio for {text!r}")
+    print(f"[{tag}] RTF over the 3 requests: {elapsed_s / audio_s:.4f}")
+    if not with_batch:
+        return calls, audios
     t0 = time.perf_counter()
     batch = synth.synth_batch(TEXTS)
     dt = time.perf_counter() - t0
     calls += 1
     dur = sum(len(a) for a in batch) / model.sample_rate
-    print(f"[main] synth_batch of {len(batch)}: {dur:.2f} s audio in {dt:.3f} s, "
+    print(f"[{tag}] synth_batch of {len(batch)}: {dur:.2f} s audio in {dt:.3f} s, "
           f"RTF {dt / dur:.4f}")
     check(len(batch) == len(TEXTS) and all(
         a.dtype == np.int16 and len(a) > 0 and np.any(a != 0) and len(a) % up == 0
-        for a in batch), "bad batch audio")
+        for a in batch), f"[{tag}] bad batch audio")
     return calls, audios
 
 
-def parity(model, cpu_model):
+def parity(model, cpu_model, tag="parity"):
     """One request's encode_for_infer + decode_from_durations on ``model``'s
     device and on the CPU (fed the first run's durations), noise scales 0."""
     up = model.model_config.upsample_factor
@@ -447,7 +475,7 @@ def parity(model, cpu_model):
     scale = float(dec_c["wav"][0, :n].abs().max())
     # f32 on both sides; cuDNN, cuBLAS and the kernels sum in other orders than the CPU
     tols = {"m_p": 1e-3, "logs_p": 1e-3, "wav": 1e-3 * scale + 1e-6}
-    print(f"[parity] {model.device} vs CPU, {n} samples (|wav| max {scale:.4f}): {errs}, "
+    print(f"[{tag}] {model.device} vs CPU, {n} samples (|wav| max {scale:.4f}): {errs}, "
           f"tol {tols}")
     for k, tol in tols.items():
         check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
@@ -502,15 +530,33 @@ MS_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ",", ".", "!", "?", "
             + ["##" + ch for ch in "абвгдежзийклмнопрстуфхцчшщъыьэюяё"])
 
 
-def write_ms_bundle(path):
-    """A full-width multistream_v3 bundle: StableTTSConfig(), HiFiGAN v1 and
-    ruBERT-base-wide BertConfig() with random weights from the seed, the
-    zero-initialised leaves perturbed, and a synthetic WordPiece vocabulary
-    (specials, punctuation, the Russian letters and their ## forms)."""
+def vocoder_tree(vocoder):
+    """(the ``vocoder_config`` block or None, the bundle-layout tree) of a
+    vocoder at its published width from the seed: HiFiGAN v1, Vocos() (its
+    head scaled by 0.1, so that the waveform is not clipped to +-1 almost
+    everywhere, which would hide any difference) or BigVGANConfig()."""
+    if vocoder == "vocos":
+        cfg = voc.VocosConfig()
+        tree = vocos_init(cfg, seed=SEED + 2)
+        tree["head"]["w"] = tree["head"]["w"] * np.float32(0.1)
+        return dataclasses.asdict(cfg), tree
+    if vocoder == "bigvgan":
+        cfg = bigvgan.BigVGANConfig()
+        return dataclasses.asdict(cfg), bigvgan_init(cfg, seed=SEED + 2)
+    return None, hifigan_init(voc.hifigan_v1_config(), seed=SEED + 2)
+
+
+def write_ms_bundle(path, vocoder="hifigan"):
+    """A full-width multistream_v3 bundle: StableTTSConfig(), the
+    ``vocoder`` (vocoder_tree) and ruBERT-base-wide BertConfig() with random
+    weights from the seed, the zero-initialised leaves perturbed, and a
+    synthetic WordPiece vocabulary (specials, punctuation, the Russian
+    letters and their ## forms)."""
     cfg, bcfg = stabletts.StableTTSConfig(), bert.BertConfig()
+    vcfg, vtree = vocoder_tree(vocoder)
     save_params(os.path.join(path, "params.npz"), {
         "matcha": perturb_matcha_zero_init(matcha_init(cfg, seed=SEED), seed=SEED + 1),
-        "vocoder": hifigan_init(voc.hifigan_v1_config(), seed=SEED + 2)})
+        "vocoder": vtree})
     os.makedirs(os.path.join(path, "bert"))
     save_params(os.path.join(path, "bert", "params.npz"), bert_init(bcfg, seed=SEED + 3))
     with open(os.path.join(path, "bert", "config.json"), "w", encoding="utf-8") as f:
@@ -519,16 +565,17 @@ def write_ms_bundle(path):
         f.write("\n".join(MS_VOCAB))
     with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
         json.dump({"model_type": "multistream_v3", "sample_rate": 22050, "hop_length": 256,
-                   "vocoder": "hifigan", "seed": SEED, "phoneme_id_map": multistream_symbol_map(),
+                   "vocoder": vocoder, "seed": SEED, "phoneme_id_map": multistream_symbol_map(),
                    "inference": {"noise_level": 0.8, "speech_rate": 1.0, "n_timesteps": 10},
-                   "model": dataclasses.asdict(cfg)}, f, ensure_ascii=False)
+                   "model": dataclasses.asdict(cfg),
+                   **({"vocoder_config": vcfg} if vcfg else {})}, f, ensure_ascii=False)
     with open(os.path.join(path, "dictionary"), "w", encoding="utf-8") as f:
         f.write("привет 1.0 p rj i0 vj e1 t\nмир 1.0 mj i1 r\n")
 
 
 def ms_batch(model, texts, generator):
     """The 16 texts as one batch at model level: front end per text, then
-    encode_for_synth, decode_from_durations and hifigan_apply with B = 16.
+    encode_for_synth, decode_from_durations and the vocoder with B = 16.
     Returns the int16 audio of each text."""
     x, xl, brt, pde, bucket = api.multistream_inputs(model, texts)
     n = len(texts)
@@ -540,14 +587,15 @@ def ms_batch(model, texts, generator):
         fb = api.pick_ms_frame_bucket(int(enc["pred_frames"].max()), bucket)
         out = model.matcha.decode_from_durations(enc, sid, max_frames=fb, n_timesteps=10,
                                                  temperature=0.8, generator=generator)
-        wav = voc.hifigan_apply(model.vocoder.params, out["mel"], model.vocoder_config).cpu().numpy()
+        wav = api.vocoder_apply(model, out["mel"]).cpu().numpy()
         lengths = (out["mel_lengths"] * model.config["hop_length"]).cpu().numpy()
     return [api.audio_float_to_int16(wav[i, :lengths[i]]) for i in range(n)], fb
 
 
-def ms_main_path(model):
-    """3 requests through Synth.synth_audio and one batch of the 16 texts at
-    model level. Returns the number of synthesis calls."""
+def ms_main_path(model, tag="ms-main", with_batch=True):
+    """3 requests through Synth.synth_audio and (with ``with_batch``) one
+    batch of the 16 texts at model level. Returns the number of synthesis
+    calls."""
     synth = api.Synth(model)
     audio_s, elapsed_s, calls = 0.0, 0.0, 0
     for text in TEXTS[:3]:
@@ -557,11 +605,13 @@ def ms_main_path(model):
         calls += 1
         dur = len(audio) / model.sample_rate
         audio_s, elapsed_s = audio_s + dur, elapsed_s + dt
-        print(f"[ms-main] synth_audio {len(audio)} samples ({dur:.2f} s audio) in {dt:.3f} s, "
+        print(f"[{tag}] synth_audio {len(audio)} samples ({dur:.2f} s audio) in {dt:.3f} s, "
               f"RTF {dt / dur:.4f}")
         check(audio.dtype == np.int16 and len(audio) > 0 and np.any(audio != 0)
-              and len(audio) % 256 == 0, f"bad multistream audio for {text!r}")
-    print(f"[ms-main] RTF over the 3 requests: {elapsed_s / audio_s:.4f}")
+              and len(audio) % 256 == 0, f"[{tag}] bad multistream audio for {text!r}")
+    print(f"[{tag}] RTF over the 3 requests: {elapsed_s / audio_s:.4f}")
+    if not with_batch:
+        return calls
     t0 = time.perf_counter()
     batch, fb = ms_batch(model, TEXTS, synth.generator)
     dt = time.perf_counter() - t0
@@ -594,7 +644,7 @@ def ms_parity(model, cpu_model):
             fb = api.pick_ms_frame_bucket(int(enc["w_round"].sum()), bucket)
             out = m.matcha.decode_from_durations(enc, sid, max_frames=fb, n_timesteps=10,
                                                  temperature=0.0)
-            wav = voc.hifigan_apply(m.vocoder.params, out["mel"], m.vocoder_config)
+            wav = api.vocoder_apply(m, out["mel"])
         runs.append({"w_round": w_own, "x_mask": enc["x_mask"].cpu(),
                      "mu_mel": enc["mu_mel"].cpu(), "mel": out["mel"].cpu(),
                      "n": int(out["mel_lengths"][0]) * 256, "wav": wav.cpu()})
@@ -893,25 +943,25 @@ def serve_grpc(model, requests, multiple):
           f"in {wall:.3f} s, WAV frames {[(len(d) - 44) // 2 for d in results]}")
 
 
-def vits2_vc(model, cpu_model, kernels, long_audio, short_audio):
+def vits2_vc(model, cpu_model, kernels, long_audio, short_audio, tag="vits2-vc",
+             per_call=(("banded_attention", 8),)):
     """``[vits2-vc]``: Synthesizer.voice_conversion on the full-width VITS2
     bundle, speaker 0 -> 3. y is the port's log-mel (the bundle's
     spec_channels bins; n_fft 1024, hop 256 at 22.05 kHz) of two ``[main]``
     waveforms as a batch of two, the shorter one padded; the same posterior
     noise on the card and on the CPU. Three calls on the card with the
-    launch counts set to 0 just before and read just after (8 banded
-    attention launches a call: 4 flows x 2 directions x 1 layer, nothing
-    else), the last two timed; the card's waveforms held to the CPU's over
-    each row's valid samples as ``[parity]`` holds them. Then the banded
-    attention kernel against its plain version at this path's shape.
-    Returns (launches, that kernel case)."""
+    launch counts set to 0 just before and read just after (``per_call``:
+    for pre_conv2, 8 banded attention launches a call: 4 flows x 2
+    directions x 1 layer, nothing else), the last two timed; the card's
+    waveforms held to the CPU's over each row's valid samples as
+    ``[parity]`` holds them. Returns (launches, (T, T_short))."""
     cfg = model.model_config
     up = cfg.upsample_factor
     mels = [mel_spectrogram(torch.as_tensor(a.astype(np.float32) / 32768.0)[None], 1024,
                             cfg.spec_channels, 22050, 256, 1024, 0.0, None)[0]
             for a in (long_audio, short_audio)]
     t, t_short = mels[0].shape[0], mels[1].shape[0]
-    check(t_short < t, f"[vits2-vc] the rows are not of two lengths: {t}, {t_short}")
+    check(t_short < t, f"[{tag}] the rows are not of two lengths: {t}, {t_short}")
     y = torch.zeros(2, t, cfg.spec_channels)
     y[0], y[1, :t_short] = mels[0], mels[1]
     lengths = torch.tensor([t, t_short], dtype=torch.int32)
@@ -930,29 +980,156 @@ def vits2_vc(model, cpu_model, kernels, long_audio, short_audio):
             wav = wav.cpu()
             walls.append(time.perf_counter() - t0)
     got = {name: k.launches for name, k in kernels.items()}
-    expected = {name: 0 for name in kernels} | {"banded_attention": 8 * 3}
+    expected = {name: 0 for name in kernels} | {name: n * 3 for name, n in per_call}
     audio_s = (t + t_short) * up / 22050
-    print(f"[vits2-vc] voice_conversion B2 (frames {t} and {t_short}, speaker 0 -> 3): "
+    print(f"[{tag}] voice_conversion B2 (frames {t} and {t_short}, speaker 0 -> 3): "
           f"{audio_s:.2f} s audio; wall {', '.join(f'{w:.4f}' for w in walls)} s "
           f"(the first warms up), RTF {min(walls[1:]) / audio_s:.4f}")
-    print(f"[vits2-vc] launches over 3 calls: {got} (expected {expected})")
-    check(got == expected, f"[vits2-vc] kernel launches {got} != {expected}")
+    print(f"[{tag}] launches over 3 calls: {got} (expected {expected})")
+    check(got == expected, f"[{tag}] kernel launches {got} != {expected}")
     with torch.inference_mode():
         want, mask_c = cpu_model.synthesizer.voice_conversion(*args("cpu"), noise=noise)
     check(wav.shape == want.shape == (2, t * up, 1) and np.isfinite(wav.numpy()).all(),
-          f"[vits2-vc] bad output {tuple(wav.shape)}")
-    check(torch.equal(mask.cpu(), mask_c), "[vits2-vc] the masks differ")
+          f"[{tag}] bad output {tuple(wav.shape)}")
+    check(torch.equal(mask.cpu(), mask_c), f"[{tag}] the masks differ")
     for i, n in enumerate((t * up, t_short * up)):
         err = float((wav[i, :n] - want[i, :n]).abs().max())
         peak = float(want[i, :n].abs().max())
         tol = 1e-3 * peak + 1e-6
-        print(f"[vits2-vc] row {i}: {n} samples, card vs CPU {err:.3e} (peak {peak:.4f}, "
+        print(f"[{tag}] row {i}: {n} samples, card vs CPU {err:.3e} (peak {peak:.4f}, "
               f"tol {tol:.3e})")
-        check(peak > 0 and err <= tol, f"[vits2-vc] row {i} differs by {err} > {tol}")
+        check(peak > 0 and err <= tol, f"[{tag}] row {i} differs by {err} > {tol}")
     with torch.inference_mode():
-        profile_requests([("vits2-vc voice_conversion", lambda: model.synthesizer.voice_conversion(
+        profile_requests([(f"{tag} voice_conversion", lambda: model.synthesizer.voice_conversion(
             *args(dev), noise=noise.to(dev)))])
-    return got, attention_case(2, t, [t, t_short], 50, 20, 21)
+    return got, (t, t_short)
+
+
+#: ``[variants]``: full-width VITS2 bundles that, with ``[main]``'s pre_conv2 +
+#: mb_istft and QuickVC's plain couplings + ms_istft, cover every flow type,
+#: decoder and iSTFT mode, and the deterministic duration predictor. Each
+#: generator makes 256 samples a frame, as the reference's configurations
+#: of its decoder do: iSTFT-VITS upsamples (8, 8) before its hop of 4,
+#: HiFiGAN-VITS (8, 8, 2, 2); the multiband decoders (4, 4) x 4 x 4 subbands
+VARIANTS = (
+    ("pre_conv+istft", dict(transformer_flow_type="pre_conv", decoder_type="istft",
+                            upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16))),
+    ("fft+hifigan", dict(transformer_flow_type="fft", decoder_type="hifigan",
+                         upsample_rates=(8, 8, 2, 2), upsample_kernel_sizes=(16, 16, 4, 4))),
+    ("mono_inter+ms_istft/onnx+dp", dict(transformer_flow_type="mono_layer_inter_residual",
+                                         decoder_type="ms_istft", istft_mode="onnx",
+                                         use_sdp=False)),
+    ("mono_post+mb_istft/onnx", dict(transformer_flow_type="mono_layer_post_residual",
+                                     decoder_type="mb_istft", istft_mode="onnx")),
+)
+
+
+def per_synthesis_call(cfg):
+    """Kernel launches of one synthesis call (encode + decode) of a VITS2
+    configuration: kernel 1 in every text-encoder layer and, for pre_conv2,
+    once a flow; kernel 2 four times with the SDP; kernel 5 in the two
+    windowless layers of each pre_conv or mono flow."""
+    ftype = vits2.flow_type(cfg)
+    windowless = ftype == "pre_conv" or ftype.startswith("mono_layer")
+    return {"banded_attention": cfg.n_layers + (cfg.n_flows if ftype == "pre_conv2" else 0),
+            "ddsconv": 4 if cfg.use_sdp else 0,
+            "global_attention": 2 * cfg.n_flows if windowless else 0}
+
+
+def variants_phase(kernels):
+    """``[variants]``: each of VARIANTS at full width (VITS2Config() widths,
+    random weights from the seed, zero-initialised projections perturbed)
+    answers 3 requests through Model/Synth.synth_audio on the card (the
+    first bundle also one synth_batch of the 16 texts), with the launch
+    counts set to 0 just before and held to per_synthesis_call just after;
+    one request on the card and on the CPU fed the card's durations, noise
+    0 (``parity``); one synth_audio profiled; on the first bundle
+    (``pre_conv``: windowless flow attention) ``voice_conversion`` B2 as in
+    ``[vits2-vc]``, 16 launches of kernel 5 a call. Returns (the launches of
+    each kernel over the main paths, the launches over the voice
+    conversions, (T, T_short) of the voice conversion)."""
+    launches, vc_launches, vc_shape = {name: 0 for name in kernels}, None, None
+    for i, (name, over) in enumerate(VARIANTS):
+        cfg = vits2.VITS2Config(**over)
+        tag = f"variants {name}"
+        t0 = time.perf_counter()
+        tree = perturb_zero_init(synthesizer_init(cfg, seed=SEED + 50 + i), seed=SEED + 60 + i)
+        with tempfile.TemporaryDirectory(prefix="vits2-variant-") as bundle:
+            write_bundle(bundle, cfg, tree)
+            del tree
+            model = api.Model(bundle)
+            print(f"[{tag}] full-width bundle written and loaded in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check(model.device.type == "cuda", f"[{tag}] Model() did not default to the card")
+            for k in kernels.values():
+                k.launches = 0
+            calls, audios = main_path(model, tag=tag, with_batch=i == 0)
+            got = {n: k.launches for n, k in kernels.items()}
+            expected = {n: 0 for n in kernels} | {
+                n: c * calls for n, c in per_synthesis_call(cfg).items()}
+            print(f"[{tag}] launches over {calls} synthesis calls: {got} (expected {expected})")
+            check(got == expected, f"[{tag}] kernel launches {got} != {expected}")
+            launches = {n: launches[n] + got[n] for n in kernels}
+            synth = api.Synth(model)
+            profile_requests([(f"{tag} synth_audio", lambda: synth.synth_audio(TEXTS[2]))])
+            cpu_model = api.Model(bundle, device="cpu")
+            parity(model, cpu_model, tag=f"{tag} parity")
+            if i == 0:
+                longest, second = sorted(audios, key=len)[:0:-1]
+                vc_launches, vc_shape = vits2_vc(model, cpu_model, kernels, longest, second,
+                                                 tag=f"{tag} vc",
+                                                 per_call=(("global_attention", 16),))
+            del model, synth, cpu_model
+        torch.cuda.empty_cache()
+    return launches, vc_launches, vc_shape
+
+
+def ms_vocoders_phase(kernels):
+    """``[ms-vocoders]``: the ``[ms-main]`` multistream_v3 bundle written
+    with the Vocos() and with the BigVGANConfig() vocoder (vocoder_tree):
+    3 requests each through Model/Synth.synth_audio (RTF; 68 launches of
+    kernel 3 a call, no other kernel), the vocoder alone on a 32-frame mel
+    on the card and on the CPU (1e-3 x peak), one request profiled."""
+    for vocoder in ("vocos", "bigvgan"):
+        tag = f"ms-vocoders {vocoder}"
+        with tempfile.TemporaryDirectory(prefix=f"ms-v3-{vocoder}-") as bundle:
+            t0 = time.perf_counter()
+            write_ms_bundle(bundle, vocoder)
+            model = api.Model(bundle)
+            print(f"[{tag}] full-width multistream_v3 bundle written and loaded in "
+                  f"{time.perf_counter() - t0:.1f} s ({vocoder}: {model.vocoder_config})")
+            check(model.device.type == "cuda" and model.vocoder_type == vocoder,
+                  f"[{tag}] the bundle did not load on the card with its vocoder")
+            for k in kernels.values():
+                k.launches = 0
+            calls = ms_main_path(model, tag=tag, with_batch=False)
+            got = {n: k.launches for n, k in kernels.items()}
+            expected = {n: 0 for n in kernels} | {"global_attention_rope": 68 * calls}
+            print(f"[{tag}] launches over {calls} synthesis calls: {got} (expected {expected})")
+            check(got == expected, f"[{tag}] kernel launches {got} != {expected}")
+            mel = torch.randn(1, 32, model.model_config.n_feats,
+                              generator=torch.Generator().manual_seed(SEED + 9))
+            # the same vocoder on the CPU: what api.vocoder_apply reads of a Model
+            cpu_vocoder = SimpleNamespace(vocoder_type=model.vocoder_type,
+                                          vocoder_config=model.vocoder_config,
+                                          vocoder=TreeModule(model.vocoder.numpy_tree()))
+            with torch.inference_mode():
+                got_wav = api.vocoder_apply(model, mel.to(model.device)).cpu()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = api.vocoder_apply(cpu_vocoder, mel)
+                cpu_s = time.perf_counter() - t0
+            peak = float(want.abs().max())
+            err = float((got_wav - want).abs().max())
+            tol = 1e-3 * peak + 1e-6
+            print(f"[{tag}] vocoder alone, 32 mel frames -> {want.shape[-1]} samples: card vs "
+                  f"CPU {err:.3e} (peak {peak:.4f}, tol {tol:.3e}; the CPU took {cpu_s:.2f} s)")
+            check(got_wav.shape == want.shape and np.isfinite(got_wav.numpy()).all()
+                  and peak > 0 and err <= tol, f"[{tag}] the vocoder differs by {err} > {tol}")
+            synth = api.Synth(model)
+            profile_requests([(f"{tag} synth_audio", lambda: synth.synth_audio(TEXTS[2]))])
+            del model, synth
+        torch.cuda.empty_cache()
 
 
 def vc_phase(kernels):
@@ -1689,7 +1866,13 @@ def main() -> int:
                                                    [1024 - 41 * i for i in range(16)], 20, 5, 16),
                                        # the decoder's shape without RoPE: what the rotation costs
                                        global_case("packed", 32, 2048, 96, dec_lens, 10, 3, 19)],
-           "global_attention": [global_case("separate", 16, 1024, 96,
+           # kernel 5 at the windowless flow attention's shapes (C 96 = 2 heads
+           # x 48: a batch of 16 at the 2048-frame bucket, one request), then
+           # the DiT's width
+           "global_attention": [global_case("separate", 16, 2048, 48,
+                                            [2048 - 97 * i for i in range(16)], 10, 3, 20, h=2),
+                                global_case("separate", 1, 397, 48, [355], 50, 20, 22, h=2),
+                                global_case("separate", 16, 1024, 96,
                                             [1024 - 41 * i for i in range(16)], 20, 5, 17)]}
     glo_tol = 1e-4
     for name, shapes, tol in (("banded_attention", att, att_tol), ("ddsconv", dds, dds_tol),
@@ -1736,7 +1919,8 @@ def main() -> int:
 
         # 4c. VITS2 voice conversion: the banded attention in both flow directions
         longest, second = sorted(audios, key=len)[:0:-1]
-        vc_launches, vc_case = vits2_vc(model, cpu_model, kernels, longest, second)
+        vc_launches, (t, t_short) = vits2_vc(model, cpu_model, kernels, longest, second)
+        vc_case = attention_case(2, t, [t, t_short], 50, 20, 21)
         print(f"[kernel] banded_attention {json.dumps(vc_case)} tol {att_tol}")
         check(np.isfinite(vc_case["max_abs_err"]) and vc_case["max_abs_err"] <= att_tol,
               f"banded_attention at {vc_case['shape']} disagrees with its plain version")
@@ -1777,6 +1961,21 @@ def main() -> int:
             print(f"[serve-grpc] not run: {missing[0]} is not installed")
         else:
             serve_grpc(model, ms_reqs[:1], 256)
+        del model, synth
+    torch.cuda.empty_cache()
+
+    # 5c. the VITS2 variants at full width: kernel 5 on the windowless flow attention
+    var_launches, var_vc_launches, (t, t_short) = variants_phase(kernels)
+    launches["global_attention"] = var_launches["global_attention"]
+    var_case = global_case("separate", 2, t, 48, [t, t_short], 50, 20, 23, h=2)
+    print(f"[kernel] global_attention (variants vc) {json.dumps(var_case)} tol {glo_tol}")
+    check(np.isfinite(var_case["max_abs_err"]) and var_case["max_abs_err"] <= glo_tol,
+          f"global_attention at {var_case['shape']} disagrees with its plain version")
+    glo["global_attention"].append(var_case)
+
+    # 5d. the multistream bundle with the Vocos and BigVGAN vocoders
+    ms_vocoders_phase(kernels)
+    torch.cuda.empty_cache()
 
     # 6. voice conversion: full-width ContentVec/HuBERT + QuickVC
     vc_phase(kernels)
@@ -1812,6 +2011,8 @@ def main() -> int:
     record = [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
                "replaces": replaces[name], "launches": launches[name],
                "serve_launches": serve_launches[name], "vc_launches": vc_launches[name],
+               "variants_launches": var_launches[name],
+               "variants_vc_launches": var_vc_launches[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],

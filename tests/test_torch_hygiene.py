@@ -60,6 +60,22 @@ def test_train_imports_no_jax():
     assert r.stdout.strip() == "[]", r.stdout
 
 
+_IMPORT_VOCODERS = textwrap.dedent("""
+    import importlib, sys
+    for name in ("bigvgan", "vocoder"):
+        importlib.import_module("vosk_tts_tpu_torch.models." + name)
+    print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))
+""")
+
+
+def test_vocoders_import_no_jax():
+    """The vocoders (models/bigvgan.py, models/vocoder.py) in a fresh process."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_VOCODERS], capture_output=True, text=True,
+                       cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
 def test_port_sources_name_no_jax():
     """No source of the port, and not chip_smoke.py, imports JAX or the JAX
     package (also where an import sits inside a function)."""

@@ -108,10 +108,12 @@ def test_synth_writes_wav_and_refuses_batch(bundle, tmp_path):
 
 
 def test_unported_vocoder_is_refused(bundle, tmp_path):
+    """A vocoder name other than hifigan, vocos and bigvgan is refused (the
+    JAX loader would build a HiFiGAN for it)."""
     cfg = json.loads((bundle / "config.json").read_text(encoding="utf-8"))
-    cfg["vocoder"] = "vocos"
+    cfg["vocoder"] = "wavenet"
     (tmp_path / "config.json").write_text(json.dumps(cfg), encoding="utf-8")
-    with pytest.raises(NotImplementedError, match="vocos"):
+    with pytest.raises(ValueError, match="wavenet"):
         tapi.Model(tmp_path, device="cpu")
 
 

@@ -249,16 +249,19 @@ def test_cli_needs_the_card(bundle, tmp_path):
 
 
 def test_synthesizer_refuses_what_it_cannot_run(model):
-    """The generator runs as the hifigan vocoder (no speaker conditioning)
-    and as GPT-SoVITS's speaker-conditioned hifigan decoder, but a VITS2
-    synthesizer with that decoder is refused."""
+    """A synthesizer runs every flow type, decoder and iSTFT mode of the JAX
+    package (the hifigan and istft decoders included) and refuses only an
+    unknown one; the generator refuses an unknown decoder."""
     _, _, _, tp = model
     voc = tv.VITS2Config(decoder_type="hifigan", gin_channels=0, n_speakers=0)
     tv.check_decoder(voc)
     tv.check_decoder(tv.VITS2Config(decoder_type="hifigan"))
     for cfg in (voc, tv.VITS2Config(decoder_type="hifigan")):
-        with pytest.raises(NotImplementedError, match="hifigan"):
+        tv.check_ported(cfg)
+    for cfg in (tv.VITS2Config(decoder_type="wavenet"),
+                tv.VITS2Config(transformer_flow_type="unknown")):
+        with pytest.raises(ValueError, match="unknown"):
             tv.Synthesizer(cfg, {})
-    with pytest.raises(NotImplementedError, match="istft"):
-        tv.generator_apply(tp["dec"], tv.VITS2Config(**CFG, decoder_type="istft"),
+    with pytest.raises(ValueError, match="wavenet"):
+        tv.generator_apply(tp["dec"], tv.VITS2Config(**CFG, decoder_type="wavenet"),
                            torch.zeros(1, 4, 32))

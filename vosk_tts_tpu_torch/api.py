@@ -6,10 +6,13 @@ loads as a VITS2 bundle.
 A bundle directory holds ``config.json`` (``model_type``, ``phoneme_id_map``,
 ``inference`` defaults, the ``model`` architecture block, ``sample_rate``),
 ``params.npz`` (the JAX package's parameter tree) and ``dictionary``. A
+VITS2 bundle may hold any configuration the JAX ``Synthesizer`` runs
+(every flow type, duration predictor and decoder). A
 ``multistream_v1/v2/v3`` bundle's ``params.npz`` holds ``{"matcha",
-"vocoder"}``, its config names the ``vocoder`` (HiFiGAN is ported; Vocos
-and BigVGAN are not) and its ``bert/`` directory (``config.json``,
-``params.npz``, ``vocab.txt``) the ruBERT front.
+"vocoder"}``, its config names the ``vocoder`` (``hifigan``, the default,
+``vocos`` or ``bigvgan``, with an optional ``vocoder_config`` block) and
+its ``bert/`` directory (``config.json``, ``params.npz``, ``vocab.txt``)
+the ruBERT front.
 
 Entry points run on the card: ``Model(path)`` means ``device="cuda"`` and
 raises where CUDA is missing; pass ``device="cpu"`` to run the plain
@@ -36,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .models import stabletts, vits2
+from .models import bigvgan, stabletts, vits2
 from .models import vocoder as voc
 from .models.bert import BertEncoder
 from .models.tree import TreeModule
@@ -168,13 +171,18 @@ class Model:
     def _load_multistream(self, model_path: Path):
         self.model_config = stabletts.StableTTSConfig.from_dict(self.config.get("model", {}))
         self.vocoder_type = self.config.get("vocoder", "hifigan")
-        if self.vocoder_type != "hifigan":
-            raise NotImplementedError(f"vocoder {self.vocoder_type!r} is not ported")
-        if "vocoder_config" in self.config:
-            self.vocoder_config = vits2.VITS2Config.from_dict(self.config["vocoder_config"])
+        vcfg = self.config.get("vocoder_config")
+        if self.vocoder_type == "vocos":
+            self.vocoder_config = voc.VocosConfig(**(vcfg or {}))
+        elif self.vocoder_type == "bigvgan":
+            self.vocoder_config = bigvgan.BigVGANConfig.from_dict(vcfg or {})
+        elif self.vocoder_type == "hifigan":
+            self.vocoder_config = (voc.hifigan_v1_config() if vcfg is None
+                                   else vits2.VITS2Config.from_dict(vcfg))
+            vits2.check_decoder(self.vocoder_config)
         else:
-            self.vocoder_config = voc.hifigan_v1_config()
-        vits2.check_decoder(self.vocoder_config)
+            raise ValueError(f"unknown vocoder {self.vocoder_type!r} "
+                             "(hifigan, vocos or bigvgan)")
         tree = load_params(model_path / "params.npz")
         self.matcha = stabletts.Matcha(self.model_config,
                                        stabletts.port_layout(tree["matcha"])).to(self.device)
@@ -309,8 +317,14 @@ def make_vits2_decode_runner(model: Model, max_frames: int, gen_frames: int | No
     return run
 
 
-def _vocoder_apply(model: Model, mel):
-    return voc.hifigan_apply(model.vocoder.params, mel, model.vocoder_config)
+def vocoder_apply(model: Model, mel):
+    """The bundle's vocoder: mel (B, T, n_mels) -> wav (B, samples)."""
+    params, cfg = model.vocoder.params, model.vocoder_config
+    if model.vocoder_type == "vocos":
+        return voc.vocos_apply(params, cfg, mel)
+    if model.vocoder_type == "bigvgan":
+        return bigvgan.bigvgan_apply(params, cfg, mel)
+    return voc.hifigan_apply(params, mel, cfg)
 
 
 def make_multistream_runner(model: Model, max_frames: int, n_timesteps: int):
@@ -324,7 +338,7 @@ def make_multistream_runner(model: Model, max_frames: int, n_timesteps: int):
                                       n_timesteps=n_timesteps, temperature=temperature,
                                       length_scale=length_scale, phone_duration_extra=pde,
                                       generator=generator)
-        return _vocoder_apply(model, out["mel"]), out["mel_lengths"]
+        return vocoder_apply(model, out["mel"]), out["mel_lengths"]
 
     return run
 
@@ -350,7 +364,7 @@ def make_multistream_decode_runner(model: Model, max_frames: int, n_timesteps: i
         out = model.matcha.decode_from_durations(enc, sid, max_frames=max_frames,
                                                  n_timesteps=n_timesteps,
                                                  temperature=temperature, generator=generator)
-        return _vocoder_apply(model, out["mel"]), out["mel_lengths"]
+        return vocoder_apply(model, out["mel"]), out["mel_lengths"]
 
     return run
 
@@ -439,7 +453,7 @@ class Synth:
                                                 phone_duration_extra=pde)
             max_frames = pick_ms_frame_bucket(int(enc["pred_frames"].max()), bucket)
             out = model.matcha.decode_from_durations(enc, sid, max_frames=max_frames, **kw)
-        wav = _vocoder_apply(model, out["mel"])
+        wav = vocoder_apply(model, out["mel"])
         n = int(out["mel_lengths"][0]) * model.config.get("hop_length", 256)
         return wav[0, :n].cpu().numpy()
 

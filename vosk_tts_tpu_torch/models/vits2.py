@@ -1,22 +1,24 @@
 """MB-iSTFT-VITS2 (vosk_tts_tpu/models/vits2.py), channels-last: inference
 and the training forward.
 
-The serving passes (``Synthesizer``) run the shipped configuration:
-``pre_conv2`` transformer flows, the ``mb_istft`` decoder with the fused
-tail (``istft_mode`` "torch"), and the stochastic duration predictor.
-Voice conversion adds the posterior encoder, the flow's forward direction
-and the unfused tails: ``voice_conversion`` on that configuration, and
-QuickVC (models/quickvc.py) on plain residual-coupling flows and the
-``ms_istft`` decoder. The generator also runs as the HiFiGAN v1 vocoder of
-the multistream bundles (``decoder_type="hifigan"`` without speaker
-conditioning, models/vocoder.py) and as GPT-SoVITS's speaker-conditioned
-``hifigan`` decoder with padded-frame masking (models/gpt_sovits.py).
-Training (``forward_train``, train/vits2_train.py) runs the shipped
-configuration with the SDP's NLL and the monotonic alignment search
-(ops/mas.py); its attention and DDSConv take the differentiable routes
-(``flash=False``, ``fused=False``) where the JAX package takes its XLA
-branches. Other flow types and decoders and the deterministic duration
-predictor raise NotImplementedError.
+The serving passes (``Synthesizer``) run every configuration the JAX
+``Synthesizer`` runs: the flow types ``plain``, ``pre_conv``, ``pre_conv2``,
+``fft``, ``mono_layer_inter_residual`` and ``mono_layer_post_residual`` in
+both directions, the stochastic (``use_sdp``) or the deterministic duration
+predictor, and the ``hifigan``, ``istft``, ``mb_istft`` (fused tail in
+serving) and ``ms_istft`` decoders, each iSTFT in ``istft_mode`` "torch" or
+"onnx". Voice conversion adds the posterior encoder and the flow's forward
+direction (``voice_conversion``; QuickVC in models/quickvc.py). The
+generator also runs as the HiFiGAN v1 vocoder of the multistream bundles
+(``decoder_type="hifigan"`` without speaker conditioning,
+models/vocoder.py) and as GPT-SoVITS's speaker-conditioned ``hifigan``
+decoder with padded-frame masking (models/gpt_sovits.py). Training
+(``forward_train``, train/vits2_train.py) runs the shipped configuration
+(SDP, ``pre_conv2``, ``mb_istft``) with the SDP's NLL and the monotonic
+alignment search (ops/mas.py); its attention and DDSConv take the
+differentiable routes (``flash=False``, ``fused=False``) where the JAX
+package takes its XLA branches; other configurations raise
+NotImplementedError there (:func:`check_trainable`).
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -40,7 +42,8 @@ from ..ops.commons import generate_path, rand_slice_segments, sequence_mask
 from ..ops.conv import conv1d, conv_transpose1d
 from ..ops.mas import maximum_path
 from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
-from ..ops.stft import istft_multiband, mb_decoder_tail_fused
+from ..ops.norm import layer_norm
+from ..ops.stft import istft, istft_multiband, mb_decoder_tail_fused
 from .tree import TreeModule
 
 
@@ -145,34 +148,41 @@ def flow_type(cfg: VITS2Config) -> str:
     return cfg.transformer_flow_type if cfg.use_transformer_flows else "plain"
 
 
+FLOW_TYPES = ("plain", "pre_conv", "pre_conv2", "fft", "mono_layer_inter_residual",
+              "mono_layer_post_residual")
+DECODERS = ("hifigan", "istft", "mb_istft", "ms_istft")
+
+
 def check_flow(cfg: VITS2Config):
-    """Raise NotImplementedError for a flow the port does not run: it runs
-    ``pre_conv2`` transformer flows and plain residual couplings."""
-    if flow_type(cfg) not in ("pre_conv2", "plain"):
-        raise NotImplementedError(f"flow type {flow_type(cfg)!r} is not ported")
+    """Raise ValueError for a flow type that neither package knows."""
+    if flow_type(cfg) not in FLOW_TYPES:
+        raise ValueError(f"unknown flow type {flow_type(cfg)!r}")
 
 
 def check_decoder(cfg: VITS2Config):
-    """Raise NotImplementedError for a generator the port does not run: it
-    runs ``hifigan``, and ``mb_istft`` and ``ms_istft`` with the torch iSTFT."""
-    if cfg.decoder_type != "hifigan" and (cfg.decoder_type not in ("mb_istft", "ms_istft")
-                                          or cfg.istft_mode != "torch"):
-        raise NotImplementedError(f"decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT) "
-                                  "is not ported")
+    """Raise ValueError for a generator that neither package knows."""
+    if cfg.decoder_type not in DECODERS or cfg.istft_mode not in ("torch", "onnx"):
+        raise ValueError(f"unknown decoder {cfg.decoder_type!r} ({cfg.istft_mode!r} iSTFT)")
 
 
 def check_ported(cfg: VITS2Config):
-    """Raise NotImplementedError for a synthesizer configuration the serving
-    passes do not run: they run SDP, ``pre_conv2`` flows and the
-    ``mb_istft`` decoder."""
-    if not cfg.use_sdp:
-        raise NotImplementedError("the deterministic duration predictor (dp_apply) is not ported")
-    if flow_type(cfg) != "pre_conv2":
-        raise NotImplementedError(f"a synthesizer with {flow_type(cfg)!r} flows is not served")
-    if cfg.decoder_type != "mb_istft":
-        raise NotImplementedError(f"a synthesizer with the {cfg.decoder_type!r} decoder "
-                                  "is not ported")
+    """Raise ValueError for a synthesizer configuration that neither
+    package knows: the serving passes run every known one."""
+    check_flow(cfg)
     check_decoder(cfg)
+
+
+def check_trainable(cfg: VITS2Config):
+    """Raise NotImplementedError for a configuration :func:`forward_train`
+    does not run: it runs the shipped one (SDP, ``pre_conv2`` flows, the
+    ``mb_istft`` decoder with the torch iSTFT)."""
+    check_ported(cfg)
+    if not cfg.use_sdp or flow_type(cfg) != "pre_conv2" or cfg.decoder_type != "mb_istft" \
+            or cfg.istft_mode != "torch":
+        raise NotImplementedError(
+            f"training runs SDP + pre_conv2 + mb_istft (torch iSTFT), not use_sdp="
+            f"{cfg.use_sdp}, {flow_type(cfg)!r} flows, the {cfg.decoder_type!r} decoder "
+            f"({cfg.istft_mode!r} iSTFT); see ROADMAP A.7")
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +210,7 @@ def text_encoder_apply(params, cfg: VITS2Config, x_ids, x_lengths, g=None, *,
 
 # the SDP's DDSConv and ConvFlow widths (the reference's fixed 256 and 3)
 SDP_FILTER_CHANNELS, SDP_KERNEL = 256, 3
+DP_KERNEL = 3
 
 
 def _sdp_context(params, x, x_mask, g, *, fused: bool):
@@ -279,6 +290,20 @@ def sdp_forward_nll(params, cfg: VITS2Config, x, x_mask, w, g=None, *, generator
     return nll + logq
 
 
+def dp_apply(params, cfg: VITS2Config, x, x_mask, g=None):
+    """The deterministic duration predictor: log-durations (B, T, 1) from
+    two conv -> ReLU -> LayerNorm stages over the detached encoder output
+    (and speaker), then a 1x1 projection."""
+    x = x.detach()
+    if g is not None:
+        x = x + conv1d(g.detach(), params["cond"]["w"], params["cond"]["b"])
+    for i in (1, 2):
+        x = conv1d(x * x_mask, params[f"conv{i}"]["w"], params[f"conv{i}"]["b"],
+                   padding=DP_KERNEL // 2)
+        x = layer_norm(torch.relu(x), params[f"norm{i}"]["gamma"], params[f"norm{i}"]["beta"])
+    return conv1d(x * x_mask, params["proj"]["w"], params["proj"]["b"]) * x_mask
+
+
 # ---------------------------------------------------------------------------
 # Posterior encoder
 # ---------------------------------------------------------------------------
@@ -300,43 +325,92 @@ def posterior_apply(params, cfg: VITS2Config, y, y_lengths, g=None, *, generator
 
 
 # ---------------------------------------------------------------------------
-# Flow block (pre_conv2 or plain couplings), both directions
+# Flow block (every flow type), both directions
 # ---------------------------------------------------------------------------
 
 
-def _flow_layer_apply(layer, cfg: VITS2Config, x, x_mask, g, *, reverse: bool, flash: bool):
-    """One ``pre_conv2`` coupling layer (mean-only)."""
-    half = cfg.inter_channels // 2
+def _shift_half(x, m, x_mask, reverse: bool):
+    """The mean-only affine coupling of the second half by m."""
+    half = x.shape[-1] // 2
     x0, x1 = x[..., :half], x[..., half:]
-    hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
-    # the flow block's kernel_size is 5 (inherited by Layer2's pre_transformer)
-    hid = hid + att.encoder_apply(layer["pre_transformer"], hid * x_mask, x_mask,
-                                  n_heads=2, kernel_size=5, window_size=4, flash=flash)
-    hid = wnops.wn_apply(layer["enc"], hid, x_mask, g, kernel_size=5, dilation_rate=1)
-    m = conv1d(hid, layer["post"]["w"], layer["post"]["b"]) * x_mask
     x1 = (x1 - m) * x_mask if reverse else m + x1 * x_mask
     return torch.cat([x0, x1], dim=-1)
 
 
+def _flow_layer_apply(layer, cfg: VITS2Config, ftype: str, x, x_mask, g, *, reverse: bool,
+                      flash: bool):
+    """One ``pre_conv``, ``pre_conv2`` or ``fft`` coupling layer (mean-only)."""
+    x0 = x[..., :cfg.inter_channels // 2]
+    if ftype == "pre_conv":
+        # windowless attention over the first half (kernel 5 with ``flash``)
+        x0 = x0 + att.encoder_apply(layer["pre_transformer"], x0 * x_mask, x_mask, n_heads=2,
+                                    kernel_size=3, window_size=None, flash=flash)
+        hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
+        hid = wnops.wn_apply(layer["enc"], hid, x_mask, g, kernel_size=5, dilation_rate=1)
+    elif ftype == "pre_conv2":
+        hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
+        # the flow block's kernel_size is 5 (inherited by Layer2's pre_transformer)
+        hid = hid + att.encoder_apply(layer["pre_transformer"], hid * x_mask, x_mask,
+                                      n_heads=2, kernel_size=5, window_size=4, flash=flash)
+        hid = wnops.wn_apply(layer["enc"], hid, x_mask, g, kernel_size=5, dilation_rate=1)
+    else:  # fft
+        hid = conv1d(x0, layer["pre"]["w"], layer["pre"]["b"]) * x_mask
+        hid = hid + att.fft_apply(layer["enc"], hid, x_mask, g, n_heads=4, kernel_size=5)
+    m = conv1d(hid, layer["post"]["w"], layer["post"]["b"]) * x_mask
+    return _shift_half(x, m, x_mask, reverse)
+
+
+def _mono_layer_apply(layer, cfg: VITS2Config, x, x_mask, *, reverse: bool, residual: bool,
+                      flash: bool):
+    """The mono transformer flow layer (mean-only): windowless attention
+    over the first half (kernel 5 with ``flash``) gives the shift of the
+    second. The ``residual`` (post-residual) form adds its input in the
+    forward direction, so its reverse halves both halves."""
+    half = cfg.inter_channels // 2
+
+    def shift(x0):
+        h = att.encoder_apply(layer["pre_transformer"], x0 if residual else x0 * x_mask, x_mask,
+                              n_heads=2, kernel_size=3, window_size=None, flash=flash)
+        return conv1d(h if residual else h + x0, layer["post"]["w"], layer["post"]["b"]) * x_mask
+
+    if not residual:
+        return _shift_half(x, shift(x[..., :half]), x_mask, reverse)
+    x0, x1 = x[..., :half], x[..., half:]
+    if not reverse:
+        return x + torch.cat([x0, shift(x0) + x1 * x_mask], dim=-1)
+    x0 = x0 / 2
+    return torch.cat([x0, (x1 - shift(x0)) / 2 * x_mask], dim=-1)
+
+
 def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bool,
                      flash: bool = True):
-    """The flow: groups of (coupling layer, Flip). Forward runs each group
-    from the first; reverse runs them from the last, Flip first. ``flash``
-    picks the attention route of the ``pre_conv2`` layers."""
+    """The flow: groups of (coupling layer, Flip), or for the mono types
+    (residual coupling, Flip, mono layer). Forward runs each group from
+    the first; reverse runs the groups from the last, each group's
+    contents backwards. ``flash`` picks the attention route of the
+    ``pre_conv``, ``pre_conv2`` and mono layers."""
     check_flow(cfg)
-    plain = flow_type(cfg) == "plain"
+    ftype = flow_type(cfg)
 
     def coupling(layer, x, rev):
-        if plain:
+        if "coupling" in layer:
             return fl.residual_coupling_apply(layer["coupling"], x, x_mask, g, reverse=rev,
                                               kernel_size=5, dilation_rate=1)
-        return _flow_layer_apply(layer, cfg, x, x_mask, g, reverse=rev, flash=flash)
+        return _flow_layer_apply(layer, cfg, ftype, x, x_mask, g, reverse=rev, flash=flash)
 
+    mono = ftype.startswith("mono_layer")
+    residual = ftype == "mono_layer_post_residual"
     if not reverse:
         for layer in params["flows"]:
             x = fl.flip_flow(coupling(layer, x, False))
+            if mono:
+                x = _mono_layer_apply(layer["mono"], cfg, x, x_mask, reverse=False,
+                                      residual=residual, flash=flash)
         return x
     for layer in reversed(params["flows"]):
+        if mono:
+            x = _mono_layer_apply(layer["mono"], cfg, x, x_mask, reverse=True, residual=residual,
+                                  flash=flash)
         x = coupling(layer, fl.flip_flow(x), True)
     return x
 
@@ -393,7 +467,8 @@ def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
     fused tail of the serving path (ops/stft.mb_decoder_tail_fused), which
     gives no subband waveforms: training reads them, serving does not.
     ``ms_istft``: the multiband iSTFT, then the learned upsampling filter
-    ``multistream_conv_post``."""
+    ``multistream_conv_post``. ``istft``: the single-band iSTFT. Every
+    iSTFT takes ``cfg.istft_mode``."""
     check_decoder(cfg)
     x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths)
     if cfg.decoder_type == "hifigan":
@@ -401,14 +476,17 @@ def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
                                  padding=3)), None
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
     x = conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3)
-    n_fft, hop, sub = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands
+    n_fft, hop, sub, mode = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands, cfg.istft_mode
+    cutoff = n_fft // 2 + 1
+    if cfg.decoder_type == "istft":
+        return istft(torch.exp(x[..., :cutoff]), math.pi * torch.sin(x[..., cutoff:]),
+                     n_fft, hop, n_fft, mode=mode)[..., None], None
     if cfg.decoder_type == "mb_istft" and fused_tail:
-        return mb_decoder_tail_fused(x, n_fft, hop, n_fft, subbands=sub), None
+        return mb_decoder_tail_fused(x, n_fft, hop, n_fft, subbands=sub, mode=mode), None
     b, t, _ = x.shape
     x = x.reshape(b, t, sub, n_fft + 2)
-    cutoff = n_fft // 2 + 1
     y_mb = istft_multiband(torch.exp(x[..., :cutoff]), math.pi * torch.sin(x[..., cutoff:]),
-                           n_fft, hop, n_fft)
+                           n_fft, hop, n_fft, mode=mode)
     if cfg.decoder_type == "mb_istft":
         return pqmf_synthesis(y_mb, subbands=sub), y_mb
     return polyphase_upfir(y_mb, params["multistream_conv_post"]["w"], stride=sub,
@@ -427,7 +505,8 @@ def _speaker(params, cfg, sid):
 def encode_for_infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, generator=None,
                      length_scale: float | torch.Tensor = 1.0,
                      noise_scale_w: float | torch.Tensor = 0.8):
-    """Pass one of the split serving path: text encoder + SDP. Returns a dict
+    """Pass one of the split serving path: text encoder + duration
+    predictor (the SDP, or ``dp_apply`` without ``use_sdp``). Returns a dict
     (m_p, logs_p, x_mask, w_ceil, pred_frames) for
     :func:`decode_from_durations`. Each scale is a float or a (B, 1, 1)
     tensor, one value a row (the batcher's per-request knobs)."""
@@ -435,8 +514,11 @@ def encode_for_infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, ge
     g = _speaker(params, cfg, sid)
     x, m_p, logs_p, x_mask = text_encoder_apply(params["enc_p"], cfg, x_ids, x_lengths,
                                                 g if cfg.enc_gin_channels else None)
-    logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator,
-                       noise_scale=noise_scale_w)
+    if cfg.use_sdp:
+        logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator,
+                           noise_scale=noise_scale_w)
+    else:
+        logw = dp_apply(params["dp"], cfg, x, x_mask, g)
     w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
     pred = w_ceil.sum(dim=-1).clamp(min=1).to(torch.int32)
     return {"m_p": m_p, "logs_p": logs_p, "x_mask": x_mask, "w_ceil": w_ceil,
@@ -545,7 +627,7 @@ def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=
 
     MAS runs on the clean log-likelihoods: the JAX trainer's noise-scaled
     MAS is added at scale 0 (its driver never passes another)."""
-    check_ported(cfg)
+    check_trainable(cfg)
     noise = {k: v.to(y.dtype) if v.is_floating_point() else v for k, v in (noise or {}).items()}
     g = _speaker(params, cfg, sid)
     x, m_p, logs_p, x_mask = text_encoder_apply(params["enc_p"], cfg, x_ids, x_lengths,

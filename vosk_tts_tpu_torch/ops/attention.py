@@ -1,5 +1,5 @@
-"""Relative-position multi-head self-attention, conv FFN and the encoder
-stack (vosk_tts_tpu/ops/attention.py).
+"""Relative-position multi-head attention, conv FFN, the encoder stack and
+the FFT flow block (vosk_tts_tpu/ops/attention.py).
 
 A banded self-attention takes one of two routes, chosen by the caller's
 ``flash`` argument as in the JAX package. ``flash=True`` (serving, the
@@ -11,11 +11,20 @@ added along the band, the (query x key) sequence mask at -1e4, softmax,
 and the band of the probabilities against the relative values. The two
 agree on valid rows; a padded query row attends to its valid keys through
 the kernel and uniformly to every key through the dense form (its output
-is masked by every caller). Cross-attention without a relative window
-(GPT-SoVITS's MRTE) is plain torch, as in the JAX package, where no Pallas
-kernel computes it. The forms no ported path runs (windowless
-self-attention, banded cross-attention, proximal bias, dropout) raise
-NotImplementedError.
+is masked by every caller).
+
+Windowless self-attention under a key-prefix mask (the ``pre_conv`` and
+``mono_layer_*`` flows) takes the same choice: ``flash=True`` goes through
+``flash_attention.global_flash_attention`` (kernel 5 on the card, its plain
+version on the CPU) with ``kv_len``; the JAX package computes this form in
+XLA with the (query x key) mask at -1e4, so again only valid rows agree.
+The dense torch form (scores, an optional proximal bias, the mask at -1e4,
+softmax) computes everything else: the causal self-attention of
+``fft_apply`` (``subsequent_mask``), a windowless self-attention with
+``flash=False``, and the cross-attention of GPT-SoVITS's MRTE, as the JAX
+package computes them (no Pallas kernel does). Banded cross-attention
+raises NotImplementedError (no path of either package runs it); dropout
+belongs to training and is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import math
 import torch
 
 from . import flash_attention as fa
+from .commons import fused_gate, subsequent_mask
 from .conv import conv1d
 from .norm import layer_norm
 
@@ -104,31 +114,49 @@ def banded_attention_dense(q, k, v, rel_k, rel_v, attn_mask, *, window: int):
                               _relative_embeddings(rel_v, t, window))
 
 
+def _proximal_bias(length: int, device):
+    """-log(1 + |j - i|) (1, 1, T, T): the reference's proximal bias."""
+    r = torch.arange(length, dtype=torch.float32, device=device)
+    return -torch.log1p((r[None, :] - r[:, None]).abs())[None, None]
+
+
 def mha_apply(params, x: torch.Tensor, c: torch.Tensor, attn_mask: torch.Tensor | None = None, *,
               n_heads: int, window_size: int | None = None,
-              kv_len: torch.Tensor | None = None, flash: bool = True) -> torch.Tensor:
-    """Banded self-attention (``window_size`` set, ``c`` is ``x``, (B, T, C)),
-    by the route ``flash`` picks: the kernel's wrapper, where ``kv_len`` (B,)
-    int32 is the valid key prefix (defaults to T) and stands for the
-    sequence mask; or, with ``flash=False``, :func:`banded_attention_dense`
-    under ``attn_mask`` (None: no mask).
+              kv_len: torch.Tensor | None = None, flash: bool = True,
+              proximal_bias: bool = False) -> torch.Tensor:
+    """x (queries): (B, T, C); c (keys and values): (B, Ts, C), ``x`` itself
+    for self-attention.
 
-    Cross-attention (``window_size`` None, ``c`` (B, Ts, C) another tensor):
-    ``attn_mask`` broadcastable to (B, H, Tt, Ts), 0 where a score is masked
-    (to -1e4, as the JAX version masks it)."""
-    if (window_size is None) == (c is x):
-        raise NotImplementedError("only banded self-attention and windowless cross-attention "
-                                  "are ported")
+    Banded self-attention (``window_size`` set) by the route ``flash``
+    picks: the kernel's wrapper, where ``kv_len`` (B,) int32 is the valid
+    key prefix (defaults to T) and stands for the sequence mask; or, with
+    ``flash=False``, :func:`banded_attention_dense` under ``attn_mask``
+    (None: no mask).
+
+    Windowless self-attention with ``flash`` and neither ``attn_mask`` nor
+    ``proximal_bias``: ``flash_attention.global_flash_attention`` under
+    ``kv_len``. Every other windowless form is dense: ``attn_mask``
+    broadcastable to (B, H, T, Ts), 0 where a score is masked (to -1e4, as
+    the JAX version masks it), after the proximal bias where asked."""
+    if window_size is not None and c is not x:
+        raise NotImplementedError("banded cross-attention is not ported")
     b, t, channels = x.shape
     t_s = c.shape[1]
     d = channels // n_heads
     q = conv1d(x, params["q"]["w"], params["q"]["b"])
     k = conv1d(c, params["k"]["w"], params["k"]["b"])
     v = conv1d(c, params["v"]["w"], params["v"]["b"])
+    if window_size is None and c is x and flash and attn_mask is None and not proximal_bias:
+        if kv_len is None:
+            kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        out = fa.global_flash_attention(q, k, v, kv_len, n_heads=n_heads, sm_scale=d**-0.5)
+        return conv1d(out, params["o"]["w"], params["o"]["b"])
     heads = lambda a, n: a.reshape(b, n, n_heads, d).transpose(1, 2).contiguous()
     q, k, v = heads(q, t), heads(k, t_s), heads(v, t_s)
     if window_size is None:
         scores = torch.matmul(q / math.sqrt(d), k.transpose(-1, -2))
+        if proximal_bias:
+            scores = scores + _proximal_bias(t_s, x.device)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
         out = torch.matmul(torch.softmax(scores, dim=-1), v)
@@ -145,9 +173,10 @@ def mha_apply(params, x: torch.Tensor, c: torch.Tensor, attn_mask: torch.Tensor 
     return conv1d(out, params["o"]["w"], params["o"]["b"])
 
 
-def ffn_apply(params, x, x_mask, *, kernel_size: int):
-    """Conv FFN (ReLU) with (K-1)//2, K//2 padding."""
-    pad = ((kernel_size - 1) // 2, kernel_size // 2)
+def ffn_apply(params, x, x_mask, *, kernel_size: int, causal: bool = False):
+    """Conv FFN (ReLU) with (K-1)//2, K//2 padding, or K-1, 0 where
+    ``causal``."""
+    pad = (kernel_size - 1, 0) if causal else ((kernel_size - 1) // 2, kernel_size // 2)
     x = conv1d(x * x_mask, params["c1"]["w"], params["c1"]["b"], padding=pad)
     x = torch.relu(x)
     x = conv1d(x * x_mask, params["c2"]["w"], params["c2"]["b"], padding=pad)
@@ -155,9 +184,11 @@ def ffn_apply(params, x, x_mask, *, kernel_size: int):
 
 
 def encoder_apply(params, x, x_mask, g=None, *, n_heads: int, kernel_size: int,
-                  window_size: int = 4, cond_layer_idx: int = 2, flash: bool = True):
-    """x: (B, T, H); x_mask: (B, T, 1); g: (B, 1, gin) or None. ``flash``
-    picks the attention route (:func:`mha_apply`)."""
+                  window_size: int | None = 4, cond_layer_idx: int = 2, flash: bool = True):
+    """x: (B, T, H); x_mask: (B, T, 1); g: (B, 1, gin) or None. Relative
+    windowed attention, or windowless with ``window_size=None`` (the
+    ``pre_conv`` and ``mono_layer_*`` flows). ``flash`` picks the attention
+    route (:func:`mha_apply`)."""
     kv_len = x_mask[..., 0].sum(dim=1).to(torch.int32)
     attn_mask = None if flash else x_mask[:, None, :, :] * x_mask[:, None, :, 0][..., None, :]
     x = x * x_mask
@@ -170,4 +201,26 @@ def encoder_apply(params, x, x_mask, g=None, *, n_heads: int, kernel_size: int,
         x = layer_norm(x + y, params["norm1"][i]["gamma"], params["norm1"][i]["beta"])
         y = ffn_apply(params["ffn"][i], x, x_mask, kernel_size=kernel_size)
         x = layer_norm(x + y, params["norm2"][i]["gamma"], params["norm2"][i]["beta"])
+    return x * x_mask
+
+
+def fft_apply(params, x, x_mask, g=None, *, n_heads: int, kernel_size: int):
+    """The FFT flow block: causal windowless self-attention and causal
+    FFNs, post-norm; with g (B, 1, gin), ``cond_layer`` gives each layer's
+    2H conditioning and ``cond_pre`` gates the layer's input through
+    tanh/sigmoid. x: (B, T, H); x_mask: (B, T, 1). No key-padding mask:
+    only the causal one (as in the JAX version)."""
+    hidden = x.shape[-1]
+    if g is not None:
+        g = conv1d(g, params["cond_layer"]["w"], params["cond_layer"]["b"])
+    causal = subsequent_mask(x.shape[1], x.device)[None]  # (1, 1, T, T)
+    x = x * x_mask
+    for i in range(len(params["attn"])):
+        if g is not None:
+            xp = conv1d(x, params["cond_pre"]["w"], params["cond_pre"]["b"])
+            x = fused_gate(xp, g[..., 2 * hidden * i: 2 * hidden * (i + 1)])
+        y = mha_apply(params["attn"][i], x, x, causal, n_heads=n_heads)
+        x = layer_norm(x + y, params["norm0"][i]["gamma"], params["norm0"][i]["beta"])
+        y = ffn_apply(params["ffn"][i], x, x_mask, kernel_size=kernel_size, causal=True)
+        x = layer_norm(x + y, params["norm1"][i]["gamma"], params["norm1"][i]["beta"])
     return x * x_mask

@@ -11,6 +11,11 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     return pos[None, :] < lengths[:, None]
 
 
+def subsequent_mask(length: int, device=None) -> torch.Tensor:
+    """Lower-triangular causal mask (1, T, T) float32: 1 where key <= query."""
+    return torch.tril(torch.ones((1, length, length), dtype=torch.float32, device=device))
+
+
 def generate_path(durations: torch.Tensor, x_mask: torch.Tensor, y_mask: torch.Tensor) -> torch.Tensor:
     """Durations (B, Tx) (integral floats), x_mask (B, Tx), y_mask (B, Ty) ->
     (B, Ty, Tx) one-hot monotonic path: frame t belongs to token s iff

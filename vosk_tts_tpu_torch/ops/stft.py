@@ -7,9 +7,12 @@ center=False framing, the windowed real DFT as one strided conv (the JAX
 package's basis), magnitude sqrt(re^2 + im^2 + 1e-6), the Slaney mel
 filterbank (librosa's defaults, re-derived in numpy) and log(clamp(., 1e-5)).
 
-``istft_multiband`` is torch.istft(center=True) semantics (windowed
-inverse-DFT overlap-add, window-envelope normalization, n_fft//2 trimmed
-at each end) for all subbands in one block-diagonal transposed conv.
+``istft`` is torch.istft(center=True) semantics with ``mode`` "torch"
+(windowed inverse-DFT overlap-add, window-envelope normalization, n_fft//2
+trimmed at each end), or the exported models' OnnxSTFT.inverse with "onnx"
+(the same overlap-add without the envelope normalization).
+``istft_multiband`` computes either for all subbands in one block-diagonal
+transposed conv; ``istft`` is its one-subband case.
 ``mb_decoder_tail_fused`` computes pqmf_synthesis(istft_multiband(...))
 from the raw conv_post activation as ONE transposed conv at the composite
 stride hop*subbands (the JAX package's blocked FIR is a TPU lowering of
@@ -175,31 +178,46 @@ def _safe_envelope(n_fft, hop, win, t, device, dtype):
     return constant(env, dtype=dtype, device=device)
 
 
-def istft_multiband(mag, phase, n_fft: int, hop: int, win: int):
-    """mag/phase: (B, T, sub, n_fft//2+1) -> (B, (T-1)*hop, sub), torch.istft
-    ("torch" mode) semantics."""
+def istft_multiband(mag, phase, n_fft: int, hop: int, win: int, *, mode: str = "torch"):
+    """mag/phase: (B, T, sub, n_fft//2+1) -> (B, (T-1)*hop, sub): torch.istft
+    semantics (``mode`` "torch"), or without the envelope normalization
+    ("onnx")."""
     b, t, sub, _ = mag.shape
     spectra = torch.cat([mag * torch.cos(phase), mag * torch.sin(phase)], dim=-1)
     spectra = spectra.reshape(b, t, sub * (n_fft + 2))
     y = conv_transpose1d(spectra, _multiband_weight(n_fft, win, sub, mag.device, mag.dtype),
                          stride=hop)
-    y = y / _safe_envelope(n_fft, hop, win, t, y.device, y.dtype)[None, :, None]
+    if mode == "torch":
+        y = y / _safe_envelope(n_fft, hop, win, t, y.device, y.dtype)[None, :, None]
     half = n_fft // 2
     return y[:, half: y.shape[1] - half, :]
 
 
+def istft(mag, phase, n_fft: int, hop: int, win: int, *, mode: str = "torch"):
+    """mag/phase: (B, frames, n_fft//2+1) -> waveform (B, (frames-1)*hop):
+    torch.istft(center=True) (``mode`` "torch"), or OnnxSTFT.inverse, the
+    same without the envelope normalization ("onnx", the path baked into
+    the exported models)."""
+    return istft_multiband(mag[:, :, None], phase[:, :, None], n_fft, hop, win,
+                           mode=mode)[..., 0]
+
+
 @lru_cache(maxsize=None)
 def _fused_mb_kernel(n_fft: int, hop: int, win: int, sub: int, taps: int,
-                     cutoff_ratio: float, beta: float):
+                     cutoff_ratio: float, beta: float, mode: str):
     """Composite kernel for iSTFT (stride hop) -> steady-state envelope
-    divide -> PQMF synthesis (zero-stuff x sub + FIR), collapsed into ONE
-    transposed conv of stride hop*sub. Returns (G2 (Kc, C, 1) float32, off)
-    in the JAX layout; the envelope is periodic (period hop) away from the
-    signal edges, so it folds into the kernel per tap phase."""
+    divide ("torch" mode; none for "onnx") -> PQMF synthesis (zero-stuff x
+    sub + FIR), collapsed into ONE transposed conv of stride hop*sub.
+    Returns (G2 (Kc, C, 1) float32, off) in the JAX layout; the envelope is
+    periodic (period hop) away from the signal edges, so it folds into the
+    kernel per tap phase."""
     w1 = _inverse_dft_basis(n_fft, win).T  # w1[j, cc]: iSTFT tap j for spectral channel cc
-    env = _window_envelope_np(n_fft, hop, win, 64)
-    n0 = hop * (-(-(win - hop) // hop))  # first steady hop-aligned pos
-    env_p = env[n0: n0 + hop]
+    if mode == "torch":
+        env = _window_envelope_np(n_fft, hop, win, 64)
+        n0 = hop * (-(-(win - hop) // hop))  # first steady hop-aligned pos
+        env_p = env[n0: n0 + hop]
+    else:
+        env_p = np.ones(hop, np.float32)
 
     _, h_s = pqmf_filters(sub, taps, cutoff_ratio, beta)
     k2 = taps + 1
@@ -220,8 +238,8 @@ def _fused_mb_kernel(n_fft: int, hop: int, win: int, sub: int, taps: int,
 
 
 @lru_cache(maxsize=16)
-def _fused_weight(n_fft, hop, win, sub, taps, cutoff_ratio, beta, device, dtype):
-    g2, off = _fused_mb_kernel(n_fft, hop, win, sub, taps, cutoff_ratio, beta)
+def _fused_weight(n_fft, hop, win, sub, taps, cutoff_ratio, beta, mode, device, dtype):
+    g2, off = _fused_mb_kernel(n_fft, hop, win, sub, taps, cutoff_ratio, beta, mode)
     return constant(np.ascontiguousarray(g2.transpose(1, 2, 0)), dtype=dtype,
                            device=device), off
 
@@ -257,12 +275,12 @@ def _specphase_lanes(n_fft: int, sub: int, device, dtype):
 
 
 def mb_decoder_tail_fused(x, n_fft: int, hop: int, win: int, *, subbands: int, taps: int = 62,
-                          cutoff_ratio: float = 0.15, beta: float = 9.0):
+                          cutoff_ratio: float = 0.15, beta: float = 9.0, mode: str = "torch"):
     """The MB-iSTFT tail after conv_post: x (B, T, sub*(n_fft+2)) ->
     waveform (B, (T-1)*hop*sub, 1). Equals
 
         spec, phase = exp(x4[..., :cutoff]), pi * sin(x4[..., cutoff:])
-        pqmf_synthesis(istft_multiband(spec, phase, ...))
+        pqmf_synthesis(istft_multiband(spec, phase, ..., mode=mode))
 
     (x4 the (B, T, sub, n_fft+2) view) to fp-reassociation tolerance."""
     b, t, _ = x.shape
@@ -273,7 +291,7 @@ def mb_decoder_tail_fused(x, n_fft: int, hop: int, win: int, *, subbands: int, t
     def unfused_4d(x_sl):
         xs = x_sl.reshape(x_sl.shape[0], x_sl.shape[1], subbands, per)
         y_mb = istft_multiband(torch.exp(xs[..., :cutoff]), np.pi * torch.sin(xs[..., cutoff:]),
-                               n_fft, hop, win)
+                               n_fft, hop, win, mode=mode)
         return pqmf_synthesis(y_mb, subbands=subbands, taps=taps,
                               cutoff_ratio=cutoff_ratio, beta=beta)
 
@@ -285,7 +303,7 @@ def mb_decoder_tail_fused(x, n_fft: int, hop: int, win: int, *, subbands: int, t
     spectra = torch.exp(x.index_select(-1, mag_src)) * torch.sin(
         np.pi * torch.sin(x.index_select(-1, phase_src)) + off)
 
-    g2, off_k = _fused_weight(n_fft, hop, win, subbands, taps, cutoff_ratio, beta,
+    g2, off_k = _fused_weight(n_fft, hop, win, subbands, taps, cutoff_ratio, beta, mode,
                               x.device, x.dtype)
     z = conv_transpose1d(spectra, g2, stride=stride)
     out = z[:, off_k: off_k + stride * (t - 1), :]

@@ -17,18 +17,21 @@ as numpy arrays, into the port's layouts once, at load:
 
 A leaf's layout follows from its name and rank: ``"w"`` of rank 2 is a
 Linear (``ada_in``, ``ada_out``, ``bert_proj``, ``time_mlp``, every BERT
-and HuBERT linear); ``"w"`` of shape (1, I, O) a 1x1 conv (DiT
-``q``/``k``/``v``/``o``, ``film``, ``in_proj``, ``final_proj``, encoder
-``proj``, QuickVC's ``enc_p.pre`` over 768 ContentVec features); other
-``"w"`` a Conv1d (``cond_proj``, ``lsc``, the FFN convs, HuBERT's strided
-feature convs, its grouped ``pos_conv`` (K, I/groups, O) -> (O, I/groups,
-K), ms-iSTFT's ``multistream_conv_post`` (63, sub, 1) -> (1, sub, 63)), or
-a ConvTranspose1d under ``ups``; a ``"w"`` of rank 4 a Conv2d (the
-discriminators' period and spectral stacks). An LSTM's ``w_ih`` (I, 4H) and ``w_hh``
+and HuBERT linear, Vocos' ``pw1``/``pw2``/``head``); ``"w"`` of shape
+(1, I, O) a 1x1 conv (DiT ``q``/``k``/``v``/``o``, ``film``, ``in_proj``,
+``final_proj``, encoder ``proj``, the FFT flow's ``cond_layer`` and
+``cond_pre``, QuickVC's ``enc_p.pre`` over 768 ContentVec features);
+other ``"w"`` a Conv1d (``cond_proj``, ``lsc``, the FFN convs, Vocos'
+depthwise ``dwconv`` (7, 1, C) -> (C, 1, 7), BigVGAN's AMP convs,
+HuBERT's strided feature convs, its grouped ``pos_conv`` (K, I/groups, O)
+-> (O, I/groups, K), ms-iSTFT's ``multistream_conv_post`` (63, sub, 1) ->
+(1, sub, 63)), or a ConvTranspose1d under ``ups``; a ``"w"`` of rank 4 a
+Conv2d (the discriminators' period and spectral stacks). An LSTM's ``w_ih`` (I, 4H) and ``w_hh``
 (H, 4H) become torch's (4H, I) and (4H, H), gates in the same i, f, g, o
 order. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
 ``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``,
 ``fake_content``; norm ``gamma``/``beta``, ``gn_gamma``/``gn_beta``;
+Vocos' layer scale ``gamma``; BigVGAN's snake ``alpha``/``beta``;
 biases) keeps its layout. The StableTTS DiT attention's fused qkv
 projection is a layout of that model alone: ``models.stabletts.port_layout``
 makes it from this one.
@@ -37,11 +40,13 @@ The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
 reads it.
 
 :func:`from_port_layout` inverts the conversion for the trees the VITS2
-trainer holds (synthesizer, discriminators, duration discriminator), so
-the port writes generators in the bundle layout that either package loads.
+trainer holds (synthesizer of any variant, discriminators, duration
+discriminator) and for the vocoders, so the port writes them in the bundle
+layout that either package loads.
 
-:func:`synthesizer_init`, :func:`matcha_init`, :func:`hifigan_init`,
-:func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
+:func:`synthesizer_init` (every flow type, duration predictor and
+decoder), :func:`matcha_init`, :func:`hifigan_init`, :func:`vocos_init`,
+:func:`bigvgan_init`, :func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
 :func:`ar_init` and :func:`sovits_init` draw trees in the BUNDLE layout
 (the JAX one) from the same distributions and shapes as the JAX package's
 inits, so a full-width bundle can be made where JAX is absent; their
@@ -61,7 +66,7 @@ import math
 import numpy as np
 import torch
 
-from ..models.vits2 import check_decoder, check_ported
+from ..models.vits2 import check_decoder, check_ported, flow_type
 
 
 def _pack_ddsconv(p):
@@ -123,8 +128,9 @@ def _unpack_ddsconv(p, n_layers: int):
     }
 
 
-# the Linears of the VITS2 trainer's trees: every other rank-2 "w" is a 1x1 conv
-_LINEARS = ("spk_emb", "output")
+# the Linears of the VITS2 trainer's trees and of Vocos: every other rank-2
+# "w" is a 1x1 conv
+_LINEARS = ("spk_emb", "output", "pw1", "pw2", "head")
 
 
 def _restore(node, path):
@@ -150,8 +156,9 @@ def _restore(node, path):
 
 def from_port_layout(tree):
     """Port-layout tree (numpy leaves) -> the JAX bundle layout: the inverse
-    of :func:`to_port_layout` for a VITS2 synthesizer, ``mpmsd_init`` or
-    ``duration_disc_init`` tree (DDSConv stacks unpacked per layer)."""
+    of :func:`to_port_layout` for a VITS2 synthesizer, ``mpmsd_init``,
+    ``duration_disc_init``, HiFiGAN, Vocos or BigVGAN tree (DDSConv stacks
+    unpacked per layer)."""
     return _restore(tree, ())
 
 
@@ -172,13 +179,13 @@ def to_torch(tree, device, dtype=torch.float32):
 def perturb_zero_init(tree, seed: int):
     """Give the zero-initialised projections random values, in place on a
     BUNDLE-layout VITS2 or QuickVC tree: the flow ``post`` convs (std 0.02;
-    ``pre_conv2`` layers or plain couplings) and, where the tree has an SDP,
-    its ConvFlow ``proj`` convs (std 0.2, which spreads the noise-free
-    durations over about 1-6 frames per token, away from the integer edges
-    of the ceil). As initialised they make the flow an identity and the
-    durations independent of every DDSConv output, so a comparison of two
-    implementations would not see attention, the couplings or DDSConv in
-    those paths."""
+    the coupling layers of every flow type and the mono layers) and, where
+    the tree has an SDP, its ConvFlow ``proj`` convs (std 0.2, which
+    spreads the noise-free durations over about 1-6 frames per token, away
+    from the integer edges of the ceil). As initialised they make the flow
+    an identity and the durations independent of every DDSConv output, so
+    a comparison of two implementations would not see attention, the
+    couplings or DDSConv in those paths."""
     rng = np.random.default_rng(seed)
 
     def fill(p, scale):
@@ -187,7 +194,9 @@ def perturb_zero_init(tree, seed: int):
 
     for layer in tree["flow"]["flows"]:
         fill(layer["coupling"]["post"] if "coupling" in layer else layer["post"], 0.02)
-    for key in ("flows", "post_flows") if "dp" in tree else ():
+        if "mono" in layer:
+            fill(layer["mono"]["post"], 0.02)
+    for key in ("flows", "post_flows") if "flows" in tree.get("dp", {}) else ():
         for cf in tree["dp"][key][1:]:
             fill(cf["proj"], 0.2)
     return tree
@@ -216,18 +225,21 @@ def _norm(c):
     return {"gamma": np.ones((c,), np.float32), "beta": np.zeros((c,), np.float32)}
 
 
-def _mha(rng, ch, out, heads, window=4):
+def _mha(rng, ch, out, heads, window=4, proximal_init=False):
     d = ch // heads
     p = {k: _xavier(rng, ch, ch) for k in ("q", "k", "v")}
     p["o"] = _xavier(rng, ch, out)
-    for k in ("emb_rel_k", "emb_rel_v"):
-        p[k] = (rng.standard_normal((1, 2 * window + 1, d)) * d**-0.5).astype(np.float32)
+    if proximal_init:
+        p["k"] = dict(p["q"])
+    if window is not None:
+        for k in ("emb_rel_k", "emb_rel_v"):
+            p[k] = (rng.standard_normal((1, 2 * window + 1, d)) * d**-0.5).astype(np.float32)
     return p
 
 
-def _encoder(rng, hidden, filt, heads, layers, k, gin=0):
+def _encoder(rng, hidden, filt, heads, layers, k, gin=0, window=4):
     p = {
-        "attn": [_mha(rng, hidden, hidden, heads) for _ in range(layers)],
+        "attn": [_mha(rng, hidden, hidden, heads, window) for _ in range(layers)],
         "ffn": [{"c1": _conv(rng, k, hidden, filt), "c2": _conv(rng, k, filt, hidden)}
                 for _ in range(layers)],
         "norm1": [_norm(hidden) for _ in range(layers)],
@@ -247,6 +259,23 @@ def _wn(rng, hidden, k, layers, gin):
     }
     if gin:
         p["cond"] = _conv(rng, 1, gin, 2 * hidden * layers)
+    return p
+
+
+def _fft(rng, hidden, filt, heads, layers, k, gin):
+    """The FFT flow block (``attention.fft_init``): proximal-init
+    windowless attention, causal FFNs, ``cond_layer``/``cond_pre`` where
+    gin > 0."""
+    p = {
+        "attn": [_mha(rng, hidden, hidden, heads, None, proximal_init=True) for _ in range(layers)],
+        "ffn": [{"c1": _conv(rng, k, hidden, filt), "c2": _conv(rng, k, filt, hidden)}
+                for _ in range(layers)],
+        "norm0": [_norm(hidden) for _ in range(layers)],
+        "norm1": [_norm(hidden) for _ in range(layers)],
+    }
+    if gin:
+        p["cond_layer"] = _xavier(rng, gin, 2 * hidden * layers)
+        p["cond_pre"] = _xavier(rng, hidden, 2 * hidden)
     return p
 
 
@@ -405,13 +434,51 @@ def bert_init(cfg, seed: int):
     }
 
 
+def _flow_layer(rng, cfg):
+    """One flow group of ``cfg``'s flow type (vits2 flow_block_init)."""
+    h, half, gin = cfg.hidden_channels, cfg.inter_channels // 2, cfg.gin_channels
+    coupling = lambda: {"pre": _conv(rng, 1, half, h), "enc": _wn(rng, h, 5, 4, gin),
+                        "post": _zeros_conv(h, half)}
+    ftype = flow_type(cfg)
+    if ftype == "pre_conv":
+        return {"pre_transformer": _encoder(rng, half, half, 2, 2, 3, window=None),
+                "pre": _conv(rng, 1, half, h), "enc": _wn(rng, h, 5, 4, gin),
+                "post": _zeros_conv(h, half)}
+    if ftype == "pre_conv2":
+        return {"pre": _conv(rng, 1, half, h), "pre_transformer": _encoder(rng, h, h, 2, 1, 5),
+                "enc": _wn(rng, h, 5, 4, gin), "post": _zeros_conv(h, half)}
+    if ftype == "fft":
+        return {"pre": _conv(rng, 1, half, h), "enc": _fft(rng, h, 768, 4, 1, 5, gin),
+                "post": _zeros_conv(h, half)}
+    if ftype.startswith("mono_layer"):
+        return {"coupling": coupling(),
+                "mono": {"pre_transformer": _encoder(rng, half, half, 2, 2, 3, window=None),
+                         "post": _zeros_conv(half, half)}}
+    return {"coupling": coupling()}
+
+
+def _decoder(rng, cfg):
+    """The generator of ``cfg.decoder_type`` (vits2 generator_init)."""
+    per = cfg.gen_istft_n_fft + 2
+    if cfg.decoder_type == "hifigan":
+        return _generator(rng, cfg, 1)
+    if cfg.decoder_type == "istft":
+        return _generator(rng, cfg, per)
+    if cfg.decoder_type == "mb_istft":
+        return _generator(rng, cfg, cfg.subbands * per)
+    dec = _generator(rng, cfg, cfg.subbands * per, post_bias=True)
+    dec["multistream_conv_post"] = {
+        "w": (rng.standard_normal((63, cfg.subbands, 1)) * 0.01).astype(np.float32), "b": None}
+    return dec
+
+
 def synthesizer_init(cfg, seed: int):
-    """Bundle-layout VITS2 tree for the shipped serving configuration
-    (``pre_conv2`` flows, ``mb_istft`` decoder, SDP)."""
+    """Bundle-layout VITS2 tree of any configuration the serving passes
+    run: every flow type, the SDP or the deterministic duration predictor
+    (``use_sdp``), every decoder."""
     check_ported(cfg)
     rng = np.random.default_rng(seed)
     h, inter, gin = cfg.hidden_channels, cfg.inter_channels, cfg.gin_channels
-    half = inter // 2
     fc, k = 256, 3
 
     enc_p = {
@@ -420,34 +487,80 @@ def synthesizer_init(cfg, seed: int):
                             cfg.kernel_size, gin=cfg.enc_gin_channels),
         "proj": _conv(rng, 1, h, inter * 2),
     }
-
-    dec = _generator(rng, cfg, cfg.subbands * (cfg.gen_istft_n_fft + 2))
-
+    dec = _decoder(rng, cfg)
     enc_q = _posterior(rng, cfg)
-
-    flow = {"flows": [{
-        "pre": _conv(rng, 1, half, h),
-        "pre_transformer": _encoder(rng, h, h, 2, 1, 5),
-        "enc": _wn(rng, h, 5, 4, gin),
-        "post": _zeros_conv(h, half),
-    } for _ in range(cfg.n_flows)]}
-
-    dp = {
-        "pre": _conv(rng, 1, h, fc),
-        "proj": _conv(rng, 1, fc, fc),
-        "convs": _ddsconv(rng, fc, k, 3),
-        "flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
-        "post_pre": _conv(rng, 1, 1, fc),
-        "post_proj": _conv(rng, 1, fc, fc),
-        "post_convs": _ddsconv(rng, fc, k, 3),
-        "post_flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
-    }
-    if gin:
-        dp["cond"] = _conv(rng, 1, gin, fc)
+    flow = {"flows": [_flow_layer(rng, cfg) for _ in range(cfg.n_flows)]}
+    if cfg.use_sdp:
+        dp = {
+            "pre": _conv(rng, 1, h, fc),
+            "proj": _conv(rng, 1, fc, fc),
+            "convs": _ddsconv(rng, fc, k, 3),
+            "flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
+            "post_pre": _conv(rng, 1, 1, fc),
+            "post_proj": _conv(rng, 1, fc, fc),
+            "post_convs": _ddsconv(rng, fc, k, 3),
+            "post_flows": [_affine()] + [_convflow(rng, fc, k) for _ in range(cfg.sdp_n_flows)],
+        }
+        if gin:
+            dp["cond"] = _conv(rng, 1, gin, fc)
+    else:
+        dp = {"conv1": _conv(rng, k, h, fc), "norm1": _norm(fc), "conv2": _conv(rng, k, fc, fc),
+              "norm2": _norm(fc), "proj": _conv(rng, 1, fc, 1)}
+        if gin:
+            dp["cond"] = _conv(rng, 1, gin, h)
 
     p = {"enc_p": enc_p, "dec": dec, "enc_q": enc_q, "flow": flow, "dp": dp}
     if cfg.n_speakers > 1:
         p["emb_g"] = rng.standard_normal((cfg.n_speakers, gin)).astype(np.float32)
+    return p
+
+
+def vocos_init(cfg, seed: int):
+    """Bundle-layout Vocos tree (``vocoder.vocos_init``): the embedding and
+    depthwise convs U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the pointwise and
+    head Linears N(0, 1/I) with zero biases, unit layer norms, layer scale
+    1/num_layers."""
+    rng = np.random.default_rng(seed)
+    d, inter = cfg.dim, cfg.intermediate_dim
+    normal = lambda i, o: {"w": (rng.standard_normal((i, o)) * i**-0.5).astype(np.float32),
+                           "b": np.zeros((o,), np.float32)}
+    return {
+        "embed": _conv(rng, 7, cfg.input_channels, d),
+        "norm": _norm(d),
+        "blocks": [{"dwconv": _conv(rng, 7, 1, d), "norm": _norm(d), "pw1": normal(d, inter),
+                    "pw2": normal(inter, d),
+                    "gamma": np.full((d,), 1.0 / cfg.num_layers, np.float32)}
+                   for _ in range(cfg.num_layers)],
+        "final_norm": _norm(d),
+        "head": normal(d, cfg.n_fft + 2),
+    }
+
+
+def bigvgan_init(cfg, seed: int):
+    """Bundle-layout BigVGAN tree (``bigvgan.bigvgan_init``): convs
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the upsampling transposed convs
+    N(0, 0.01^2) with zero biases, snake ``alpha`` (and ``beta`` for
+    snakebeta) 0 on the log scale, else 1; ``conv_post`` without a bias
+    unless ``use_bias_at_final``."""
+    rng = np.random.default_rng(seed)
+    uic = cfg.upsample_initial_channel
+    act = lambda c: {k: (np.zeros if cfg.snake_logscale else np.ones)((c,), np.float32)
+                     for k in (("alpha", "beta") if cfg.activation == "snakebeta" else ("alpha",))}
+    # "acts" stays empty, as in the JAX tree (the AMP blocks hold theirs)
+    p = {"conv_pre": _conv(rng, 7, cfg.num_mels, uic), "ups": [], "resblocks": [], "acts": []}
+    ch = uic
+    for i, k in enumerate(cfg.upsample_kernel_sizes):
+        cin, ch = uic // 2**i, uic // 2 ** (i + 1)
+        p["ups"].append({"w": (rng.standard_normal((k, cin, ch)) * 0.01).astype(np.float32),
+                         "b": np.zeros((ch,), np.float32)})
+        for kr, dr in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            p["resblocks"].append({"convs1": [_conv(rng, kr, ch, ch) for _ in dr],
+                                   "convs2": [_conv(rng, kr, ch, ch) for _ in dr],
+                                   "acts1": [act(ch) for _ in dr], "acts2": [act(ch) for _ in dr]})
+    p["act_post"] = act(ch)
+    p["conv_post"] = _conv(rng, 7, ch, 1)
+    if not cfg.use_bias_at_final:
+        p["conv_post"]["b"] = None
     return p
 
 
