@@ -134,7 +134,33 @@ result line is printed):
    noise and batch: losses within 1e-3 relative, the largest gradient
    difference of each network printed; the exported G_*.npz written as a
    bundle and served through Model (10 banded attention and 4 DDSConv
-   launches); one bf16 step with finite losses.
+   launches); one bf16 step with finite losses;
+10. StableTTS CFM training (``[train-stabletts]``): a synthetic corpus from
+   the seed (36 utterances of 2-8 s at 22.05 kHz, texts of TEXTS with
+   their phones from the port's G2P as the aligned text, kaldi ``.lab``
+   durations that sum to each mel's frames) and a BertConfig() (12 x 768)
+   bundle with the synthetic vocabulary, at full width (StableTTSConfig(),
+   StableTrainConfig(): accumulate 4, clip 5); train.run_stabletts.main
+   with ``--bert-dir`` for 8 micro-steps (two updates), its STATE_8
+   restored into a fresh state (step, params, AdamW state and accumulated
+   gradients equal), no hand-written kernel launched; micro-steps and
+   optimizer steps at batch 6 by CUDA events, peak memory, one of each
+   under torch.profiler; one accumulation cycle at B2 on the card and on
+   the CPU in f32 and f64 from the same tree and draws
+   (``[train-stabletts-parity]``: losses 1e-3 relative, the applied
+   gradient 1e-2 relative L2 of the f64 step's); the trained tree (the
+   serving layout) synthesises one request through stabletts.synthesise
+   with 68 launches of kernel 3;
+11. QuickVC GAN training (``[train-vc]``): 72 utterances of 3-6 s at 16
+   kHz with ``.cv.npy`` sidecars from a full-width HubertConfig() on the
+   card, at full width (QuickVCConfig(): 641 spectral channels, ms-iSTFT;
+   VCTrainConfig(); batch 64, max_speclen 512); train.run_vc.main for 3
+   steps, its STATE_3 restored into a fresh state, no hand-written kernel
+   launched; steps by CUDA events, peak memory, one under torch.profiler;
+   one B2 step on the card and on the CPU in f32 and f64 with the D
+   learning rate 0 (``[train-vc-parity]``: losses 1e-3 relative, G and D
+   gradients 1e-2 relative L2 of the f64 step's). Each phase prints its
+   wall time.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -173,9 +199,12 @@ from vosk_tts_tpu_torch.ops.stft import mel_spectrogram, spectrogram  # noqa: E4
 from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
 from vosk_tts_tpu_torch.text import Cleaner, multistream_symbol_map, plain_symbol_map  # noqa: E402
-from vosk_tts_tpu_torch.train import run_vits2  # noqa: E402
+from vosk_tts_tpu_torch.text import convert  # noqa: E402
+from vosk_tts_tpu_torch.train import (run_stabletts, run_vc, run_vits2,  # noqa: E402
+                                      stabletts_data, stabletts_train, vc_data, vc_train)
 from vosk_tts_tpu_torch.train import vits2_train as tt  # noqa: E402
-from vosk_tts_tpu_torch.train.data import BucketBatcher, TTSDataset  # noqa: E402
+from vosk_tts_tpu_torch.train.data import BucketBatcher, TTSDataset, load_wav  # noqa: E402
+from vosk_tts_tpu_torch.train.gpt_sovits_data import ShuffleBatcher  # noqa: E402
 from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # noqa: E402
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
@@ -481,13 +510,15 @@ def parity(model, cpu_model, tag="parity"):
         check(errs[k] <= tol, f"{model.device} vs CPU: {k} differs by {errs[k]} > {tol}")
 
 
-def trace(run):
+def trace(run, record_shapes=False):
     """torch.profiler over one call of ``run``: (the device's events by
-    kernel, wall us); no events where the trace holds no device time."""
+    kernel, wall us, the profile); no events where the trace holds no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -496,7 +527,7 @@ def trace(run):
     # spans over kernels, not kernels: counting them would count time twice
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith("Optimizer.")], wall_us
+            and not e.key.startswith("Optimizer.")], wall_us, prof
 
 
 def profile_requests(runs):
@@ -508,7 +539,7 @@ def profile_requests(runs):
     for name, run in runs:
         run()
         torch.cuda.synchronize()
-        kern, wall_us = trace(run)
+        kern, wall_us, _ = trace(run)
         busy_us = sum(e.self_device_time_total for e in kern)
         if not kern:
             print(f"[profile] {name}: no device events in the trace (device time not measured)")
@@ -546,6 +577,17 @@ def vocoder_tree(vocoder):
     return None, hifigan_init(voc.hifigan_v1_config(), seed=SEED + 2)
 
 
+def write_bert(path, bcfg):
+    """A BERT bundle directory (params.npz, config.json, vocab.txt): random
+    weights from the seed and the synthetic WordPiece vocabulary MS_VOCAB."""
+    os.makedirs(path)
+    save_params(os.path.join(path, "params.npz"), bert_init(bcfg, seed=SEED + 3))
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(bcfg), f)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(MS_VOCAB))
+
+
 def write_ms_bundle(path, vocoder="hifigan"):
     """A full-width multistream_v3 bundle: StableTTSConfig(), the
     ``vocoder`` (vocoder_tree) and ruBERT-base-wide BertConfig() with random
@@ -557,12 +599,7 @@ def write_ms_bundle(path, vocoder="hifigan"):
     save_params(os.path.join(path, "params.npz"), {
         "matcha": perturb_matcha_zero_init(matcha_init(cfg, seed=SEED), seed=SEED + 1),
         "vocoder": vtree})
-    os.makedirs(os.path.join(path, "bert"))
-    save_params(os.path.join(path, "bert", "params.npz"), bert_init(bcfg, seed=SEED + 3))
-    with open(os.path.join(path, "bert", "config.json"), "w", encoding="utf-8") as f:
-        json.dump(dataclasses.asdict(bcfg), f)
-    with open(os.path.join(path, "bert", "vocab.txt"), "w", encoding="utf-8") as f:
-        f.write("\n".join(MS_VOCAB))
+    write_bert(os.path.join(path, "bert"), bcfg)
     with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
         json.dump({"model_type": "multistream_v3", "sample_rate": 22050, "hop_length": 256,
                    "vocoder": vocoder, "seed": SEED, "phoneme_id_map": multistream_symbol_map(),
@@ -752,7 +789,7 @@ def serve_phase(tag, model, kernels, requests, n_threads, per_encode, per_decode
         audios, latency, wall = drive(batcher, requests, n_threads)
         got = {name: k.launches for name, k in kernels.items()}
         batches, encodes, groups = list(seen["batches"]), len(seen["enc"]), seen["groups"]
-        kern, busy_wall_us = trace(lambda: drive(batcher, requests, n_threads))
+        kern, busy_wall_us, _ = trace(lambda: drive(batcher, requests, n_threads))
     finally:
         batcher.close()
     check(not batcher._thread.is_alive(), f"[{tag}] the batcher's worker did not stop")
@@ -1476,6 +1513,22 @@ TRAIN_SEED = SEED + 40
 TRAIN_UTTERANCES = 48
 
 
+def write_voice(path, rng, n_samples, sr):
+    """A wav of ``n_samples`` at ``sr`` from ``rng``: five harmonics of a
+    wandering f0 under a syllable-rate envelope, plus noise."""
+    t = np.arange(n_samples) / sr
+    f0 = rng.uniform(90, 220) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 0.8) * t))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 6) * t + rng.uniform(0, 2 * np.pi))
+    x = 0.3 * voiced * env + 0.02 * rng.standard_normal(len(t))
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes((np.clip(x, -1, 1) * 20000).astype(np.int16).tobytes())
+
+
 def write_corpus(root, n=TRAIN_UTTERANCES):
     """n utterances of 2-6 s at 22.05 kHz made from the seed (five harmonics
     of a wandering f0 under a syllable-rate envelope, plus noise), each with
@@ -1484,18 +1537,8 @@ def write_corpus(root, n=TRAIN_UTTERANCES):
     rng = np.random.default_rng(TRAIN_SEED)
     lines = []
     for i in range(n):
-        t = np.arange(int(rng.uniform(2.0, 6.0) * 22050)) / 22050
-        f0 = rng.uniform(90, 220) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 0.8) * t))
-        phase = 2 * np.pi * np.cumsum(f0) / 22050
-        voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
-        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 6) * t + rng.uniform(0, 2 * np.pi))
-        x = 0.3 * voiced * env + 0.02 * rng.standard_normal(len(t))
         path = os.path.join(root, f"u{i:02d}.wav")
-        with wave.open(path, "wb") as f:
-            f.setnchannels(1)
-            f.setsampwidth(2)
-            f.setframerate(22050)
-            f.writeframes((np.clip(x, -1, 1) * 20000).astype(np.int16).tobytes())
+        write_voice(path, rng, int(rng.uniform(2.0, 6.0) * 22050), 22050)
         text = TEXTS[i % len(TEXTS)].replace(" —", ",")  # the G2P has no dash symbol
         lines.append(f"{path}|{(7 * i) % 200}|{text}|{text}")
     with open(os.path.join(root, "meta.csv"), "w", encoding="utf-8") as f:
@@ -1522,10 +1565,13 @@ def train_config(root):
 
 
 def same_state(a, b):
-    """Equal step, parameters and AdamW state (step, moments) of two TrainStates."""
-    if a.step != b.step:
+    """Equal step, parameters, AdamW state (step, moments) and, for the
+    StableTTS trainer, accumulated gradients of two TrainStates."""
+    if a.step != b.step or a.params.keys() != b.params.keys():
         return False
-    for k in tt.NETS:
+    if any(not torch.equal(x, y) for x, y in zip(getattr(a, "acc", []), getattr(b, "acc", []))):
+        return False
+    for k in a.params:
         for x, y in zip(a.params[k].parameters(), b.params[k].parameters()):
             if not torch.equal(x, y):
                 return False
@@ -1733,7 +1779,7 @@ def train_phase(kernels, smi, dev=torch.device("cuda")):
               f"{seg_s * 1e3 / ms:.2f} segment audio s per s ({seg_s:.3f} s a step); "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}; last "
               f"losses { {k: round(v, 4) for k, v in vals.items()} }")
-        kern, wall_us = trace(lambda: step(state, batch, generator=gen))
+        kern, wall_us, _ = trace(lambda: step(state, batch, generator=gen))
         if kern:
             busy_us = sum(e.self_device_time_total for e in kern)
             print(f"[train] profile of one step: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -1794,6 +1840,379 @@ def train_phase(kernels, smi, dev=torch.device("cuda")):
         check(all(np.isfinite(v) for v in vals.values()), f"a bf16 loss is not finite: {vals}")
         del state
     return main_launches, cases
+
+
+# ---------------------------------------------------------------------------
+# 10-11. StableTTS CFM training and QuickVC GAN training at full width
+# ---------------------------------------------------------------------------
+
+STABLE_UTTERANCES = 36
+VC_UTTERANCES = 72
+_WORDS = re.compile(r'([ ,.?!;:"()])')
+
+
+def aligned_text(text):
+    """``text`` with every word replaced by its phones from the port's G2P,
+    joined by underscores (the multistream trainer's pre-aligned text);
+    spaces and punctuation kept."""
+    return "".join(w if w == "" or _WORDS.fullmatch(w) else "_".join(convert(w).split())
+                   for w in _WORDS.split(text.lower()))
+
+
+def write_stabletts_corpus(root, n=STABLE_UTTERANCES):
+    """n utterances of 2-8 s at 22.05 kHz (write_voice), each with one of
+    TEXTS, its aligned phones and a speaker; then each utterance's ``.lab``
+    durations (kaldi lines, a random split of its mel frames over its
+    phone streams, each at least one frame); the metadata ``meta.csv``."""
+    rng = np.random.default_rng(TRAIN_SEED + 10)
+    lines = []
+    for i in range(n):
+        path = os.path.join(root, f"s{i:02d}.wav")
+        write_voice(path, rng, int(rng.uniform(2.0, 8.0) * 22050), 22050)
+        text = TEXTS[i % len(TEXTS)].replace(" —", ",")
+        lines.append(f"{path}|{(5 * i) % 128}|{text}|{aligned_text(text)}")
+    meta = os.path.join(root, "meta.csv")
+    with open(meta, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    ds = stabletts_data.StableTTSDataset(stabletts_data.StableDataConfig(metadata=meta))
+    for i in range(len(ds)):
+        t, frames = ds.text_streams(i)[0].shape[0], ds.mel(i).shape[0]
+        durs = 1 + np.floor(rng.dirichlet(np.ones(t)) * (frames - t)).astype(np.int64)
+        durs[-1] += frames - durs.sum()
+        with open(ds.items[i][0][:-4] + ".lab", "w", encoding="utf-8") as f:
+            f.write("\n".join(f"p {j} {d}" for j, d in enumerate(durs)) + "\n")
+    return meta
+
+
+def profile_step(tag, run, smi):
+    """torch.profiler (shapes recorded) over one call of ``run`` (a train
+    step): wall, device busy share, launches, the top kernels, and the
+    convolutions (forward and backward) with the most device time, by input
+    shapes."""
+    kern, wall_us, prof = trace(run, record_shapes=True)
+    if not kern:
+        print(f"[{tag}] profile: no device events in the trace (device time not measured)")
+        return
+    busy_us = sum(e.self_device_time_total for e in kern)
+    print(f"[{tag}] wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kern)} kernel launches; {smi}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in ("aten::convolution", "aten::convolution_backward")]
+    for e in sorted(convs, key=lambda e: -e.device_time_total)[:4]:
+        print(f"[{tag}]   conv {e.device_time_total / 1e3:8.3f} ms x{e.count:<4d} {e.key} "
+              f"{str(e.input_shapes)[:120]}")
+
+
+def event_ms(run):
+    """(ms between CUDA events around one call of ``run``, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def launches_now(all_kernels):
+    return {n: k.launches for n, k in all_kernels.items()}
+
+
+def zeroed(all_kernels):
+    for k in all_kernels.values():
+        k.launches = 0
+    return {n: 0 for n in all_kernels}
+
+
+def check_losses(tag, got, want, exact=None):
+    """Card losses against the CPU's f32 ones: 1e-3 relative."""
+    rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
+    print(f"[{tag}] losses card {got}, CPU {want}"
+          + (f", CPU f64 {exact}" if exact else "") + f": relative differences {rel} (tol 1e-3)")
+    check(all(np.isfinite(v) for v in got.values()) and all(r <= 1e-3 for r in rel.values()),
+          f"[{tag}] card vs CPU losses differ: {rel}")
+
+
+def check_grads(tag, nets, sides):
+    """Each network's gradients (.grad, all tensors together) on the card
+    against the CPU's f64 step: relative L2 within PARITY_GRAD_L2; the CPU's
+    f32 step's is printed beside it."""
+    card, cpu, f64 = sides
+    for k in nets:
+        e_card, w_card, l2_card = grad_errors(card.params[k], f64.params[k])
+        _, _, l2_cpu = grad_errors(cpu.params[k], f64.params[k])
+        print(f"[{tag}] {k} gradients against the f64 step: relative L2 card {l2_card:.3e} (tol "
+              f"{PARITY_GRAD_L2}), CPU f32 {l2_cpu:.3e}; largest a tensor card {e_card:.3e} "
+              f"({w_card})")
+        check(l2_card <= PARITY_GRAD_L2, f"[{tag}] card {k} gradients differ from the f64 step: "
+              f"relative L2 {l2_card}")
+
+
+def stabletts_parity(mcfg, tcfg, tree, pair, seed, dev):
+    """One accumulation cycle (4 micro-steps) of the B2 batch ``pair`` in f32
+    on the card, in f32 and in f64 on the CPU, from the same tree, draws
+    (the second row takes the CFG fakes) and batch: each micro-step's losses
+    card vs CPU within 1e-3 relative, and the averaged, clipped gradient the
+    cycle applied (.grad) within PARITY_GRAD_L2 of the f64 step's."""
+    rng = np.random.default_rng(seed)
+    t_f = pair["mel"].shape[1]
+    noise = [{"cfg": torch.tensor([[0.5], [0.05]], dtype=torch.float32),
+              "t": torch.tensor(rng.uniform(size=(2, 1, 1)).astype(np.float32)),
+              "z": torch.tensor(rng.standard_normal((2, t_f, mcfg.n_feats)).astype(np.float32))}
+             for _ in range(tcfg.accumulate)]
+    sides, losses, t0 = [], [], time.perf_counter()
+    for device, dtype in ((dev, None), (torch.device("cpu"), None),
+                          (torch.device("cpu"), torch.float64)):
+        state = stabletts_train.init_train_state(mcfg, tcfg, device=device, tree=tree)
+        step = stabletts_train.make_train_step(mcfg, tcfg, compute_dtype=dtype)
+        batch = to_device(pair, device)
+        losses.append([{k: float(v) for k, v in step(state, batch, noise={
+            k: v.to(device) for k, v in nz.items()}).items()} for nz in noise])
+        sides.append(state)
+    print(f"[train-stabletts-parity] one cycle of {tcfg.accumulate} micro-steps, B2 T_x "
+          f"{pair['x'].shape[2]} T_f {t_f}, card f32 vs CPU f32 and f64 (the CPU's and the "
+          f"card's {time.perf_counter() - t0:.1f} s)")
+    for i in range(tcfg.accumulate):
+        check_losses("train-stabletts-parity", losses[0][i], losses[1][i], losses[2][i])
+    check_grads("train-stabletts-parity", ("g",), sides)
+
+
+def train_stabletts_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[train-stabletts]``: run_stabletts at full width on a synthetic
+    corpus (8 micro-steps, two accumulation cycles), STATE_8 restored into a
+    fresh state, timed micro-steps and optimizer steps, profiles, card
+    against CPU over one cycle at B2, the trained tree serving one request
+    through kernel 3."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stabletts-train-") as root:
+        t0 = time.perf_counter()
+        bert_dir = os.path.join(root, "bert")
+        write_bert(bert_dir, bert.BertConfig())
+        meta = write_stabletts_corpus(root)
+        cfg = {"data": {"training_files": meta},
+               "train": {"batch_size": 6, "epochs": 1000, "log_interval": 1,
+                         "save_interval": 10 ** 6, "seed": TRAIN_SEED}}
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        dcfg, mcfg, tcfg = run_stabletts.build_configs(cfg)
+        full = dataclasses.replace(stabletts.StableTTSConfig(), mel_mean=dcfg.mel_mean,
+                                   mel_std=dcfg.mel_std)
+        check(mcfg == full and tcfg == stabletts_train.StableTrainConfig(),
+              f"the training config is not the full-width default: {mcfg} {tcfg}")
+        print(f"[train-stabletts] {STABLE_UTTERANCES} utterances of 2-8 s, their .lab durations "
+              f"and a BertConfig() bundle written in {time.perf_counter() - t0:.1f} s; "
+              f"StableTTSConfig() and StableTrainConfig() (accumulate {tcfg.accumulate}, clip "
+              f"{tcfg.grad_clip}, lr {tcfg.learning_rate}), batch 6")
+        model_dir = os.path.join(root, "model")
+
+        expected = zeroed(all_kernels)
+        t0 = time.perf_counter()
+        args = ["-c", cfg_path, "-m", model_dir, "--bert-dir", bert_dir]
+        state, metrics = run_stabletts.main(args + ["--max-steps", "8"])
+        got = launches_now(all_kernels)
+        check(state.step == 8 and metrics and all(np.isfinite(v) for v in metrics.values()),
+              f"run_stabletts: step {state.step}, metrics {metrics}")
+        print(f"[train-stabletts] run_stabletts --max-steps 8 in {time.perf_counter() - t0:.1f} s "
+              f"(init, BERT rows, mels, 8 micro-steps = 2 updates, save): last {metrics}; "
+              f"launches {got}")
+        check(got == expected, f"[train-stabletts] hand-written kernels launched: {got}")
+        fresh = stabletts_train.init_train_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev)
+        resume_state(model_dir, fresh)
+        check(same_state(state, fresh), "[train-stabletts] STATE_8 did not restore the step, the "
+              "params, the AdamW state and the accumulated gradients")
+        print("[train-stabletts] STATE_8 restored into a fresh state: step, params, AdamW state "
+              "and accumulated gradients equal")
+        del fresh
+
+        bert_fn = run_stabletts.make_bert_fn(bert_dir, dev)
+        ds = stabletts_data.StableTTSDataset(dcfg, bert_fn=bert_fn)
+        batch_np = next(stabletts_data.StableBatcher(ds, 6).epoch(0))
+        batch = to_device(batch_np, dev)
+        b, _, t_x = batch_np["x"].shape
+        t_f = batch_np["mel"].shape[1]
+        audio_s = float(batch_np["mel_lengths"].sum()) * dcfg.hop_length / dcfg.sampling_rate
+        step = stabletts_train.make_train_step(mcfg, tcfg)
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        for _ in range(tcfg.accumulate):
+            step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        expected = zeroed(all_kernels)
+        micro, update = [], []
+        for _ in range(2 * tcfg.accumulate):
+            last = state.step % tcfg.accumulate == tcfg.accumulate - 1
+            ms, out = event_ms(lambda: step(state, batch, generator=gen))
+            (update if last else micro).append(ms)
+            vals = {k: float(v) for k, v in out.items()}
+            check(all(np.isfinite(v) for v in vals.values()), f"a loss is not finite: {vals}")
+        got = launches_now(all_kernels)
+        check(got == expected, f"[train-stabletts] a step launched a hand-written kernel: {got}")
+        cycle = 3 * np.mean(micro) + np.mean(update)
+        print(f"[train-stabletts] B{b} T_x {t_x} T_f {t_f} ({audio_s:.2f} s of mel): micro-step "
+              f"{', '.join(f'{m:.3f}' for m in micro)} ms, optimizer step "
+              f"{', '.join(f'{m:.3f}' for m in update)} ms (CUDA events); a cycle of "
+              f"{tcfg.accumulate} {cycle:.3f} ms: {1e3 * tcfg.accumulate / cycle:.3f} "
+              f"micro-steps/s, {audio_s * 1e3 / np.mean(micro + update):.2f} mel audio s per s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; "
+              f"{smi}; last losses {vals}")
+        profile_step("train-stabletts micro-step", lambda: step(state, batch, generator=gen), smi)
+        for _ in range(tcfg.accumulate - 2):
+            step(state, batch, generator=gen)
+        profile_step("train-stabletts optimizer step", lambda: step(state, batch, generator=gen),
+                     smi)
+
+        tree = state.params["g"].numpy_tree()
+        pair = {k: v[:2] for k, v in batch_np.items()}
+        nx, nf = int(pair["x_lengths"].max()), int(pair["mel_lengths"].max())
+        pair = {**pair, "x": pair["x"][:, :, :nx], "bert": pair["bert"][:, :nx],
+                "durations": pair["durations"][:, :nx], "mel": pair["mel"][:, :nf]}
+        stabletts_parity(mcfg, tcfg, tree, pair, TRAIN_SEED + 2, dev)
+        del tree
+
+        # the trained tree (the serving layout) synthesises one request through kernel 3
+        x, rows = ds.text_streams(0)
+        inputs = (torch.tensor(x.T[None], device=dev), torch.tensor([x.shape[0]], device=dev),
+                  torch.tensor([1], device=dev), torch.tensor(rows[None], device=dev))
+        expected = zeroed(all_kernels) | {"global_attention_rope": 2 * mcfg.n_layers
+                                          + 10 * mcfg.dec_layers}
+        with torch.no_grad():
+            out = stabletts.synthesise(state.params["g"].params, mcfg, *inputs, max_frames=1024,
+                                       n_timesteps=10, generator=gen)
+        torch.cuda.synchronize()
+        got = launches_now(all_kernels)
+        mel = out["mel"]
+        check(mel.shape == (1, 1024, mcfg.n_feats) and bool(torch.isfinite(mel).all())
+              and got == expected, f"[train-stabletts] serving the trained tree: {mel.shape}, "
+              f"launches {got} (expected {expected})")
+        print(f"[train-stabletts] the trained tree served one request through "
+              f"stabletts.synthesise: {int(out['mel_lengths'][0])} frames, launches {got}")
+        del state
+    print(f"[train-stabletts] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def write_vc_corpus(root, dev, n=VC_UTTERANCES):
+    """n utterances of 3-6 s at 16 kHz (write_voice), each with its ``.cv.npy``
+    sidecar: the last hidden state of a full-width HubertConfig() model
+    (random weights from the seed) on the card; the file list ``train.txt``."""
+    hcfg = hubert.HubertConfig()
+    hub = hubert.Hubert(hcfg, to_port_layout(hubert_init(hcfg, seed=SEED + 4))).to(dev)
+    rng = np.random.default_rng(TRAIN_SEED + 20)
+    paths = []
+    for i in range(n):
+        path = os.path.join(root, f"v{i:03d}.wav")
+        write_voice(path, rng, int(rng.uniform(3.0, 6.0) * 16000), 16000)
+        wav, _ = load_wav(path)
+        with torch.inference_mode():
+            c = hub(torch.tensor(wav[None] / 32768.0, device=dev))[0]
+        np.save(path[:-4] + ".cv.npy", c.float().cpu().numpy())
+        paths.append(path)
+    with open(os.path.join(root, "train.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(paths) + "\n")
+    del hub
+    torch.cuda.empty_cache()
+    return os.path.join(root, "train.txt")
+
+
+def vc_parity(mcfg, tcfg, trees, pair, seed, dev):
+    """One step of the B2 batch ``pair`` in f32 on the card, in f32 and in
+    f64 on the CPU, from the same trees, draws and batch, the D learning
+    rate 0 on every side (as ``[train-parity]``): losses card vs CPU within
+    1e-3 relative; G and D gradients within PARITY_GRAD_L2 of the f64 step's."""
+    rng = np.random.default_rng(seed)
+    t = pair["c"].shape[1]
+    noise = {k: torch.tensor(rng.standard_normal((2, t, mcfg.inter_channels)).astype(np.float32))
+             for k in ("posterior_p", "posterior_q")}
+    noise["ids_slice"] = torch.tensor((rng.uniform(size=2) * max(t - mcfg.segment_size + 1, 1)
+                                       ).astype(np.int32))
+    sides, losses, t0 = [], [], time.perf_counter()
+    for device, dtype in ((dev, None), (torch.device("cpu"), None),
+                          (torch.device("cpu"), torch.float64)):
+        state = vc_train.init_train_state(mcfg, tcfg, device=device, trees=trees)
+        for group in state.opt["d"].param_groups:
+            group["lr"] = 0.0
+        step = vc_train.make_train_step(mcfg, tcfg, compute_dtype=dtype)
+        losses.append({k: float(v) for k, v in step(state, to_device(pair, device), noise={
+            k: v.to(device) for k, v in noise.items()}).items()})
+        sides.append(state)
+    print(f"[train-vc-parity] one step, B2 T {t}, card f32 vs CPU f32 and f64 (the CPU's and the "
+          f"card's {time.perf_counter() - t0:.1f} s; D lr 0)")
+    check_losses("train-vc-parity", *losses)
+    check_grads("train-vc-parity", ("g", "d"), sides)
+
+
+def train_vc_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[train-vc]``: run_vc at full width on a synthetic 16 kHz corpus with
+    ContentVec sidecars (3 steps, then STATE_3 restored into a fresh state),
+    timed steps, a profile, card against CPU at B2."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vc-train-") as root:
+        t0 = time.perf_counter()
+        file_list = write_vc_corpus(root, dev)
+        cfg = {"data": {"training_files": file_list, "max_speclen": 512},
+               "train": {"batch_size": 64, "epochs": 1000, "log_interval": 1,
+                         "eval_interval": 10 ** 6, "seed": TRAIN_SEED}}
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        dcfg, mcfg, tcfg = run_vc.build_configs(cfg)
+        check(mcfg == quickvc.QuickVCConfig() and tcfg == vc_train.VCTrainConfig(),
+              f"the training config is not the full-width default: {mcfg} {tcfg}")
+        print(f"[train-vc] {VC_UTTERANCES} utterances of 3-6 s and their HubertConfig() "
+              f".cv.npy written in {time.perf_counter() - t0:.1f} s; QuickVCConfig() "
+              f"({mcfg.spec_channels} spectral channels, {mcfg.decoder_type}) and VCTrainConfig(), "
+              f"batch 64, max_speclen {dcfg.max_speclen}")
+        model_dir = os.path.join(root, "model")
+
+        expected = zeroed(all_kernels)
+        t0 = time.perf_counter()
+        state, metrics = run_vc.main(["-c", cfg_path, "-m", model_dir, "--max-steps", "3"])
+        got = launches_now(all_kernels)
+        check(state.step == 3 and metrics and all(np.isfinite(v) for v in metrics.values()),
+              f"run_vc: step {state.step}, metrics {metrics}")
+        print(f"[train-vc] run_vc --max-steps 3 in {time.perf_counter() - t0:.1f} s (init, "
+              f"spectrograms, 3 steps, save): last {metrics}; launches {got}")
+        check(got == expected, f"[train-vc] hand-written kernels launched: {got}")
+        fresh = vc_train.init_train_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev)
+        resume_state(model_dir, fresh)
+        check(same_state(state, fresh), "[train-vc] STATE_3 did not restore the step, the params "
+              "and the AdamW state")
+        print("[train-vc] STATE_3 restored into a fresh state: step, params and AdamW state equal")
+        del fresh
+
+        batch_np = next(ShuffleBatcher(vc_data.VCDataset(dcfg), 64).epoch(0))
+        batch = to_device(batch_np, dev)
+        b, t = batch_np["c"].shape[:2]
+        seg_s = b * mcfg.segment_size * tcfg.hop_length / tcfg.sampling_rate
+        step = vc_train.make_train_step(mcfg, tcfg)
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        expected = zeroed(all_kernels)
+        times = []
+        for _ in range(3):
+            ms, out = event_ms(lambda: step(state, batch, generator=gen))
+            times.append(ms)
+            vals = {k: float(v) for k, v in out.items()}
+            check(all(np.isfinite(v) for v in vals.values()), f"a loss is not finite: {vals}")
+        got = launches_now(all_kernels)
+        check(got == expected, f"[train-vc] a step launched a hand-written kernel: {got}")
+        ms = float(np.mean(times))
+        print(f"[train-vc] B{b} T {t} (segments of {mcfg.segment_size} frames): a step "
+              f"{', '.join(f'{m:.3f}' for m in times)} ms (CUDA events), mean {ms:.3f}: "
+              f"{1e3 / ms:.3f} steps/s, {seg_s * 1e3 / ms:.2f} segment audio s per s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; {smi}; "
+              f"last losses {vals}")
+        profile_step("train-vc step", lambda: step(state, batch, generator=gen), smi)
+
+        trees = {k: m.numpy_tree() for k, m in state.params.items()}
+        vc_parity(mcfg, tcfg, trees, {k: v[:2] for k, v in batch_np.items()}, TRAIN_SEED + 3, dev)
+        del trees, state
+    print(f"[train-vc] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1997,6 +2416,13 @@ def main() -> int:
 
     # 9. VITS2 GAN training at full width
     train_launches, mas_cases = train_phase(kernels, smi)
+    torch.cuda.empty_cache()
+
+    # 10-11. StableTTS CFM training and QuickVC GAN training at full width
+    train_stabletts_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    train_vc_phase(kernels, smi)
+    torch.cuda.empty_cache()
 
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",

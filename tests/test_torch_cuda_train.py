@@ -11,19 +11,29 @@ imports no JAX, so on a machine with the card and without JAX it runs as
   differentiable routes) and MAS once; the same step on the CPU from the
   same parameters, noise and alignment (the card's) within 1e-3 relative
   in every loss (f32 on both sides, TF32 off, other summation orders);
-* the AdamW moments lie on the card.
+* the AdamW moments lie on the card;
+* a StableTTS micro-step (a cycle of 2, so the second moves the
+  parameters) and a QuickVC GAN step at small widths on the card against
+  the same steps on the CPU from the same parameters, noise and batch:
+  losses within 1e-3 relative, no hand-written kernel launched (both take
+  the dense differentiable routes; the QuickVC step runs the speaker
+  encoder's cuDNN LSTM backward, which its inference mode cannot).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vosk_tts_tpu_torch.models import vits2
+from vosk_tts_tpu_torch.models import quickvc, stabletts, vits2
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
 from vosk_tts_tpu_torch.ops import mas
+from vosk_tts_tpu_torch.train import stabletts_train as st
+from vosk_tts_tpu_torch.train import vc_train as vt
 from vosk_tts_tpu_torch.train import vits2_train as tt
-from vosk_tts_tpu_torch.utils.params import perturb_zero_init, synthesizer_init, to_port_layout
+from vosk_tts_tpu_torch.utils.params import (matcha_init, mpd_init, perturb_matcha_zero_init,
+                                             perturb_zero_init, quickvc_init, synthesizer_init,
+                                             to_port_layout)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +124,78 @@ def test_train_step_on_card(dev):
                                                                      noise=cpu_noise).items()}
     for k, w in want.items():
         assert abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+ALL_KERNELS = (fa.KERNEL, ddf.KERNEL, fa.GLOBAL_ROPE_KERNEL, fa.GLOBAL_PACKED_KERNEL,
+               fa.GLOBAL_KERNEL, mas.KERNEL)
+
+
+def _card_and_cpu(dev, make_state, step_fn, batch, noise, n_steps=1):
+    """The same steps on the card and on the CPU; returns each side's last
+    metrics as floats and the card's kernel launches during its steps."""
+    runs, launches = {}, None
+    for device in (dev, torch.device("cpu")):
+        state = make_state(device)
+        before = [k.launches for k in ALL_KERNELS]
+        for i in range(n_steps):
+            out = step_fn(state, {k: v.to(device) for k, v in batch.items()},
+                          noise={k: v.to(device) for k, v in noise[i].items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            launches = [k.launches - n for k, n in zip(ALL_KERNELS, before)]
+        runs[device.type] = {k: float(v) for k, v in out.items()}
+    return runs["cuda"], runs["cpu"], launches
+
+
+def test_stabletts_micro_steps_on_card(dev):
+    cfg = stabletts.StableTTSConfig(n_spks=3, spk_emb_dim=16, hidden_channels=64,
+                                    filter_channels=128, n_layers=2, phone_emb_dim=32,
+                                    punc_emb_dim=4, bert_dim=32, bert_proj_dim=16, dec_hidden=64,
+                                    dec_filter=128, dec_layers=2)
+    tcfg = st.StableTrainConfig(accumulate=2, learning_rate=1e-3)
+    tree = stabletts.port_layout(perturb_matcha_zero_init(matcha_init(cfg, 0), seed=1))
+    rng = np.random.default_rng(2)
+    b, tx, tf = 2, 24, 96
+    x_len, mel_len = np.array([24, 17]), np.array([96, 70])
+    xm = np.arange(tx)[None] < x_len[:, None]
+    batch = {"x": torch.tensor(rng.integers(1, 200, (b, 5, tx)) * xm[:, None]),
+             "x_lengths": torch.tensor(x_len), "mel": torch.tensor(
+                 rng.standard_normal((b, tf, 80)).astype(np.float32)),
+             "mel_lengths": torch.tensor(mel_len), "sid": torch.tensor([0, 2]),
+             "bert": torch.tensor(rng.standard_normal((b, tx, 32)).astype(np.float32)),
+             "durations": torch.tensor(rng.integers(1, 5, (b, tx)) * xm)}
+    noise = [{"cfg": torch.tensor([[0.5], [0.05]]),  # the second row takes the CFG fakes
+              "t": torch.tensor(rng.uniform(size=(b, 1, 1)).astype(np.float32)),
+              "z": torch.tensor(rng.standard_normal((b, tf, 80)).astype(np.float32))}
+             for _ in range(2)]
+    got, want, launches = _card_and_cpu(
+        dev, lambda d: st.init_train_state(cfg, tcfg, device=d, tree=tree),
+        st.make_train_step(cfg, tcfg), batch, noise, n_steps=2)
+    assert launches == [0] * len(ALL_KERNELS), launches
+    for k, w in want.items():
+        assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+def test_vc_step_on_card(dev):
+    """The speaker encoder's LSTM runs in training mode on the card: cuDNN's
+    backward of its inference mode raises."""
+    cfg = quickvc.QuickVCConfig(segment_size=16, inter_channels=64, hidden_channels=64,
+                                gin_channels=64, upsample_initial_channel=128)
+    tcfg = vt.VCTrainConfig()
+    trees = {"g": to_port_layout(perturb_zero_init(quickvc_init(cfg, 0), seed=1)),
+             "d": to_port_layout(mpd_init(2))}
+    rng = np.random.default_rng(3)
+    b, t = 2, 48
+    batch = {"c": torch.tensor(rng.standard_normal((b, t, 768)).astype(np.float32)),
+             "spec": torch.tensor(np.abs(rng.standard_normal((b, t, 641))).astype(np.float32)),
+             "mel": torch.tensor(rng.standard_normal((b, t, 80)).astype(np.float32) - 4),
+             "wav": torch.tensor((rng.standard_normal((b, t * 320)) * 0.3).astype(np.float32))}
+    noise = [{"posterior_p": torch.tensor(rng.standard_normal((b, t, 64)).astype(np.float32)),
+              "posterior_q": torch.tensor(rng.standard_normal((b, t, 64)).astype(np.float32)),
+              "ids_slice": torch.tensor([5, 30], dtype=torch.int32)}]
+    got, want, launches = _card_and_cpu(
+        dev, lambda d: vt.init_train_state(cfg, tcfg, device=d, trees=trees),
+        vt.make_train_step(cfg, tcfg), batch, noise)
+    assert launches == [0] * len(ALL_KERNELS), launches
+    for k, w in want.items():
+        assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)

@@ -45,7 +45,9 @@ def test_port_imports_no_jax():
 
 _IMPORT_TRAIN = textwrap.dedent("""
     import importlib, sys
-    for name in ("data", "driver_common", "losses", "run_vits2", "vits2_train"):
+    for name in ("data", "driver_common", "losses", "run_vits2", "vits2_train", "stabletts_train",
+                 "stabletts_data", "run_stabletts", "vc_train", "vc_data", "run_vc",
+                 "gpt_sovits_data"):
         importlib.import_module("vosk_tts_tpu_torch.train." + name)
     importlib.import_module("vosk_tts_tpu_torch.models.discriminators")
     print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))

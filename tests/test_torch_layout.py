@@ -1,0 +1,76 @@
+"""The port's layout conversion round trip: ``from_port_layout(to_port_layout(t))
+== t`` (every leaf: path, shape and value) for each tree the port trains, or
+serves through a trainer's checkpoint, from the port's numpy inits at small
+widths; the StableTTS tree also through its fused qkv
+(``stabletts.bundle_layout(stabletts.port_layout(t)) == t``). No JAX here:
+the inits' structures are held to the JAX package's in the trainers' tests.
+"""
+
+import numpy as np
+import pytest
+
+from vosk_tts_tpu_torch.models import stabletts, vits2
+from vosk_tts_tpu_torch.models.quickvc import QuickVCConfig
+from vosk_tts_tpu_torch.utils import params as P
+from vosk_tts_tpu_torch.utils.checkpoint import _flatten
+
+# the shipped VITS2 flags (pre_conv2 flows, SDP, mb_istft, speaker-conditioned
+# encoder) at small widths
+VITS2 = dict(n_vocab=20, spec_channels=80, segment_size=8, inter_channels=32, hidden_channels=32,
+             filter_channels=64, n_layers=2, upsample_initial_channel=64, n_speakers=4,
+             gin_channels=16, n_flows=2, posterior_wn_layers=4)
+QUICKVC = dict(spec_channels=65, segment_size=8, inter_channels=16, hidden_channels=16, ssl_dim=8,
+               gin_channels=16, resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),),
+               upsample_rates=(2,), upsample_initial_channel=32, upsample_kernel_sizes=(4,),
+               n_mel_channels=20)
+MATCHA = dict(n_spks=2, spk_emb_dim=8, hidden_channels=32, filter_channels=64, n_heads=2,
+              n_layers=2, phone_emb_dim=16, punc_emb_dim=2, bert_proj_dim=8, dec_hidden=32,
+              dec_filter=64, dec_layers=2, dec_heads=2)
+
+
+def _matcha():
+    return P.perturb_matcha_zero_init(P.matcha_init(stabletts.StableTTSConfig(**MATCHA), 0), 1)
+
+
+TREES = {
+    "synthesizer": lambda: P.perturb_zero_init(P.synthesizer_init(vits2.VITS2Config(**VITS2), 0), 1),
+    "mpmsd": lambda: P.mpmsd_init(2, (2, 3), (256,)),
+    "duration_disc": lambda: P.duration_disc_init(3, 32, 32, 3),
+    "mpd": lambda: P.mpd_init(4),
+    "quickvc": lambda: P.quickvc_init(QuickVCConfig(**QUICKVC), 5),
+    "matcha": _matcha,
+}
+
+
+def _assert_same(got, want):
+    got, want = _flatten(got), _flatten(want)
+    assert list(got) == list(want)
+    for path, w in want.items():
+        assert got[path].shape == w.shape, (path, got[path].shape, w.shape)
+        np.testing.assert_array_equal(got[path], w, err_msg=path)
+
+
+@pytest.mark.parametrize("name", list(TREES))
+def test_round_trip(name):
+    tree = TREES[name]()
+    port = P.to_port_layout(tree)
+    _assert_same(P.from_port_layout(port), tree)
+
+
+def test_matcha_fused_qkv_round_trip():
+    tree = _matcha()
+    port = stabletts.port_layout(tree)
+    blk = port["decoder"]["blocks"][0]["dit"]["attn"]
+    assert set(blk) == {"qkv", "o"} and blk["qkv"]["w"].shape == (3 * 32, 32)
+    _assert_same(stabletts.bundle_layout(port), tree)
+
+
+def test_layouts_differ_where_they_should():
+    """The round trip is not the identity by accident: the LSTM weights, the
+    Linears and the fused qkv change shape in the port's layout."""
+    q = P.to_port_layout(TREES["quickvc"]())
+    assert q["enc_spk"]["lstm"][1]["w_ih"].shape == (64, 16)  # (4H, I)
+    assert q["enc_spk"]["linear"]["w"].shape == (16, 16)
+    m = stabletts.port_layout(_matcha())
+    assert m["decoder"]["time_mlp"]["l1"]["w"].shape == (64, 32)  # (O, I)
+    assert m["text_encoder"]["bert_proj"]["w"].shape == (8, 768)

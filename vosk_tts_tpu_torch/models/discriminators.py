@@ -1,7 +1,8 @@
-"""GAN discriminators of VITS2 training (vosk_tts_tpu/models/discriminators.py):
-period (DiscriminatorP), scale (DiscriminatorS), multiband spectral
-(DiscriminatorSpec), their MultiPeriodMultiSpec combination, and the
-duration discriminator (variant 2).
+"""GAN discriminators of VITS2 and QuickVC training
+(vosk_tts_tpu/models/discriminators.py): period (DiscriminatorP), scale
+(DiscriminatorS), multiband spectral (DiscriminatorSpec), their
+MultiPeriodMultiSpec combination (VITS2), the MultiPeriod one of S and the
+periods (QuickVC), and the duration discriminator (variant 2).
 
 Weights are in the port's layouts (utils/params.py: Conv2d (O, I, kh, kw),
 Conv1d (O, I/groups, K)). The waveform discriminators run channels-first,
@@ -104,12 +105,18 @@ def mpmsd_apply(params, y, y_hat, periods, spec_ffts):
     wav = torch.cat([y, y_hat], dim=0)
     runs = [disc_s_apply(params["s"], wav)]
     runs += [disc_p_apply(pp, wav, p) for p, pp in zip(periods, params["p"])]
-    runs += [disc_spec_apply(sp, wav, n) for n, sp in zip(spec_ffts, params["spec"])]
+    runs += [disc_spec_apply(sp, wav, n) for n, sp in zip(spec_ffts, params.get("spec", ()))]
     y_d_rs = [o[:b] for o, _ in runs]
     y_d_gs = [o[b:] for o, _ in runs]
     fmap_rs = [[f[:b] for f in fm] for _, fm in runs]
     fmap_gs = [[f[b:] for f in fm] for _, fm in runs]
     return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+def mpd_apply(params, y, y_hat):
+    """MultiPeriodDiscriminator (S, then periods 2/3/5/7/11): as
+    :func:`mpmsd_apply` without the spectral discriminators."""
+    return mpmsd_apply(params, y, y_hat, PERIODS, ())
 
 
 def duration_disc_apply(params, x, x_mask, dur_r, dur_hat):

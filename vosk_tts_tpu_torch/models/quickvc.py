@@ -10,6 +10,7 @@ channels-last.
 The posterior encoder, flows and generator are models/vits2.py's, on the
 VITS2 configuration ``QuickVCConfig.as_vits2`` gives. ContentVec itself
 is models/hubert.py; ``pipelines.convert_voice`` joins the two.
+:func:`forward_train` is the training forward (train/vc_train.py).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..ops.commons import rand_slice_segments
 from . import vits2
 from .tree import TreeModule
 
@@ -75,15 +77,17 @@ class QuickVCConfig:
 PARTIAL_FRAMES, PARTIAL_HOP = 128, 64  # embed_utterance's slices
 
 
-def speaker_encoder_apply(params, mels: torch.Tensor) -> torch.Tensor:
+def speaker_encoder_apply(params, mels: torch.Tensor, *, train: bool = False) -> torch.Tensor:
     """mels: (B, T, n_mel) -> L2-normalised embedding (B, emb): the LSTM
     stack (torch's gate order i, f, g, o, as in the bundle), ReLU of the
-    projection of the last layer's final hidden state."""
+    projection of the last layer's final hidden state. ``train`` runs the
+    LSTM in its training mode (dropout 0, so the same numbers), the one
+    whose backward cuDNN runs; serving uses its inference mode."""
     layers = params["lstm"]
     weights = [w for layer in layers for w in (layer["w_ih"], layer["w_hh"], layer["b_ih"],
                                                layer["b_hh"])]
     h0 = mels.new_zeros(len(layers), mels.shape[0], layers[0]["w_hh"].shape[1])
-    _, h_last, _ = torch.lstm(mels, (h0, h0), weights, True, len(layers), 0.0, False, False, True)
+    _, h_last, _ = torch.lstm(mels, (h0, h0), weights, True, len(layers), 0.0, train, False, True)
     e = torch.relu(F.linear(h_last[-1], params["linear"]["w"], params["linear"]["b"]))
     return e / torch.linalg.vector_norm(e, dim=1, keepdim=True)
 
@@ -99,6 +103,36 @@ def embed_utterance(params, mel: torch.Tensor) -> torch.Tensor:
     stack = torch.stack([mel[0, s: s + PARTIAL_FRAMES] for s in starts]
                         + [mel[0, t - PARTIAL_FRAMES:]])
     return speaker_encoder_apply(params, stack).mean(dim=0, keepdim=True)
+
+
+def forward_train(params, cfg: QuickVCConfig, c, spec, mel, *, generator=None, noise=None):
+    """The training forward. c: (B, T, ssl_dim) ContentVec features; spec:
+    (B, T, spec_channels) linear spectrogram; mel: (B, T, n_mel) for the
+    speaker embedding (the LSTM in training mode); every row full length.
+    The content posterior (prior stats m_p, logs_p), the spectral posterior
+    under the embedding, the flow forward, and the generator on a random
+    ``segment_size``-frame slice of z. ``noise`` {"posterior_p",
+    "posterior_q" (B, T, inter_channels) normal, "ids_slice" (B,) int} pins
+    the draws; else they come from ``generator``. Returns wav (B,
+    segment * 320, 1), wav_mb, ids_slice, spec_mask, z, z_p, m_p, logs_p,
+    m_q, logs_q."""
+    noise = noise or {}
+    full = lambda a: torch.full((a.shape[0],), a.shape[1], dtype=torch.int32, device=a.device)
+    g = speaker_encoder_apply(params["enc_spk"], mel, train=True)[:, None, :]
+    v = cfg.as_vits2()
+    _, m_p, logs_p, _ = vits2.posterior_apply(
+        params["enc_p"], cfg.as_vits2(spec_channels=cfg.ssl_dim, gin=0), c, full(c),
+        generator=generator, noise=noise.get("posterior_p"))
+    lengths = full(spec)
+    z, m_q, logs_q, spec_mask = vits2.posterior_apply(params["enc_q"], v, spec, lengths, g,
+                                                      generator=generator,
+                                                      noise=noise.get("posterior_q"))
+    z_p = vits2.flow_block_apply(params["flow"], v, z, spec_mask, g, reverse=False)
+    z_slice, ids = rand_slice_segments(z, lengths, cfg.segment_size, generator=generator,
+                                       ids=noise.get("ids_slice"))
+    o, o_mb = vits2.generator_apply(params["dec"], v, z_slice, g)
+    return {"wav": o, "wav_mb": o_mb, "ids_slice": ids, "spec_mask": spec_mask, "z": z,
+            "z_p": z_p, "m_p": m_p, "logs_p": logs_p, "m_q": m_q, "logs_q": logs_q}
 
 
 def infer(params, cfg: QuickVCConfig, c, tgt_mel, *, generator=None, noise=None):

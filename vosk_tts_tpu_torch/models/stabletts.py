@@ -16,8 +16,13 @@ query rows there are zeroed by the block, as in the JAX package.
 
 Frame shapes are bucketed as in the JAX package (``max_frames``) so that
 both packages see the same shapes. The ODE's noise ``z`` may be passed in;
-otherwise it comes from an explicit ``torch.Generator``. Training
-functions (losses, forward_train) are not ported.
+otherwise it comes from an explicit ``torch.Generator``.
+
+Training (:func:`forward_train`: the duration loss and the CFM loss with
+classifier-free-guidance dropout) takes the dense differentiable route of
+the attention (``flash=False``: the JAX package's einsum path, query x key
+masked at -finfo.max); the kernel has no backward. ``noise=`` pins its
+draws, as ``vits2.forward_train``'s does.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from ..ops import flash_attention as fa
 from ..ops.commons import generate_path, sequence_mask
 from ..ops.conv import conv1d
-from ..utils.params import to_port_layout
+from ..utils.params import from_port_layout, to_port_layout
 from .tree import TreeModule
 
 
@@ -90,14 +95,32 @@ def fuse_qkv(attn):
     return {"qkv": {"w": cat("w"), "b": cat("b")}, "o": attn["o"]}
 
 
+def _dit_blocks(tree):
+    te, dec = tree["text_encoder"], tree["decoder"]
+    return te["encoder"]["blocks"] + te["dp_encoder"]["blocks"] + [b["dit"] for b in dec["blocks"]]
+
+
 def port_layout(tree):
     """Bundle-layout ``matcha`` tree (numpy leaves) -> the port's layout:
     utils/params.to_port_layout, then every DiT block's attention fused by
     :func:`fuse_qkv`."""
     out = to_port_layout(tree)
-    te, dec = out["text_encoder"], out["decoder"]
-    for blk in te["encoder"]["blocks"] + te["dp_encoder"]["blocks"] + [b["dit"] for b in dec["blocks"]]:
+    for blk in _dit_blocks(out):
         blk["attn"] = fuse_qkv(blk["attn"])
+    return out
+
+
+def bundle_layout(tree):
+    """The inverse of :func:`port_layout` (a port-layout tree, or its
+    gradients, in the JAX package's layout): utils/params.from_port_layout,
+    which gives each fused qkv as one (1, C, 3C) 1x1 conv, then that conv
+    split into q, k and v."""
+    out = from_port_layout(tree)
+    for blk in _dit_blocks(out):
+        qkv = blk["attn"].pop("qkv")
+        ws, bs = np.split(qkv["w"], 3, axis=-1), np.split(qkv["b"], 3)
+        blk["attn"] = {**{n: {"w": np.ascontiguousarray(w), "b": np.ascontiguousarray(b)}
+                          for n, w, b in zip("qkv", ws, bs)}, **blk["attn"]}
     return out
 
 
@@ -106,13 +129,29 @@ def port_layout(tree):
 # ---------------------------------------------------------------------------
 
 
-def dit_mha_apply(params, x: torch.Tensor, kv_len: torch.Tensor, *, n_heads: int) -> torch.Tensor:
+def dit_mha_apply(params, x: torch.Tensor, kv_len: torch.Tensor, *, n_heads: int,
+                  flash: bool = True) -> torch.Tensor:
     """x: (B, T, C); kv_len: (B,) int32 valid prefix. One fused qkv
-    projection, the global RoPE attention kernel, the o projection."""
-    dk = x.shape[-1] // n_heads
+    projection, the attention, the o projection. ``flash``: the global
+    RoPE attention kernel (keys at or past kv_len masked); else the dense
+    differentiable route of the JAX package's f32 path (q and k roped, the
+    scores masked query x key at -finfo.max, so a padded query row attends
+    uniformly)."""
+    b, t, c = x.shape
+    dk = c // n_heads
     qkv = F.linear(x, params["qkv"]["w"], params["qkv"]["b"])  # (B, T, 3C)
-    out = fa.global_flash_attention_rope(qkv, kv_len, n_heads=n_heads, sm_scale=1.0 / math.sqrt(dk),
-                                         d_rope=d_rope_of(dk))
+    if flash:
+        out = fa.global_flash_attention_rope(qkv, kv_len, n_heads=n_heads,
+                                             sm_scale=1.0 / math.sqrt(dk), d_rope=d_rope_of(dk))
+    else:
+        q, k, v = (a.reshape(b, t, n_heads, dk).transpose(1, 2) for a in qkv.split(c, dim=-1))
+        q, k = rope(q, d_rope_of(dk)), rope(k, d_rope_of(dk))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
+        valid = sequence_mask(kv_len, t)
+        pair = valid[:, None, :, None] & valid[:, None, None, :]
+        # the JAX package adds -finfo.max there, which any score rounds to
+        scores = scores.masked_fill(~pair, -torch.finfo(scores.dtype).max)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v).transpose(1, 2).reshape(b, t, c)
     return F.linear(out, params["o"]["w"], params["o"]["b"])
 
 
@@ -127,8 +166,10 @@ def _kv_len(x_mask):
     return x_mask[..., 0].sum(dim=1).to(torch.int32)
 
 
-def dit_block_apply(params, x, c, x_mask, *, n_heads: int, kernel_size: int, kv_len=None):
-    """DiTConVBlock. x: (B, T, C); c: (B, gin); x_mask: (B, T, 1)."""
+def dit_block_apply(params, x, c, x_mask, *, n_heads: int, kernel_size: int, kv_len=None,
+                    flash: bool = True):
+    """DiTConVBlock. x: (B, T, C); c: (B, gin); x_mask: (B, T, 1); ``flash``
+    as in :func:`dit_mha_apply`."""
     if kv_len is None:
         kv_len = _kv_len(x_mask)
     x = x * x_mask
@@ -139,35 +180,43 @@ def dit_block_apply(params, x, c, x_mask, *, n_heads: int, kernel_size: int, kv_
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[:, None, :].chunk(6, dim=-1)
     norm = lambda v: F.layer_norm(v, v.shape[-1:], eps=1e-5)
     a = dit_mha_apply(params["attn"], norm(x) * (1 + scale_msa) + shift_msa, kv_len,
-                      n_heads=n_heads)
+                      n_heads=n_heads, flash=flash)
     x = x + gate_msa * a * x_mask
     f = dit_ffn_apply(params["mlp"], norm(x) * (1 + scale_mlp) + shift_mlp, x_mask,
                       kernel_size=kernel_size)
     return x + gate_mlp * f
 
 
-def dit_encoder_apply(params, x, c, x_mask, *, n_heads: int, kernel_size: int):
+def dit_encoder_apply(params, x, c, x_mask, *, n_heads: int, kernel_size: int,
+                      flash: bool = True):
     kv_len = _kv_len(x_mask)
     for blk in params["blocks"]:
         x = dit_block_apply(blk, x, c, x_mask, n_heads=n_heads, kernel_size=kernel_size,
-                            kv_len=kv_len)
+                            kv_len=kv_len, flash=flash)
     mu = F.linear(x, params["proj"]["w"], params["proj"]["b"]) * x_mask
     return x, mu
 
 
-def text_encoder_apply(params, cfg: StableTTSConfig, x, x_lengths, spks, dur_spks, bert):
-    """x: (B, 5, T) int; bert: (B, T, bert_dim). Returns (x_cat, mu_mel,
-    mu_dp, x_mask)."""
+def _text_embed(params, cfg: StableTTSConfig, x, x_lengths, bert):
+    """The 5-stream embedding (phone, 4 punctuation streams, projected
+    BERT) -> (x_cat (B, T, hidden), x_mask (B, T, 1))."""
     x = x.long()
     x0 = params["emb"][x[:, 0]] * math.sqrt(cfg.phone_emb_dim)
     puncs = [params["punc_emb"][x[:, i]] * math.sqrt(cfg.punc_emb_dim) for i in range(1, 5)]
     br = F.linear(bert, params["bert_proj"]["w"], params["bert_proj"]["b"])
     xc = torch.cat([x0, *puncs, br], dim=-1)
-    x_mask = sequence_mask(x_lengths, xc.shape[1]).to(xc.dtype)[..., None]
-    _, mu_mel = dit_encoder_apply(params["encoder"], xc, spks, x_mask,
-                                  n_heads=cfg.n_heads, kernel_size=cfg.kernel_size)
-    _, mu_dp = dit_encoder_apply(params["dp_encoder"], xc, dur_spks, x_mask,
-                                 n_heads=cfg.n_heads, kernel_size=cfg.kernel_size)
+    return xc, sequence_mask(x_lengths, xc.shape[1]).to(xc.dtype)[..., None]
+
+
+def text_encoder_apply(params, cfg: StableTTSConfig, x, x_lengths, spks, dur_spks, bert, *,
+                       flash: bool = True):
+    """x: (B, 5, T) int; bert: (B, T, bert_dim). Returns (x_cat, mu_mel,
+    mu_dp, x_mask)."""
+    xc, x_mask = _text_embed(params, cfg, x, x_lengths, bert)
+    _, mu_mel = dit_encoder_apply(params["encoder"], xc, spks, x_mask, n_heads=cfg.n_heads,
+                                  kernel_size=cfg.kernel_size, flash=flash)
+    _, mu_dp = dit_encoder_apply(params["dp_encoder"], xc, dur_spks, x_mask, n_heads=cfg.n_heads,
+                                 kernel_size=cfg.kernel_size, flash=flash)
     return xc, mu_mel, mu_dp, x_mask
 
 
@@ -199,10 +248,12 @@ def cond_proj_apply(params, cfg: StableTTSConfig, mu):
     return m
 
 
-def decoder_apply(params, cfg: StableTTSConfig, x, mask, mu, t, c, *, cond=None):
+def decoder_apply(params, cfg: StableTTSConfig, x, mask, mu, t, c, *, cond=None,
+                  flash: bool = True):
     """Velocity estimator. x: (B, T, n_feats); mask: (B, T, 1); mu: (B, T,
     hidden_channels); t: (B,); c: (B, spk_emb_dim); cond: the precomputed
-    :func:`cond_proj_apply` of mu (computed here when None)."""
+    :func:`cond_proj_apply` of mu (computed here when None); ``flash`` as in
+    :func:`dit_mha_apply`."""
     h = cfg.dec_hidden
     te = _time_embedding(t, h).to(mu.dtype)
     te = F.silu(F.linear(te, params["time_mlp"]["l1"]["w"], params["time_mlp"]["l1"]["b"]))
@@ -224,7 +275,7 @@ def decoder_apply(params, cfg: StableTTSConfig, x, mask, mu, t, c, *, cond=None)
         gb = F.linear(te, blk["film"]["film"]["w"], blk["film"]["film"]["b"])[:, None, :]
         x = (gb[..., :h] * x + gb[..., h:]) * mask
         x = dit_block_apply(blk["dit"], x, c, mask, n_heads=cfg.dec_heads,
-                            kernel_size=cfg.dec_kernel, kv_len=kv_len)
+                            kernel_size=cfg.dec_kernel, kv_len=kv_len, flash=flash)
     out = F.linear(x * mask, params["final_proj"]["w"], params["final_proj"]["b"])
     return out * mask
 
@@ -370,6 +421,86 @@ def synthesise(params, cfg: StableTTSConfig, x, x_lengths, spks_id, bert, *, max
                                  n_timesteps=n_timesteps, temperature=temperature,
                                  guidance_scale=guidance_scale, solver=solver, z=z,
                                  generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Training: the CFM and duration losses (flow_matching.py, duration_predictors.py)
+# ---------------------------------------------------------------------------
+
+CFM_T_MAX = 0.98  # the CFM loss's time cut
+MAX_PHONE_DUR = 50  # the duration rows of dp_out_channels
+BOUNDARY_DUR = 10.0  # the duration the loss pins at BOS and at the sentence end
+
+
+def cfm_loss(params, cfg: StableTTSConfig, x1, mask, mu, spks, *, generator=None, noise=None):
+    """OT-CFM: the MSE of the decoder's velocity against x1 - z at
+    y = (1 - t) z + t x1, t = 1 - cos(u * 0.98 * pi/2), on the dense
+    attention route. ``noise`` {"t": u (B, 1, 1) uniform, "z": (B, T,
+    n_feats) normal, other keys unread} pins the draws; else they come from
+    ``generator``."""
+    b = x1.shape[0]
+    if noise is None:
+        noise = {"t": torch.rand((b, 1, 1), generator=generator, device=x1.device, dtype=x1.dtype),
+                 "z": torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)}
+    t = 1.0 - torch.cos(noise["t"] * CFM_T_MAX * 0.5 * math.pi)
+    z = noise["z"]
+    y = (1 - t) * z + t * x1
+    est = decoder_apply(params["decoder"], cfg, y, mask, mu, t[:, 0, 0], spks, flash=False)
+    return torch.sum(((est - (x1 - z)) * mask) ** 2) / (torch.sum(mask) * cfg.n_feats)
+
+
+def duration_loss(mu_dp, durations, x_mask, x_lengths):
+    """The StyleTTS duration loss: a row's log-L1 of the sigmoid-sum
+    duration plus 10 x the BCE against the target's duration row (columns
+    below the duration set), averaged over valid phones, then over the
+    batch. mu_dp: (B, T, 50) logits; durations (B, T) frames, clipped to
+    [1, 49], pinned to 10 at BOS and at x_lengths - 2."""
+    m = x_mask[..., 0]
+    dur = torch.floor(durations.clamp(max=MAX_PHONE_DUR - 1)).clamp(min=1)
+    idx = torch.arange(dur.shape[1], device=dur.device)[None, :]
+    dur = torch.where((idx == 0) | (idx == (x_lengths - 2)[:, None]), BOUNDARY_DUR, dur)
+    cols = torch.arange(mu_dp.shape[-1], device=mu_dp.device)
+    trg = (cols[None, None, :] < dur[..., None]).to(mu_dp.dtype)
+    dur_pred = torch.sigmoid(mu_dp).sum(dim=-1).clamp(min=1)
+    denom = m.sum(dim=1).clamp(min=1)
+    l1 = (torch.abs(torch.log(dur_pred) - torch.log(dur)) * m).sum(dim=1) / denom
+    bce = -trg * F.logsigmoid(mu_dp) - (1.0 - trg) * F.logsigmoid(-mu_dp)  # optax's sigmoid BCE
+    bce = (bce * m[..., None]).sum(dim=(1, 2)) / (denom * mu_dp.shape[-1])
+    return l1.mean() + 10.0 * bce.mean()
+
+
+def forward_train(params, cfg: StableTTSConfig, x, x_lengths, y, y_lengths, spks_id, bert,
+                  durations, *, cfg_dropout: float = 0.1, generator=None, noise=None):
+    """The training forward on the given durations: the duration encoder's
+    loss, the alignment from the durations, classifier-free-guidance dropout
+    (a row's speaker and content replaced by the learned fakes) and the CFM
+    loss, all on the dense attention route. y: (B, T_f, n_feats) normalised
+    mel; durations: (B, T) frames. ``noise`` {"cfg": (B, 1) uniform, "t",
+    "z" as in :func:`cfm_loss`} pins the draws; else they come from
+    ``generator``. Returns {"dur_loss", "diff_loss", "attn" (B, T_f, T)}.
+    The mel encoder's output is not read by either loss, so it is not run
+    (its gradient is 0)."""
+    sid = spks_id.long()
+    spks, dur_spks = params["spk_emb"][sid], params["dur_spk_emb"][sid]
+    te = params["text_encoder"]
+    xc, x_mask = _text_embed(te, cfg, x, x_lengths, bert)
+    _, mu_dp = dit_encoder_apply(te["dp_encoder"], xc, dur_spks, x_mask, n_heads=cfg.n_heads,
+                                 kernel_size=cfg.kernel_size, flash=False)
+    y_mask = sequence_mask(y_lengths, y.shape[1]).to(x_mask.dtype)[..., None]
+    attn = generate_path(durations.to(x_mask.dtype), x_mask[..., 0], y_mask[..., 0])
+    logw_ = attn.sum(dim=1) * x_mask[..., 0]
+    dur_loss = duration_loss(mu_dp, logw_, x_mask, x_lengths)
+    mu_y = torch.bmm(attn, xc)
+
+    b = y.shape[0]
+    u = (noise["cfg"] if noise is not None
+         else torch.rand((b, 1), generator=generator, device=y.device, dtype=y.dtype))
+    keep = (u > cfg_dropout).to(y.dtype)
+    spks = spks * keep + (1 - keep) * params["fake_speaker"]
+    fake_mu = params["fake_content"][0, :, 0][None, None, :]
+    mu_y = mu_y * keep[..., None] + (1 - keep[..., None]) * fake_mu
+    diff_loss = cfm_loss(params, cfg, y, y_mask, mu_y, spks, generator=generator, noise=noise)
+    return {"dur_loss": dur_loss, "diff_loss": diff_loss, "attn": attn}
 
 
 class Matcha(TreeModule):

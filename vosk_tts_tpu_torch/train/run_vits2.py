@@ -22,7 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import time
 
 import torch
 
@@ -32,7 +31,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.params import from_port_layout
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
-from .driver_common import format_metrics, log, resume_state, to_device
+from .driver_common import log, resume_state, save_state, train_loop
 
 
 def build_configs(cfg: dict):
@@ -73,10 +72,9 @@ def build_configs(cfg: dict):
 
 
 def save(model_dir: str, state: T.TrainState, epoch: int) -> None:
-    ckpt.save_full_state(model_dir, "STATE", state.step, {**state.state_dict(), "epoch": epoch})
+    save_state(model_dir, state, epoch)
     ckpt.save_train_state(model_dir, "G", state.step,
                           from_port_layout(state.params["g"].numpy_tree()))
-    log.info("saved checkpoint at step %d", state.step)
 
 
 def main(argv=None):
@@ -120,37 +118,19 @@ def main(argv=None):
         for k, m in state.params.items():
             m.load_state_dict(pre[f"params_{k}"])
         log.info("finetuning from %s", args.finetune)
-    start_epoch = start_epoch or 0
-    frozen_dur = ({k: v.detach().clone() for k, v in state.params["dur"].state_dict().items()}
-                  if args.finetune and "dur" in state.params else None)
 
-    step_fn = T.make_train_step(mcfg, tcfg)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    cut = args.max_steps is not None and state.step >= args.max_steps
-    epoch, metrics = start_epoch, {}
-    for epoch in range(start_epoch, epochs):
-        if cut:
-            break
-        T.set_lr(state, T.lr_at_epoch(tcfg, epoch))
-        t_epoch = time.time()
-        for batch in batcher.epoch(epoch):
-            metrics = step_fn(state, to_device(batch, device), generator=generator)
-            if frozen_dur is not None:
-                state.params["dur"].load_state_dict(frozen_dur)
-            if state.step % log_interval == 0:
-                log.info("epoch %d step %d %s", epoch, state.step, format_metrics(metrics))
-            if state.step % save_interval == 0:
-                save(args.model_dir, state, epoch)
-            cut = args.max_steps is not None and state.step >= args.max_steps
-            if cut:
-                break
-        log.info("epoch %d done in %.1f s", epoch, time.time() - t_epoch)
-        if cut:
-            break
-    else:
-        epoch = epochs
-    save(args.model_dir, state, epoch)  # a run cut by --max-steps saves the epoch it was in
-    return state, format_metrics(metrics) if metrics else {}
+    after_step = None
+    if args.finetune and "dur" in state.params:
+        frozen = {k: v.detach().clone() for k, v in state.params["dur"].state_dict().items()}
+        after_step = lambda st: st.params["dur"].load_state_dict(frozen)
+    metrics = train_loop(model_dir=args.model_dir, state=state,
+                         step_fn=T.make_train_step(mcfg, tcfg), batcher=batcher, epochs=epochs,
+                         device=device, start_epoch=start_epoch or 0, log_interval=log_interval,
+                         save_interval=save_interval, max_steps=args.max_steps,
+                         generator=torch.Generator(device=device).manual_seed(seed), save=save,
+                         set_lr=lambda st, epoch: T.set_lr(st, T.lr_at_epoch(tcfg, epoch)),
+                         after_step=after_step)
+    return state, metrics
 
 
 if __name__ == "__main__":

@@ -70,12 +70,14 @@ NETS = ("g", "d", "dur")
 class TrainState:
     """The networks (``params["g"]``, ``["d"]`` and, with the duration
     discriminator, ``["dur"]``: trainable TreeModules), their optimizers
-    (``opt``, same keys) and the step count. Updated in place by a step."""
+    (``opt``, same keys, each ``make_opt(parameters, tcfg)``) and the step
+    count. Updated in place by a step; the StableTTS and QuickVC trainers
+    hold theirs in one too."""
 
-    def __init__(self, tcfg: TrainConfig, trees: dict, device):
+    def __init__(self, tcfg, trees: dict, device, make_opt=make_optimizer):
         self.params = {k: TreeModule(t, trainable=True).to(device)
                        for k, t in trees.items() if t is not None}
-        self.opt = {k: make_optimizer(m.parameters(), tcfg) for k, m in self.params.items()}
+        self.opt = {k: make_opt(m.parameters(), tcfg) for k, m in self.params.items()}
         self.step = 0
 
     def state_dict(self) -> dict:

@@ -39,10 +39,11 @@ makes it from this one.
 The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
 reads it.
 
-:func:`from_port_layout` inverts the conversion for the trees the VITS2
-trainer holds (synthesizer of any variant, discriminators, duration
-discriminator) and for the vocoders, so the port writes them in the bundle
-layout that either package loads.
+:func:`from_port_layout` inverts the conversion for the trees the trainers
+hold (a VITS2 synthesizer of any variant, the discriminators, the duration
+discriminator, QuickVC, StableTTS) and for the vocoders, so the port writes
+them, and compares their gradients, in the bundle layout that either
+package loads.
 
 :func:`synthesizer_init` (every flow type, duration predictor and
 decoder), :func:`matcha_init`, :func:`hifigan_init`, :func:`vocos_init`,
@@ -128,9 +129,10 @@ def _unpack_ddsconv(p, n_layers: int):
     }
 
 
-# the Linears of the VITS2 trainer's trees and of Vocos: every other rank-2
-# "w" is a 1x1 conv
-_LINEARS = ("spk_emb", "output", "pw1", "pw2", "head")
+# the Linears of the trained trees (VITS2 and its discriminators, StableTTS,
+# QuickVC's speaker encoder) and of Vocos: every other rank-2 "w" is a 1x1 conv
+_LINEARS = ("spk_emb", "output", "pw1", "pw2", "head", "ada_in", "ada_out", "l1", "l2",
+            "bert_proj", "linear")
 
 
 def _restore(node, path):
@@ -143,6 +145,8 @@ def _restore(node, path):
     if isinstance(node, (list, tuple)):
         return [_restore(v, path + (str(i),)) for i, v in enumerate(node)]
     a = np.asarray(node)
+    if path[-1] in ("w_ih", "w_hh"):  # LSTM (4H, I) -> (I, 4H)
+        return np.ascontiguousarray(a.T)
     if path[-1] != "w":
         return a
     if "ups" in path:  # (I, O, K) -> (K, I, O)
@@ -157,8 +161,11 @@ def _restore(node, path):
 def from_port_layout(tree):
     """Port-layout tree (numpy leaves) -> the JAX bundle layout: the inverse
     of :func:`to_port_layout` for a VITS2 synthesizer, ``mpmsd_init``,
-    ``duration_disc_init``, HiFiGAN, Vocos or BigVGAN tree (DDSConv stacks
-    unpacked per layer)."""
+    ``mpd_init``, ``duration_disc_init``, QuickVC, Matcha (before the fused
+    qkv: ``models.stabletts.bundle_layout`` inverts ``port_layout``),
+    HiFiGAN, Vocos or BigVGAN tree (DDSConv stacks unpacked per layer). The
+    BERT, HuBERT and GPT-SoVITS trees, whose Linears it does not name, are
+    not inverted."""
     return _restore(tree, ())
 
 
@@ -705,6 +712,24 @@ S_SPECS = ((15, 1, 1, 1, 16, 7), (41, 4, 4, 16, 64, 20), (41, 4, 16, 64, 256, 20
 SPEC_BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
 
 
+def _disc_s(rng):
+    return {"convs": [_conv(rng, k, c_in // g, c_out) for k, _, g, c_in, c_out, _ in S_SPECS],
+            "post": _conv(rng, 3, 1024, 1)}
+
+
+def _disc_p(rng):
+    return {"convs": [_conv2d(rng, 5, 1, _P_CHANNELS[i], _P_CHANNELS[i + 1]) for i in range(5)],
+            "post": _conv2d(rng, 3, 1, 1024, 1)}
+
+
+def mpd_init(seed: int):
+    """Bundle-layout MultiPeriodDiscriminator (``discriminators.mpd_init``,
+    QuickVC's): DiscriminatorS and a DiscriminatorP for each of the periods
+    2, 3, 5, 7, 11, initialised as in :func:`mpmsd_init`."""
+    rng = np.random.default_rng(seed)
+    return {"s": _disc_s(rng), "p": [_disc_p(rng) for _ in range(5)]}
+
+
 def mpmsd_init(seed: int, periods=(2, 3, 5, 7, 11), spec_ffts=(1024, 2048, 512)):
     """Bundle-layout MultiPeriodMultiSpec discriminator (``mpmsd_init``):
     DiscriminatorS (grouped Conv1d), a DiscriminatorP a period (kernel
@@ -712,10 +737,8 @@ def mpmsd_init(seed: int, periods=(2, 3, 5, 7, 11), spec_ffts=(1024, 2048, 512))
     (five frequency bands of 32-channel Conv2d), every weight and bias
     U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     rng = np.random.default_rng(seed)
-    disc_s = {"convs": [_conv(rng, k, c_in // g, c_out) for k, _, g, c_in, c_out, _ in S_SPECS],
-              "post": _conv(rng, 3, 1024, 1)}
-    disc_p = [{"convs": [_conv2d(rng, 5, 1, _P_CHANNELS[i], _P_CHANNELS[i + 1]) for i in range(5)],
-               "post": _conv2d(rng, 3, 1, 1024, 1)} for _ in periods]
+    disc_s = _disc_s(rng)
+    disc_p = [_disc_p(rng) for _ in periods]
     ch = 32
     disc_spec = [{"band_convs": [[_conv2d(rng, 3, 9, 2, ch), _conv2d(rng, 3, 9, ch, ch),
                                   _conv2d(rng, 3, 9, ch, ch), _conv2d(rng, 3, 9, ch, ch),
