@@ -159,8 +159,35 @@ result line is printed):
    launched; steps by CUDA events, peak memory, one under torch.profiler;
    one B2 step on the card and on the CPU in f32 and f64 with the D
    learning rate 0 (``[train-vc-parity]``: losses 1e-3 relative, G and D
-   gradients 1e-2 relative L2 of the f64 step's). Each phase prints its
-   wall time.
+   gradients 1e-2 relative L2 of the f64 step's);
+12. GPT-SoVITS S1 training (``[train-s1]``): 48 rows of TEXTS' aligned
+   phones with 2-8 s of random 25 Hz codes (phone rates inside the
+   filters' [3, 25]/s, so every row is kept; ``.bert.npy`` rows for half),
+   at full width (ARConfig() 24 x 512, S1TrainConfig(): ScaledAdam locked
+   at lr 0.002), batch 8 (the 128-phone and 256-code buckets);
+   train.run_gpt_sovits.main --stage s1 for 3 steps, its STATE_3 restored
+   into a fresh state (parameters, ScaledAdam's per-parameter and global
+   state equal), no hand-written kernel launched; steps by CUDA events
+   (steps/s, semantic tokens/s), peak memory, one profiled; one DPO step
+   at the halved batch; ``[train-s1-parity]``: a ScaledAdam step and a DPO
+   step at B2 on the card, in f32 and f64 on the CPU (spans pinned): the
+   loss 1e-3 relative, the gradient 1e-2 relative L2 of the f64 step's;
+13. GPT-SoVITS S2 training (``[train-s2]``): 36 utterances of 2-8 s at 32
+   kHz with seeded 768-wide ``.ssl.npy`` features at 50 Hz, at full width
+   (SoVITSConfig(), S2TrainConfig(): hop 640, 32-frame segments, 128
+   mels), batch 8; run_gpt_sovits --stage s2 for one step (the codebook's
+   k-means: ``vq inited`` and the cluster-size sum printed), resumed to
+   step 3, STATE_3 restored into a fresh state (EMA buffers included), no
+   hand-written kernel launched in a step; steps timed and profiled; the
+   trained tree (the bundle layout, its codebook the EMA's) decodes one
+   utterance through ``sovits_decode`` on the card, 12 launches of kernel
+   1, within 1e-3 x peak of the CPU's decode of the same codes, and kernel
+   1 against its plain version at that SSL encoder shape;
+   ``[train-s2-parity]``: one step at B2 from fresh EMA buffers on the
+   card, in f32 and f64 on the CPU (k-means rows, posterior noise, slice
+   starts pinned; D lr 0): losses 1e-3 relative, G and D gradients 1e-2
+   relative L2 of the f64 step's, the EMA buffers card vs CPU 1e-5
+   relative. Each phase prints its wall time.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -200,10 +227,12 @@ from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
 from vosk_tts_tpu_torch.text import Cleaner, multistream_symbol_map, plain_symbol_map  # noqa: E402
 from vosk_tts_tpu_torch.text import convert  # noqa: E402
-from vosk_tts_tpu_torch.train import (run_stabletts, run_vc, run_vits2,  # noqa: E402
+from vosk_tts_tpu_torch.train import (gpt_sovits_data, gpt_sovits_train,  # noqa: E402
+                                      run_gpt_sovits, run_stabletts, run_vc, run_vits2,
                                       stabletts_data, stabletts_train, vc_data, vc_train)
 from vosk_tts_tpu_torch.train import vits2_train as tt  # noqa: E402
-from vosk_tts_tpu_torch.train.data import BucketBatcher, TTSDataset, load_wav  # noqa: E402
+from vosk_tts_tpu_torch.train.data import (BucketBatcher, TTSDataset, load_wav,  # noqa: E402
+                                           text_to_ids_aligned)
 from vosk_tts_tpu_torch.train.gpt_sovits_data import ShuffleBatcher  # noqa: E402
 from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # noqa: E402
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
@@ -2215,6 +2244,370 @@ def train_vc_phase(kernels, smi, dev=torch.device("cuda")):
     print(f"[train-vc] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 12-13. GPT-SoVITS training at full width: S1 (the AR), S2 (SoVITS)
+# ---------------------------------------------------------------------------
+
+S1_UTTERANCES = 48
+S2_UTTERANCES = 36
+
+
+def same_tensors(a, b):
+    """Two nested dicts/lists of tensors and plain values (state dicts) equal,
+    tensors exactly."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def gpt_text(i):
+    """(TEXTS[i % 16] as the G2P has it, its aligned phones, the phone ids)."""
+    text = TEXTS[i % len(TEXTS)].replace(" —", ",")
+    aligned = aligned_text(text)
+    return text, aligned, text_to_ids_aligned(aligned, plain_symbol_map())
+
+
+def write_s1_corpus(root, bert_dim):
+    """S1_UTTERANCES rows: TEXTS' aligned phones with 2-8 s of random 25 Hz codes, the
+    phone rate drawn in [6, 15]/s (the length clipped to 2-8 s keeps it in
+    the filters' [3, 25]), ``.bert.npy`` rows for every other one; the
+    metadata ``meta.csv`` and ``semantic.tsv``."""
+    rng = np.random.default_rng(TRAIN_SEED + 30)
+    meta, sem = [], []
+    for i in range(S1_UTTERANCES):
+        text, aligned, ids = gpt_text(i)
+        n_codes = int(25 * np.clip(len(ids) / rng.uniform(6.0, 15.0), 2.0, 8.0))
+        meta.append(f"u{i:02d}.wav|0|{text}|{aligned}")
+        sem.append(f"u{i:02d}\t" + " ".join(str(c) for c in rng.integers(0, 1024, n_codes)))
+        if i % 2 == 0:
+            np.save(os.path.join(root, f"u{i:02d}.bert.npy"),
+                    rng.standard_normal((len(ids), bert_dim)).astype(np.float32))
+    for name, lines in (("meta.csv", meta), ("semantic.tsv", sem)):
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def write_s2_corpus(root):
+    """S2_UTTERANCES utterances of 2-8 s at 32 kHz (write_voice), each with ``.ssl.npy``
+    features at 50 Hz (seeded N(0, 1), 768 wide: no SSL model runs) and
+    TEXTS' aligned phones; the metadata ``meta.csv``."""
+    rng = np.random.default_rng(TRAIN_SEED + 31)
+    lines = []
+    for i in range(S2_UTTERANCES):
+        path = os.path.join(root, f"v{i:02d}.wav")
+        n_samples = int(rng.uniform(2.0, 8.0) * 32000)
+        write_voice(path, rng, n_samples, 32000)
+        np.save(path[:-4] + ".ssl.npy",
+                rng.standard_normal((n_samples // 640, 768)).astype(np.float32))
+        text, aligned, _ = gpt_text(i)
+        lines.append(f"{path}|0|{text}|{aligned}")
+    with open(os.path.join(root, "meta.csv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return os.path.join(root, "meta.csv")
+
+
+def timed_steps(tag, step, state, batch, gen, n, smi, all_kernels, tokens=None, seg_s=None):
+    """One warm-up step, then n steps between CUDA events: ms, steps/s, tokens
+    or segment audio s per s, peak memory, launches (none of the hand-written
+    kernels); then one step profiled. Returns the mean ms."""
+    step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expected = zeroed(all_kernels)
+    times = []
+    for _ in range(n):
+        ms, out = event_ms(lambda: step(state, batch, generator=gen))
+        times.append(ms)
+        vals = {k: float(v) for k, v in out.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"[{tag}] a loss is not finite: {vals}")
+    got = launches_now(all_kernels)
+    check(got == expected, f"[{tag}] a step launched a hand-written kernel: {got}")
+    ms = float(np.mean(times))
+    rate = (f"{tokens * 1e3 / ms:.1f} semantic tokens/s ({tokens} a step)" if tokens is not None
+            else f"{seg_s * 1e3 / ms:.2f} segment audio s per s")
+    print(f"[{tag}] a step {', '.join(f'{m:.3f}' for m in times)} ms (CUDA events), mean "
+          f"{ms:.3f}: {1e3 / ms:.3f} steps/s, {rate}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; {smi}; "
+          f"last {vals}")
+    profile_step(f"{tag} step", lambda: step(state, batch, generator=gen), smi)
+    return ms
+
+
+def parity_sides(make_state, make_step, pair, noise, dev, d_lr0=False):
+    """One step of ``pair`` in f32 on the card, in f32 and in f64 on the CPU,
+    each from ``make_state(device)``: (the three states, their metrics as
+    floats)."""
+    sides, losses = [], []
+    for device, dtype in ((dev, None), (torch.device("cpu"), None),
+                          (torch.device("cpu"), torch.float64)):
+        state = make_state(device)
+        if d_lr0:
+            for group in state.opt["d"].param_groups:
+                group["lr"] = 0.0
+        out = make_step(dtype)(state, to_device(pair, device),
+                               noise={k: v.to(device) for k, v in noise.items()})
+        losses.append({k: float(v) for k, v in out.items()})
+        sides.append(state)
+    return sides, losses
+
+
+def s1_parity(mcfg, tree, pair, seed, dev):
+    """``[train-s1-parity]``: one ScaledAdam step and one DPO step (spans
+    pinned) of the B2 pair on the card, in f32 and in f64 on the CPU, from
+    the same tree: the loss card vs CPU f32 within 1e-3 relative (the
+    accuracy printed: one flipped argmax moves it by 1 / (B Ty)), the
+    applied gradient within PARITY_GRAD_L2 of the f64 step's."""
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    for dpo in (False, True):
+        tag = "train-s1-parity" + (" dpo" if dpo else "")
+        tcfg = gpt_sovits_train.S1TrainConfig(if_dpo=dpo)
+        noise = {"reject_ids": torch.tensor(rng.integers(0, pair["y"].shape[1], (2, 2)))}
+        sides, losses = parity_sides(
+            lambda d: gpt_sovits_train.init_s1_state(mcfg, tcfg, device=d, tree=tree),
+            lambda dt: gpt_sovits_train.make_s1_step(mcfg, tcfg, compute_dtype=dt), pair, noise,
+            dev)
+        print(f"[{tag}] one step, B2 T_x {pair['x'].shape[1]} T_y {pair['y'].shape[1]}, card f32 "
+              f"vs CPU f32 and f64 (all three sides so far {time.perf_counter() - t0:.1f} s); "
+              f"accuracy card {losses[0]['acc']}, CPU {losses[1]['acc']}")
+        check_losses(tag, *({"loss": m["loss"]} for m in losses))
+        check_grads(tag, ("ar",), sides)
+
+
+def train_s1_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[train-s1]``: run_gpt_sovits --stage s1 at full width (ARConfig(),
+    S1TrainConfig(): ScaledAdam) on a synthetic corpus, 3 steps, STATE_3
+    restored into a fresh state, timed steps at batch 8, one DPO step at
+    the halved batch, the card against the CPU at B2."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="s1-train-") as root:
+        mcfg = gpt_sovits.ARConfig()
+        write_s1_corpus(root, mcfg.bert_dim)
+        cfg = {"data": {"metadata": os.path.join(root, "meta.csv"),
+                        "semantic": os.path.join(root, "semantic.tsv"), "wav_dir": root},
+               "train": {"batch_size": 8, "epochs": 1000, "log_interval": 1,
+                         "save_interval": 10 ** 6, "seed": TRAIN_SEED}}
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        dcfg, mcfg, tcfg = run_gpt_sovits.build_s1(cfg)
+        check(mcfg == gpt_sovits.ARConfig() and tcfg == gpt_sovits_train.S1TrainConfig(),
+              f"the training config is not the full-width default: {mcfg} {tcfg}")
+        ds = gpt_sovits_data.S1Dataset(dcfg)
+        check(len(ds) == S1_UTTERANCES, f"[train-s1] the filters dropped rows: {len(ds)}")
+        model_dir = os.path.join(root, "model")
+
+        expected = zeroed(all_kernels)
+        t0 = time.perf_counter()
+        args = ["--stage", "s1", "-c", cfg_path, "-m", model_dir]
+        state, metrics = run_gpt_sovits.main(args + ["--max-steps", "3"])
+        got = launches_now(all_kernels)
+        check(state.step == 3 and metrics and all(np.isfinite(v) for v in metrics.values())
+              and state.params["ar"].device.type == "cuda",
+              f"run_gpt_sovits s1: step {state.step}, metrics {metrics}")
+        check(got == expected, f"[train-s1] hand-written kernels launched: {got}")
+        print(f"[train-s1] {S1_UTTERANCES} rows of 2-8 s of codes ({len(ds)} kept by the "
+              f"filters, BERT rows for half); ARConfig() ({mcfg.num_layers} x "
+              f"{mcfg.hidden_dim}) and S1TrainConfig() ({tcfg.optimizer}), batch 8: "
+              f"run_gpt_sovits --stage s1 --max-steps 3 in {time.perf_counter() - t0:.1f} s: "
+              f"last {metrics}; launches {got}")
+        fresh = gpt_sovits_train.init_s1_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev)
+        resume_state(model_dir, fresh)
+        check(same_tensors(state.state_dict(), fresh.state_dict()),
+              "[train-s1] STATE_3 did not restore the step, the params and the ScaledAdam state")
+        print("[train-s1] STATE_3 restored into a fresh state: step, params and ScaledAdam state "
+              "(per-parameter and global) equal")
+        del fresh
+
+        batch_np = next(ShuffleBatcher(ds, 8).epoch(0))
+        b, t_x = batch_np["x"].shape
+        t_y = batch_np["y"].shape[1]
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        print(f"[train-s1] B{b} T_x {t_x} T_y {t_y} (joint T {t_x + t_y})")
+        timed_steps("train-s1", gpt_sovits_train.make_s1_step(mcfg, tcfg), state,
+                    to_device(batch_np, dev), gen, 3, smi, all_kernels,
+                    tokens=int(batch_np["y_lengths"].sum()))
+        half = {k: v[:b // 2] for k, v in batch_np.items()}
+        dpo = gpt_sovits_train.make_s1_step(mcfg, dataclasses.replace(tcfg, if_dpo=True))
+        torch.cuda.reset_peak_memory_stats()
+        dpo(state, to_device(half, dev), generator=gen)
+        ms, out = event_ms(lambda: dpo(state, to_device(half, dev), generator=gen))
+        vals = {k: float(v) for k, v in out.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"[train-s1] DPO loss: {vals}")
+        print(f"[train-s1] one DPO step at the halved batch B{b // 2} (the rejection's pass on "
+              f"2 T_y = {2 * t_y}): {ms:.3f} ms (CUDA events, after one warm-up); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}; {vals}")
+
+        tree = state.params["ar"].numpy_tree()
+        del state
+        torch.cuda.empty_cache()
+        pair = {k: v[:2] for k, v in batch_np.items()}
+        nx, ny = int(pair["x_lengths"].max()), int(pair["y_lengths"].max())
+        pair = {**pair, "x": pair["x"][:, :nx], "bert": pair["bert"][:, :nx],
+                "y": pair["y"][:, :ny]}
+        s1_parity(mcfg, tree, pair, TRAIN_SEED + 32, dev)
+    print(f"[train-s1] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def s2_parity(mcfg, tcfg, trees, pair, seed, dev):
+    """``[train-s2-parity]``: one S2 step of the B2 pair from fresh EMA
+    buffers (so k-means runs) on the card, in f32 and in f64 on the CPU,
+    from the same trees and draws (the k-means initial rows, the posterior
+    normal, the slice starts), D's learning rate 0: losses card vs CPU f32
+    within 1e-3 relative, G and D gradients within PARITY_GRAD_L2 of the
+    f64 step's, the EMA buffers card vs CPU f32 within 1e-5 relative."""
+    rng = np.random.default_rng(seed)
+    t_f = pair["spec"].shape[1]
+    n = min(2 * (t_f // 2), 500)  # the rows k-means samples from
+    noise = {"kmeans_ids": torch.tensor(rng.permutation(n)[:mcfg.n_codes] if n >= mcfg.n_codes
+                                        else rng.integers(0, n, mcfg.n_codes)),
+             "posterior": torch.tensor(rng.standard_normal((2, t_f, mcfg.inter_channels))
+                                       .astype(np.float32)),
+             "ids_slice": torch.tensor((rng.uniform(size=2) * np.maximum(
+                 pair["spec_lengths"] - mcfg.segment_size + 1, 1)).astype(np.int32))}
+    t0 = time.perf_counter()
+    sides, losses = parity_sides(
+        lambda d: gpt_sovits_train.init_s2_state(mcfg, tcfg, device=d, trees=trees),
+        lambda dt: gpt_sovits_train.make_s2_step(mcfg, tcfg, compute_dtype=dt), pair, noise, dev,
+        d_lr0=True)
+    print(f"[train-s2-parity] one step, B2 T_f {t_f}, card f32 vs CPU f32 and f64 (the three "
+          f"{time.perf_counter() - t0:.1f} s; D lr 0; k-means from fresh buffers)")
+    check_losses("train-s2-parity", *losses)
+    check_grads("train-s2-parity", ("g", "d"), sides)
+    rel = {k: float((sides[0].vq[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+           for k, v in sides[1].vq.items()}
+    print(f"[train-s2-parity] EMA buffers card vs CPU f32: relative {rel} (tol 1e-5)")
+    check(all(r <= 1e-5 for r in rel.values()), f"[train-s2-parity] EMA buffers differ: {rel}")
+
+
+def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[train-s2]``: run_gpt_sovits --stage s2 at full width (SoVITSConfig(),
+    S2TrainConfig(): 32 kHz, hop 640, 32-frame segments) on a synthetic
+    corpus, one step (k-means) then a resumed run to step 3, STATE_3 restored
+    into a fresh state, timed steps at batch 8, the card against the CPU at
+    B2, then the trained tree's ``sovits_decode`` on the card (12 launches
+    of kernel 1) against the CPU. Returns (kernel 1's launches over that
+    decode, its case at the decode's SSL-encoder shape)."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="s2-train-") as root:
+        t0 = time.perf_counter()
+        meta = write_s2_corpus(root)
+        cfg = {"data": {"metadata": meta},
+               "train": {"batch_size": 8, "epochs": 1000, "log_interval": 1,
+                         "save_interval": 10 ** 6, "seed": TRAIN_SEED}}
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        dcfg, mcfg, tcfg = run_gpt_sovits.build_s2(cfg)
+        check(mcfg == gpt_sovits.SoVITSConfig() and tcfg == dataclasses.replace(
+            gpt_sovits_train.S2TrainConfig(), n_mel_channels=128),
+            f"the training config is not the full-width default: {mcfg} {tcfg}")
+        print(f"[train-s2] {S2_UTTERANCES} utterances of 2-8 s at 32 kHz with 768-wide .ssl.npy "
+              f"written in {time.perf_counter() - t0:.1f} s; SoVITSConfig() and S2TrainConfig() "
+              f"(hop {tcfg.hop_length}, segment {mcfg.segment_size} frames = "
+              f"{mcfg.segment_size * tcfg.hop_length} samples, {tcfg.n_mel_channels} mels), "
+              f"batch 8")
+        model_dir = os.path.join(root, "model")
+
+        expected = zeroed(all_kernels)
+        t0 = time.perf_counter()
+        args = ["--stage", "s2", "-c", cfg_path, "-m", model_dir]
+        first, m1 = run_gpt_sovits.main(args + ["--max-steps", "1"])
+        check(first.step == 1 and first.vq_inited and bool(first.vq["inited"] > 0),
+              f"[train-s2] after one step: step {first.step}, inited {first.vq['inited']}")
+        print(f"[train-s2] run_gpt_sovits --stage s2 --max-steps 1 in "
+              f"{time.perf_counter() - t0:.1f} s (init, spectrograms, k-means, 1 step, save): "
+              f"vq inited {float(first.vq['inited'])}, cluster-size sum "
+              f"{float(first.vq['cluster_size'].sum()):.4f}; {m1}")
+        del first
+        t0 = time.perf_counter()
+        state, metrics = run_gpt_sovits.main(args + ["--max-steps", "3"])
+        got = launches_now(all_kernels)
+        check(state.step == 3 and metrics and all(np.isfinite(v) for v in metrics.values())
+              and state.params["g"].device.type == "cuda",
+              f"run_gpt_sovits s2: step {state.step}, metrics {metrics}")
+        check(got == expected, f"[train-s2] hand-written kernels launched: {got}")
+        print(f"[train-s2] resumed from STATE_1 to step 3 in {time.perf_counter() - t0:.1f} s: "
+              f"last {metrics}; launches over both runs {got}")
+        fresh = gpt_sovits_train.init_s2_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev)
+        resume_state(model_dir, fresh)
+        check(same_tensors(state.state_dict(), fresh.state_dict()) and fresh.vq_inited,
+              "[train-s2] STATE_3 did not restore the step, the params, the AdamW states and "
+              "the EMA buffers")
+        print("[train-s2] STATE_3 restored into a fresh state: step, params, AdamW states and "
+              "EMA buffers equal")
+        del fresh
+
+        ds = gpt_sovits_data.S2Dataset(dcfg)
+        batch_np = next(ShuffleBatcher(ds, 8).epoch(0))
+        b, t_f = batch_np["spec"].shape[:2]
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+        print(f"[train-s2] B{b} T_f {t_f} T_text {batch_np['text'].shape[1]}")
+        timed_steps("train-s2", gpt_sovits_train.make_s2_step(mcfg, tcfg), state,
+                    to_device(batch_np, dev), gen, 3, smi, all_kernels,
+                    seg_s=b * mcfg.segment_size * tcfg.hop_length / tcfg.sampling_rate)
+
+        # the trained tree (the bundle layout, its codebook the EMA's) decodes
+        # one utterance on the card through kernel 1, and on the CPU
+        tree = to_port_layout(state.bundle_tree())
+        trees = {k: m.numpy_tree() for k, m in state.params.items()}
+        del state
+        torch.cuda.empty_cache()
+        i = int(np.argmin(batch_np["spec_lengths"]))
+        n_f = int(batch_np["spec_lengths"][i])
+        n_t = int(batch_np["text_lengths"][i])
+        rng = np.random.default_rng(TRAIN_SEED + 33)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            sp = to_torch(tree, d)
+            with torch.inference_mode():
+                codes = gpt_sovits.sovits_extract_latent(
+                    sp, mcfg, torch.as_tensor(batch_np["ssl"][i:i + 1, :n_f], device=d))
+                if not runs:
+                    noise = torch.tensor(rng.standard_normal(
+                        (1, 2 * codes.shape[1], mcfg.inter_channels)).astype(np.float32))
+                    expected = zeroed(all_kernels) | {"banded_attention": 12}
+                # both decode the card's codes (a near-tie may pick another code)
+                wav = gpt_sovits.sovits_decode(
+                    sp, mcfg, runs[0][0].to(d) if runs else codes,
+                    torch.as_tensor(batch_np["text"][i:i + 1, :n_t], device=d),
+                    torch.tensor([n_t], device=d),
+                    torch.as_tensor(batch_np["spec"][i:i + 1, :n_f], device=d),
+                    torch.tensor([n_f], device=d), noise=noise.to(d))
+                if not runs:
+                    torch.cuda.synchronize()
+                    got = launches_now(all_kernels)
+            runs.append((codes.cpu(), wav.cpu()))
+        (codes_g, wav_g), (codes_c, wav_c) = runs
+        err, peak = float((wav_g - wav_c).abs().max()), float(wav_c.abs().max())
+        print(f"[train-s2] the trained tree's sovits_decode, {codes_g.shape[1]} codes, text "
+              f"{n_t}, reference {n_f} frames: launches {got} (expected {expected}); codes card "
+              f"vs CPU differ at {int((codes_g != codes_c).sum())}; waveform {err:.3e} (peak "
+              f"{peak:.4f}, tol {1e-3 * peak:.3e})")
+        check(got == expected, f"[train-s2] sovits_decode launched {got}, expected {expected}")
+        check(peak > 0 and bool(torch.isfinite(wav_g).all()) and err <= 1e-3 * peak,
+              f"[train-s2] the trained tree's waveform differs by {err}")
+        t_ssl = 2 * codes_g.shape[1]
+        case = attention_case(1, t_ssl, [t_ssl], 50, 20, 34)
+
+        j = np.argsort(batch_np["spec_lengths"])[:2]
+        pair = {k: v[j] for k, v in batch_np.items()}
+        nf, nt = int(pair["spec_lengths"].max()), int(pair["text_lengths"].max())
+        nf += nf % 2
+        pair = {**pair, "ssl": pair["ssl"][:, :nf], "spec": pair["spec"][:, :nf],
+                "text": pair["text"][:, :nt], "wav": pair["wav"][:, :nf * tcfg.hop_length]}
+        s2_parity(mcfg, tcfg, trees, pair, TRAIN_SEED + 34, dev)
+    print(f"[train-s2] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return got["banded_attention"], case
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -2424,6 +2817,16 @@ def main() -> int:
     train_vc_phase(kernels, smi)
     torch.cuda.empty_cache()
 
+    # 12-13. GPT-SoVITS training at full width: S1 (the AR), S2 (SoVITS)
+    train_s1_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    s2_launches, s2_case = train_s2_phase(kernels, smi)
+    print(f"[kernel] banded_attention (train-s2 decode) {json.dumps(s2_case)} tol {att_tol}")
+    check(np.isfinite(s2_case["max_abs_err"]) and s2_case["max_abs_err"] <= att_tol,
+          f"banded_attention at {s2_case['shape']} disagrees with its plain version")
+    att.append(s2_case)
+    torch.cuda.empty_cache()
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -2439,6 +2842,7 @@ def main() -> int:
                "serve_launches": serve_launches[name], "vc_launches": vc_launches[name],
                "variants_launches": var_launches[name],
                "variants_vc_launches": var_vc_launches[name],
+               **({"train_s2_launches": s2_launches} if name == "banded_attention" else {}),
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],

@@ -17,22 +17,35 @@ imports no JAX, so on a machine with the card and without JAX it runs as
   the same steps on the CPU from the same parameters, noise and batch:
   losses within 1e-3 relative, no hand-written kernel launched (both take
   the dense differentiable routes; the QuickVC step runs the speaker
-  encoder's cuDNN LSTM backward, which its inference mode cannot).
+  encoder's cuDNN LSTM backward, which its inference mode cannot);
+* a GPT-SoVITS S1 step (ScaledAdam, and a DPO step) and an S2 step (its
+  codebook k-means-initialised, then the EMA step) at small widths on the
+  card against the same steps on the CPU: losses within 1e-3 relative,
+  the S2 EMA buffers within 1e-5 relative, no hand-written kernel launched
+  (the AR's attention is dense; SoVITS trains on the dense route);
+* ``run_gpt_sovits`` trains on the card by default and on the CPU with
+  ``--device cpu`` (without CUDA it raises: tests/test_torch_gpt_sovits_
+  train.py).
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from vosk_tts_tpu_torch.models import quickvc, stabletts, vits2
+from vosk_tts_tpu_torch.models import gpt_sovits, quickvc, stabletts, vits2
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
 from vosk_tts_tpu_torch.ops import mas
+from vosk_tts_tpu_torch.train import gpt_sovits_train as gt
+from vosk_tts_tpu_torch.train import run_gpt_sovits
 from vosk_tts_tpu_torch.train import stabletts_train as st
 from vosk_tts_tpu_torch.train import vc_train as vt
 from vosk_tts_tpu_torch.train import vits2_train as tt
-from vosk_tts_tpu_torch.utils.params import (matcha_init, mpd_init, perturb_matcha_zero_init,
-                                             perturb_zero_init, quickvc_init, synthesizer_init,
+from vosk_tts_tpu_torch.utils.params import (ar_init, matcha_init, mpd_init,
+                                             perturb_matcha_zero_init, perturb_zero_init,
+                                             quickvc_init, sovits_init, synthesizer_init,
                                              to_port_layout)
 
 pytestmark = pytest.mark.cuda
@@ -199,3 +212,87 @@ def test_vc_step_on_card(dev):
     assert launches == [0] * len(ALL_KERNELS), launches
     for k, w in want.items():
         assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+AR = dict(embedding_dim=64, hidden_dim=64, num_head=4, num_layers=2, vocab_size=33,
+          phoneme_vocab_size=64, bert_dim=16, eos=32)
+
+
+@pytest.mark.parametrize("if_dpo", [False, True])
+def test_s1_step_on_card(dev, if_dpo):
+    cfg, tcfg = gpt_sovits.ARConfig(**AR), gt.S1TrainConfig(if_dpo=if_dpo)
+    tree = to_port_layout(ar_init(cfg, 0))
+    rng = np.random.default_rng(4)
+    b, tx, ty = 2, 24, 64
+    x_len, y_len = np.array([24, 15]), np.array([64, 41])
+    y = rng.integers(0, 32, (b, ty))
+    y[1, 41:] = 32
+    batch = {"x": torch.tensor(rng.integers(1, 60, (b, tx)) * (np.arange(tx) < x_len[:, None])),
+             "x_lengths": torch.tensor(x_len), "y": torch.tensor(y),
+             "y_lengths": torch.tensor(y_len),
+             "bert": torch.tensor(rng.standard_normal((b, tx, 16)).astype(np.float32))}
+    noise = [{"reject_ids": torch.tensor([[3, 40], [50, 9]])}] * 2
+    got, want, launches = _card_and_cpu(
+        dev, lambda d: gt.init_s1_state(cfg, tcfg, device=d, tree=tree), gt.make_s1_step(cfg, tcfg),
+        batch, noise, n_steps=2)
+    assert launches == [0] * len(ALL_KERNELS), launches
+    for k, w in want.items():
+        assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+
+
+def test_s2_step_on_card(dev):
+    cfg = gpt_sovits.SoVITSConfig(spec_channels=257, segment_size=16, inter_channels=64,
+                                  hidden_channels=64, filter_channels=128, n_layers=2,
+                                  upsample_rates=(8, 4, 4), upsample_initial_channel=128,
+                                  upsample_kernel_sizes=(16, 8, 8), gin_channels=64,
+                                  n_codes=64, mrte_hidden=64, style_hidden=32)
+    tcfg = gt.S2TrainConfig(sampling_rate=16000, filter_length=512, hop_length=128,
+                            win_length=512, n_mel_channels=80)
+    trees = gt.init_s2_trees(cfg, 0)
+    trees["g"] = to_port_layout(perturb_zero_init(sovits_init(cfg, 0), seed=1))
+    del trees["g"]["codebook"]
+    rng = np.random.default_rng(5)
+    b, tf, tt = 2, 64, 20
+    lens = np.array([64, 47])
+    m = (np.arange(tf) < lens[:, None])[..., None]
+    batch = {"ssl": torch.tensor((rng.standard_normal((b, tf, 768)) * m).astype(np.float32)),
+             "spec": torch.tensor((np.abs(rng.standard_normal((b, tf, 257))) * m)
+                                  .astype(np.float32)),
+             "spec_lengths": torch.tensor(lens), "text": torch.tensor(rng.integers(1, 60, (b, tt))),
+             "text_lengths": torch.tensor([20, 11]),
+             "wav": torch.tensor((rng.standard_normal((b, tf * 128)) * 0.3).astype(np.float32))}
+    noise = [{"kmeans_ids": torch.tensor(rng.permutation(b * tf // 2)[:64]),
+              "posterior": torch.tensor(rng.standard_normal((b, tf, 64)).astype(np.float32)),
+              "ids_slice": torch.tensor([40, 7], dtype=torch.int32)}]
+    states = {}
+
+    def make_state(d):
+        states[d.type] = gt.init_s2_state(cfg, tcfg, device=d, trees=trees)
+        return states[d.type]
+
+    got, want, launches = _card_and_cpu(dev, make_state, gt.make_s2_step(cfg, tcfg), batch, noise)
+    assert launches == [0] * len(ALL_KERNELS), launches
+    for k, w in want.items():
+        assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
+    for k, w in states["cpu"].vq.items():
+        g = states["cuda"].vq[k].cpu()
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), k
+
+
+def test_run_gpt_sovits_defaults_to_the_card(dev, tmp_path):
+    lines, sem = [], []
+    rng = np.random.default_rng(6)
+    for i in range(4):
+        lines.append(f"u{i}.wav|0|text|mj_i1_r k_a1_k s_o1_n")
+        sem.append(f"u{i}\t" + " ".join(str(c) for c in rng.integers(0, 32, 40 + 5 * i)))
+    (tmp_path / "meta.csv").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    (tmp_path / "semantic.tsv").write_text("\n".join(sem) + "\n", encoding="utf-8")
+    cfg = {"data": {"metadata": str(tmp_path / "meta.csv"),
+                    "semantic": str(tmp_path / "semantic.tsv")},
+           "model": AR, "train": {"batch_size": 2, "log_interval": 1}}
+    (tmp_path / "c.json").write_text(json.dumps(cfg), encoding="utf-8")
+    args = ["--stage", "s1", "-c", str(tmp_path / "c.json"), "--max-steps", "1"]
+    state, _ = run_gpt_sovits.main(args + ["-m", str(tmp_path / "card")])
+    assert state.params["ar"].device.type == "cuda"
+    state, _ = run_gpt_sovits.main(args + ["-m", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert state.params["ar"].device.type == "cpu"

@@ -47,15 +47,17 @@ _IMPORT_TRAIN = textwrap.dedent("""
     import importlib, sys
     for name in ("data", "driver_common", "losses", "run_vits2", "vits2_train", "stabletts_train",
                  "stabletts_data", "run_stabletts", "vc_train", "vc_data", "run_vc",
-                 "gpt_sovits_data"):
+                 "gpt_sovits_data", "gpt_sovits_train", "scaled_adam", "run_gpt_sovits"):
         importlib.import_module("vosk_tts_tpu_torch.train." + name)
     importlib.import_module("vosk_tts_tpu_torch.models.discriminators")
+    importlib.import_module("vosk_tts_tpu_torch.ops.rvq")
     print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))
 """)
 
 
 def test_train_imports_no_jax():
-    """The training package (train/, the discriminators) in a fresh process."""
+    """The training package (train/, the discriminators, the codebook's
+    buffers) in a fresh process."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN], capture_output=True, text=True,
                        cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr

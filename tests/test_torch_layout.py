@@ -1,7 +1,7 @@
-"""The port's layout conversion round trip: ``from_port_layout(to_port_layout(t))
-== t`` (every leaf: path, shape and value) for each tree the port trains, or
-serves through a trainer's checkpoint, from the port's numpy inits at small
-widths; the StableTTS tree also through its fused qkv
+"""The port's layout conversion round trip: ``from_port_layout(to_port_layout(t),
+linears) == t`` (every leaf: path, shape and value) for each tree the port
+initialises, with that kind of tree's Linears, from the port's numpy inits at
+small widths; the StableTTS tree also through its fused qkv
 (``stabletts.bundle_layout(stabletts.port_layout(t)) == t``). No JAX here:
 the inits' structures are held to the JAX package's in the trainers' tests.
 """
@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 from vosk_tts_tpu_torch.models import stabletts, vits2
+from vosk_tts_tpu_torch.models.bert import BertConfig
+from vosk_tts_tpu_torch.models.gpt_sovits import ARConfig, SoVITSConfig
+from vosk_tts_tpu_torch.models.hubert import HubertConfig
 from vosk_tts_tpu_torch.models.quickvc import QuickVCConfig
 from vosk_tts_tpu_torch.utils import params as P
 from vosk_tts_tpu_torch.utils.checkpoint import _flatten
@@ -26,19 +29,37 @@ QUICKVC = dict(spec_channels=65, segment_size=8, inter_channels=16, hidden_chann
 MATCHA = dict(n_spks=2, spk_emb_dim=8, hidden_channels=32, filter_channels=64, n_heads=2,
               n_layers=2, phone_emb_dim=16, punc_emb_dim=2, bert_proj_dim=8, dec_hidden=32,
               dec_filter=64, dec_layers=2, dec_heads=2)
+AR = dict(embedding_dim=32, hidden_dim=32, num_head=2, num_layers=2, vocab_size=17,
+          phoneme_vocab_size=12, bert_dim=8, eos=16)
+SOVITS = dict(spec_channels=33, segment_size=4, inter_channels=8, hidden_channels=16,
+              filter_channels=32, n_layers=2, resblock_kernel_sizes=(3,),
+              resblock_dilation_sizes=((1, 3),), upsample_rates=(2, 2),
+              upsample_initial_channel=16, upsample_kernel_sizes=(4, 4), gin_channels=8,
+              ssl_dim=12, n_codes=10, n_symbols=20, mrte_hidden=16, style_hidden=8)
+BERT = dict(vocab_size=30, hidden_size=16, num_hidden_layers=2, num_attention_heads=2,
+            intermediate_size=32, max_position_embeddings=20)
+HUBERT = dict(hidden_size=16, num_hidden_layers=2, num_attention_heads=2, intermediate_size=32,
+              conv_dim=(8, 8), conv_stride=(5, 2), conv_kernel=(10, 3),
+              num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=4)
 
 
 def _matcha():
     return P.perturb_matcha_zero_init(P.matcha_init(stabletts.StableTTSConfig(**MATCHA), 0), 1)
 
 
+# name -> (the tree, its Linears)
 TREES = {
-    "synthesizer": lambda: P.perturb_zero_init(P.synthesizer_init(vits2.VITS2Config(**VITS2), 0), 1),
-    "mpmsd": lambda: P.mpmsd_init(2, (2, 3), (256,)),
-    "duration_disc": lambda: P.duration_disc_init(3, 32, 32, 3),
-    "mpd": lambda: P.mpd_init(4),
-    "quickvc": lambda: P.quickvc_init(QuickVCConfig(**QUICKVC), 5),
-    "matcha": _matcha,
+    "synthesizer": (lambda: P.perturb_zero_init(P.synthesizer_init(vits2.VITS2Config(**VITS2), 0),
+                                                1), P.LINEARS),
+    "mpmsd": (lambda: P.mpmsd_init(2, (2, 3), (256,)), P.LINEARS),
+    "duration_disc": (lambda: P.duration_disc_init(3, 32, 32, 3), P.LINEARS),
+    "mpd": (lambda: P.mpd_init(4), P.LINEARS),
+    "quickvc": (lambda: P.quickvc_init(QuickVCConfig(**QUICKVC), 5), P.LINEARS),
+    "matcha": (_matcha, P.LINEARS),
+    "ar": (lambda: P.ar_init(ARConfig(**AR), 6), P.AR_LINEARS),
+    "sovits": (lambda: P.sovits_init(SoVITSConfig(**SOVITS), 7), P.SOVITS_LINEARS),
+    "bert": (lambda: P.bert_init(BertConfig(**BERT), 8), P.BERT_LINEARS),
+    "hubert": (lambda: P.hubert_init(HubertConfig(**HUBERT), 9), P.HUBERT_LINEARS),
 }
 
 
@@ -52,9 +73,25 @@ def _assert_same(got, want):
 
 @pytest.mark.parametrize("name", list(TREES))
 def test_round_trip(name):
-    tree = TREES[name]()
+    make, linears = TREES[name]
+    tree = make()
     port = P.to_port_layout(tree)
-    _assert_same(P.from_port_layout(port), tree)
+    _assert_same(P.from_port_layout(port, linears), tree)
+
+
+def test_linears_differ_between_trees():
+    """One name, two layouts: the VITS2 set restores a BERT ``q`` as a 1x1
+    conv (VITS2's attention) and the BERT set as a Linear; with another
+    tree's set the AR's projections come back as (1, I, O), and with no set
+    the call is refused."""
+    bert = P.bert_init(BertConfig(**BERT), 8)
+    port = P.to_port_layout(bert)
+    assert P.from_port_layout(port, P.LINEARS)["layers"][0]["q"]["w"].shape == (1, 16, 16)
+    assert P.from_port_layout(port, P.BERT_LINEARS)["layers"][0]["q"]["w"].shape == (16, 16)
+    ar = P.to_port_layout(P.ar_init(ARConfig(**AR), 6))
+    assert P.from_port_layout(ar, P.LINEARS)["layers"][0]["qkv"]["w"].shape == (1, 32, 96)
+    with pytest.raises(TypeError):
+        P.from_port_layout(ar)
 
 
 def test_matcha_fused_qkv_round_trip():
@@ -68,7 +105,7 @@ def test_matcha_fused_qkv_round_trip():
 def test_layouts_differ_where_they_should():
     """The round trip is not the identity by accident: the LSTM weights, the
     Linears and the fused qkv change shape in the port's layout."""
-    q = P.to_port_layout(TREES["quickvc"]())
+    q = P.to_port_layout(TREES["quickvc"][0]())
     assert q["enc_spk"]["lstm"][1]["w_ih"].shape == (64, 16)  # (4H, I)
     assert q["enc_spk"]["linear"]["w"].shape == (16, 16)
     m = stabletts.port_layout(_matcha())

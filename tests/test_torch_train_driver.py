@@ -177,7 +177,7 @@ def test_generator_export_loads_in_jax(corpus, tmp_path):
     state, _ = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "m"), "--device", "cpu",
                                "--max-steps", "1"])
     got = jckpt.load_params(str(tmp_path / "m" / "G_1.npz"))
-    want = P.from_port_layout(state.params["g"].numpy_tree())
+    want = P.from_port_layout(state.params["g"].numpy_tree(), P.LINEARS)
     flat_got, flat_want = jax.tree.leaves_with_path(got), jax.tree.leaves_with_path(want)
     assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
     for (_, a), (_, b) in zip(flat_got, flat_want):
@@ -208,7 +208,7 @@ def test_from_port_layout_inverts_to_port_layout():
     trees = [jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
                           jax.eval_shape(init, jax.random.PRNGKey(0))) for init in inits]
     for tree in trees:
-        _assert_same_tree(P.from_port_layout(P.to_port_layout(tree)), tree)
+        _assert_same_tree(P.from_port_layout(P.to_port_layout(tree), P.LINEARS), tree)
     # the port's numpy inits have the JAX inits' structure and shapes
     for mine, theirs in ((P.mpmsd_init(0, (2, 3), (256,)), trees[1]),
                          (P.duration_disc_init(0, 32, 32, 3), trees[2])):

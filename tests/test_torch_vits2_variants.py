@@ -42,7 +42,7 @@ from vosk_tts_tpu_torch.ops import attention as tatt
 from vosk_tts_tpu_torch.ops import commons as tcommons
 from vosk_tts_tpu_torch.ops import stft as tstft
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer
-from vosk_tts_tpu_torch.utils.params import (from_port_layout, perturb_zero_init,
+from vosk_tts_tpu_torch.utils.params import (LINEARS, from_port_layout, perturb_zero_init,
                                              synthesizer_init, to_port_layout, to_torch)
 
 BASE = dict(inter_channels=32, hidden_channels=32, filter_channels=64, n_layers=2, n_flows=2,
@@ -244,7 +244,7 @@ def test_inits_and_layouts_match_jax():
         assert jax.tree.structure(mine) == jax.tree.structure(theirs), flow
         assert ([a.shape for a in jax.tree.leaves(mine)]
                 == [a.shape for a in jax.tree.leaves(theirs)]), flow
-        back = from_port_layout(to_port_layout(mine))
+        back = from_port_layout(to_port_layout(mine), LINEARS)
         assert jax.tree.structure(back) == jax.tree.structure(mine)
         for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(mine)):
             np.testing.assert_array_equal(a, b)

@@ -31,9 +31,9 @@ from vosk_tts_tpu_torch.models import bigvgan as tbv
 from vosk_tts_tpu_torch.models import stabletts as tst
 from vosk_tts_tpu_torch.models import vits2 as tv
 from vosk_tts_tpu_torch.models import vocoder as tvoc
-from vosk_tts_tpu_torch.utils.params import (bigvgan_init, from_port_layout, hifigan_init,
-                                             matcha_init, perturb_matcha_zero_init, to_port_layout,
-                                             to_torch, vocos_init)
+from vosk_tts_tpu_torch.utils.params import (LINEARS, bigvgan_init, from_port_layout,
+                                             hifigan_init, matcha_init, perturb_matcha_zero_init,
+                                             to_port_layout, to_torch, vocos_init)
 
 VOCOS = dict(input_channels=16, dim=32, intermediate_dim=48, num_layers=2)
 BIGVGAN = dict(num_mels=16, upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8),
@@ -176,7 +176,7 @@ def test_inits_and_layouts_match_jax():
         assert jax.tree.structure(mine) == jax.tree.structure(theirs), tcfg
         assert ([a.shape for a in jax.tree.leaves(mine)]
                 == [a.shape for a in jax.tree.leaves(theirs)]), tcfg
-        back = from_port_layout(to_port_layout(mine))
+        back = from_port_layout(to_port_layout(mine), LINEARS)
         for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(mine)):
             np.testing.assert_array_equal(a, b)
 

@@ -1,4 +1,5 @@
-"""GPT-SoVITS zero-shot cloning (vosk_tts_tpu/models/gpt_sovits.py), inference.
+"""GPT-SoVITS (vosk_tts_tpu/models/gpt_sovits.py): zero-shot cloning, and the
+training forwards of both stages.
 
 Stage 1, the AR model (text -> semantic tokens): a joint [x; y] post-LN
 transformer, causal over y, with a static KV cache. ``prefill`` runs the
@@ -20,6 +21,12 @@ position encoders run the banded attention kernel, ops/attention.py), then
 the reverse plain couplings and the speaker-conditioned HiFiGAN generator
 with padded-frame masking (models/vits2.py).
 
+Training (train/gpt_sovits_train.py): ``ar_forward_train`` (the summed
+cross-entropy of the teacher-forced pass) and ``ar_forward_train_dpo``
+(with a span-repeated rejection, ``make_reject_y``); ``sovits_forward_train``
+(the straight-through codebook, the MRTE encoder on the dense attention
+route, the posterior, the flow forward and the generator on a random slice).
+
 Layouts are the port's (utils/params.py): Linear (O, I), Conv1d (O, I, K).
 Draws come from a ``torch.Generator``; jax.random draws other numbers, so
 parity with the JAX package holds under greedy decoding (``top_k=1``), on
@@ -36,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as att
-from ..ops.commons import sequence_mask
+from ..ops.commons import rand_slice_segments, sequence_mask
 from ..ops.conv import conv1d
 from . import vits2
 
@@ -121,19 +128,97 @@ def joint_mask(x_len: int, y_len: int, x_lens, y_lens=None):
     return torch.where(mask, 0.0, -1e9)[:, None]
 
 
+def _eos_padded(cfg: ARConfig, y_ids, y_lens):
+    """(B, Ty + 1): y's codes, EOS past each row's length and in the appended
+    last column (pad_y_eos, t2s_model.py:316-321)."""
+    t_y = y_ids.shape[1]
+    y_pad = torch.arange(t_y, device=y_ids.device)[None, :] >= y_lens[:, None]
+    return F.pad(torch.where(y_pad, cfg.eos, y_ids), (0, 1), value=cfg.eos)
+
+
 def ar_logits(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
     """Teacher-forced logits (B, Ty, V): the joint pass over [x; y] with
     y's padded codes as EOS (t2s_model.py make_input_data); the logits at
     y position j predict code j + 1."""
     t_y = y_ids.shape[1]
-    y_pad = torch.arange(t_y, device=y_ids.device)[None, :] >= y_lens[:, None]
-    y_in = torch.where(y_pad, cfg.eos, y_ids)
+    y_in = _eos_padded(cfg, y_ids, y_lens)[:, :-1]
     x, y = _embed_inputs(params, cfg, x_ids, bert, y_in)
     xy = torch.cat([x, y], dim=1)
     bias = joint_mask(x_ids.shape[1], t_y, x_lens, y_lens)
     for layer in params["layers"]:
         xy, _, _ = _layer_full(layer, cfg, xy, bias)
     return F.linear(xy[:, x_ids.shape[1]:], params["predict"]["w"])
+
+
+# ---------------------------------------------------------------------------
+# Training (t2s_model.py forward_old :184-248 and the DPO forward :145-182)
+# ---------------------------------------------------------------------------
+
+
+def _target_logps(logits, targets):
+    """log_softmax(logits) at the targets: (B, Ty)."""
+    return torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())[..., 0]
+
+
+def _ce_and_acc(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
+    """(the targets' log-probabilities (B, Ty), the accuracy): targets are
+    the EOS-padded codes shifted by one."""
+    logits = ar_logits(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
+    targets = _eos_padded(cfg, y_ids, y_lens)[:, 1:]
+    acc = (logits.argmax(-1) == targets).to(logits.dtype).mean()
+    return _target_logps(logits, targets), acc
+
+
+def ar_forward_train(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
+    """(loss, acc): the cross-entropy SUMMED over every position, padded ones
+    too (their target is EOS; t2s_model.py:243 ``reduction="sum"`` with no
+    mask), and the accuracy of the argmax over every position. x_ids (B,
+    Tx), y_ids (B, Ty) codes, bert (B, Tx, bert_dim)."""
+    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
+    return -logps.sum(), acc
+
+
+def make_reject_y(y_ids, y_lens, *, generator=None, ids=None):
+    """The DPO rejection (ar/models/utils.py make_reject_y :196-230): each
+    padded row with a span [i0, i1) repeated, position t reading y[t] for
+    t < i1 and y[t - (i1 - i0)] after, in a (B, 2 Ty) buffer, zero past
+    the new length Ty + (i1 - i0) (the reference counts the padded length).
+    ``ids`` (B, 2) are the span's two ends, drawn uniformly in [0, Ty)
+    from ``generator`` where not given. Returns (reject (B, 2 Ty), lengths)."""
+    b, t_y = y_ids.shape
+    if ids is None:
+        ids = torch.randint(0, t_y, (b, 2), generator=generator, device=y_ids.device)
+    ids = ids.to(y_ids.device).long()
+    i0, i1 = ids.min(dim=1).values, ids.max(dim=1).values
+    span = i1 - i0
+    pos = torch.arange(2 * t_y, device=y_ids.device)[None, :]
+    src = torch.where(pos < i1[:, None], pos, pos - span[:, None]).clamp(0, t_y - 1)
+    lengths = t_y + span
+    return y_ids.gather(1, src) * (pos < lengths[:, None]).to(y_ids.dtype), lengths
+
+
+def dpo_loss(chosen_logps, rejected_logps, beta: float = 0.2):
+    """Reference-free DPO (ar/models/utils.py :164-181, beta 0.2)."""
+    return -F.logsigmoid(beta * (chosen_logps - rejected_logps)).mean()
+
+
+def _batch_logps(logits, targets):
+    """A row's summed target log-probabilities over the whole y region,
+    padded positions too (get_batch_logps, ar/models/utils.py :185-193)."""
+    return _target_logps(logits, targets).sum(-1)
+
+
+def ar_forward_train_dpo(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert, *,
+                         generator=None, ids=None):
+    """(loss, acc) of the DPO forward (t2s_model.py forward :145-182): the
+    summed cross-entropy of the chosen codes plus the DPO term against
+    :func:`make_reject_y`'s rejection (``ids`` pins its spans), whose pass
+    runs on the 2 Ty buffer."""
+    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
+    reject, reject_lens = make_reject_y(y_ids, y_lens, generator=generator, ids=ids)
+    r_logits = ar_logits(params, cfg, x_ids, x_lens, reject, reject_lens, bert)
+    r_logps = _batch_logps(r_logits, _eos_padded(cfg, reject, reject_lens)[:, 1:])
+    return -logps.sum() + dpo_loss(logps.sum(-1), r_logps), acc
 
 
 def prefill(params, cfg: ARConfig, x_ids, x_lens, bert, prompts, *, max_new: int):
@@ -449,15 +534,18 @@ def sovits_extract_latent(params, cfg: SoVITSConfig, ssl):
     return rvq_encode(params["codebook"], x)
 
 
-def _sovits_enc_p(params, cfg: SoVITSConfig, quantized, y_lengths, text, text_lengths, ge):
+def _sovits_enc_p(params, cfg: SoVITSConfig, quantized, y_lengths, text, text_lengths, ge, *,
+                  flash: bool = True):
     """The text encoder with MRTE (module/models.py:174-248,
     mrte_model.py:9-61): the SSL encoder (n_layers // 2), the text encoder
     (n_layers), the codes' frames attending over the text (4 heads) plus
     the frames and the speaker, then encoder2 (n_layers // 2). Returns
     (y, m_p, logs_p, y_mask); rows past y_lengths are garbage before the
-    mask (the banded attention attends them to the valid keys)."""
+    mask (the banded attention attends them to the valid keys). ``flash``
+    picks the encoders' attention route (ops/attention.py): training takes
+    the dense differentiable one."""
     enc = lambda p, x, mask: att.encoder_apply(p, x * mask, mask, n_heads=cfg.n_heads,
-                                               kernel_size=cfg.kernel_size)
+                                               kernel_size=cfg.kernel_size, flash=flash)
     y_mask = sequence_mask(y_lengths, quantized.shape[1]).to(quantized.dtype)[..., None]
     y = conv1d(quantized * y_mask, params["ssl_proj"]["w"], params["ssl_proj"]["b"]) * y_mask
     y = enc(params["encoder_ssl"], y, y_mask)
@@ -501,3 +589,41 @@ def sovits_decode(params, cfg: SoVITSConfig, codes, text, text_lengths, refer, r
     o, _ = vits2.generator_apply(params["dec"], v, z * y_mask, g,
                                  x_lengths=None if code_lengths is None else y_lengths)
     return o[..., 0]
+
+
+def sovits_forward_train(params, cfg: SoVITSConfig, ssl, spec, spec_lengths, text, text_lengths,
+                         *, generator=None, noise=None):
+    """The training forward (module/models.py:902-937). ssl (B, Ts,
+    ssl_dim) frame-aligned to the spectrogram (Ts = Tf at 50 Hz), spec (B,
+    Tf, spec_channels), text (B, Tt). The style encoder on the masked
+    spectrogram; the strided ``ssl_proj``; the nearest codes of the
+    detached features, the commit loss against the detached quantized
+    features and the straight-through ``x + (q - x).detach()``, repeated
+    x2 for 25 Hz codes; the MRTE text encoder on the dense attention route;
+    the posterior, the flow forward, the generator on a random
+    ``segment_size``-frame slice of z. ``params["codebook"]`` takes no
+    gradient. ``noise`` {"posterior" (B, Tf, inter_channels) normal,
+    "ids_slice" (B,) int} pins the draws; else they come from
+    ``generator``. Returns the JAX package's dict: wav, commit_loss,
+    ids_slice, y_mask, z, z_p, m_p, logs_p, m_q, logs_q."""
+    noise = noise or {}
+    y_mask = sequence_mask(spec_lengths, spec.shape[1]).to(spec.dtype)[..., None]
+    ge = mel_style_encoder_apply(params["ref_enc"], cfg, spec * y_mask, y_mask)
+    up = 2 if cfg.semantic_frame_rate == "25hz" else 1
+    x_ssl = conv1d(ssl, params["ssl_proj"]["w"], params["ssl_proj"]["b"], stride=up, padding=0)
+    codebook = params["codebook"].detach()
+    quantized = rvq_decode(codebook, rvq_encode(codebook, x_ssl.detach()))
+    commit_loss = torch.mean((x_ssl - quantized) ** 2)
+    quantized = (x_ssl + (quantized - x_ssl).detach()).repeat_interleave(up, dim=1)
+    quantized = quantized[:, :spec.shape[1]]
+    _, m_p, logs_p, y_mask = _sovits_enc_p(params["enc_p"], cfg, quantized, spec_lengths, text,
+                                           text_lengths, ge, flash=False)
+    v, g = cfg.as_vits2(), ge[:, None, :]
+    z, m_q, logs_q, _ = vits2.posterior_apply(params["enc_q"], v, spec, spec_lengths, g,
+                                              generator=generator, noise=noise.get("posterior"))
+    z_p = vits2.flow_block_apply(params["flow"], v, z, y_mask, g, reverse=False, flash=False)
+    z_slice, ids = rand_slice_segments(z, spec_lengths, cfg.segment_size, generator=generator,
+                                       ids=noise.get("ids_slice"))
+    o, _ = vits2.generator_apply(params["dec"], v, z_slice, g)
+    return {"wav": o, "commit_loss": commit_loss, "ids_slice": ids, "y_mask": y_mask, "z": z,
+            "z_p": z_p, "m_p": m_p, "logs_p": logs_p, "m_q": m_q, "logs_q": logs_q}

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..ops import flash_attention as fa
 from ..ops.commons import generate_path, sequence_mask
 from ..ops.conv import conv1d
-from ..utils.params import from_port_layout, to_port_layout
+from ..utils.params import LINEARS, from_port_layout, to_port_layout
 from .tree import TreeModule
 
 
@@ -115,7 +115,7 @@ def bundle_layout(tree):
     gradients, in the JAX package's layout): utils/params.from_port_layout,
     which gives each fused qkv as one (1, C, 3C) 1x1 conv, then that conv
     split into q, k and v."""
-    out = from_port_layout(tree)
+    out = from_port_layout(tree, LINEARS)
     for blk in _dit_blocks(out):
         qkv = blk["attn"].pop("qkv")
         ws, bs = np.split(qkv["w"], 3, axis=-1), np.split(qkv["b"], 3)

@@ -28,7 +28,7 @@ import torch
 from ..api import resolve_device
 from ..models.vits2 import VITS2Config
 from ..utils import checkpoint as ckpt
-from ..utils.params import from_port_layout
+from ..utils.params import LINEARS, from_port_layout
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
 from .driver_common import log, resume_state, save_state, train_loop
@@ -74,7 +74,7 @@ def build_configs(cfg: dict):
 def save(model_dir: str, state: T.TrainState, epoch: int) -> None:
     save_state(model_dir, state, epoch)
     ckpt.save_train_state(model_dir, "G", state.step,
-                          from_port_layout(state.params["g"].numpy_tree()))
+                          from_port_layout(state.params["g"].numpy_tree(), LINEARS))
 
 
 def main(argv=None):

@@ -39,11 +39,15 @@ makes it from this one.
 The posterior encoder (``enc_q``) is kept: ``vits2.voice_conversion``
 reads it.
 
-:func:`from_port_layout` inverts the conversion for the trees the trainers
-hold (a VITS2 synthesizer of any variant, the discriminators, the duration
-discriminator, QuickVC, StableTTS) and for the vocoders, so the port writes
-them, and compares their gradients, in the bundle layout that either
-package loads.
+:func:`from_port_layout` inverts the conversion for every tree this module
+initialises, so the port writes them, and compares their gradients, in the
+bundle layout that either package loads. A rank-2 port ``"w"`` is a
+Linear or a 1x1 conv by the name of its parent alone, and the same name
+is one in one tree and the other in another (VITS2's and MRTE's attention
+``q``/``k``/``v``/``o`` are 1x1 convs, BERT's and HuBERT's Linears), so
+the caller names the tree's Linears: :data:`LINEARS` (VITS2,
+the discriminators, QuickVC, Matcha, the vocoders), :data:`AR_LINEARS`,
+:data:`SOVITS_LINEARS`, :data:`BERT_LINEARS` or :data:`HUBERT_LINEARS`.
 
 :func:`synthesizer_init` (every flow type, duration predictor and
 decoder), :func:`matcha_init`, :func:`hifigan_init`, :func:`vocos_init`,
@@ -129,21 +133,28 @@ def _unpack_ddsconv(p, n_layers: int):
     }
 
 
-# the Linears of the trained trees (VITS2 and its discriminators, StableTTS,
-# QuickVC's speaker encoder) and of Vocos: every other rank-2 "w" is a 1x1 conv
-_LINEARS = ("spk_emb", "output", "pw1", "pw2", "head", "ada_in", "ada_out", "l1", "l2",
-            "bert_proj", "linear")
+# The parents whose rank-2 port "w" is a Linear, by kind of tree; every other
+# rank-2 "w" is a 1x1 conv. VITS2 and its discriminators, QuickVC's speaker
+# encoder, Matcha, Vocos:
+LINEARS = frozenset({"spk_emb", "output", "pw1", "pw2", "head", "ada_in", "ada_out", "l1", "l2",
+                     "bert_proj", "linear"})
+# the GPT-SoVITS AR (every projection; the alphas and tables are not "w")
+AR_LINEARS = frozenset({"qkv", "out", "ff1", "ff2", "bert_proj", "predict"})
+# SoVITS: the VITS2 parts, and the mel style encoder's Linears
+SOVITS_LINEARS = LINEARS | {"spec1", "spec2", "wq", "wk", "wv", "fc_attn", "fc"}
+BERT_LINEARS = frozenset({"q", "k", "v", "attn_out", "ffn_in", "ffn_out"})
+HUBERT_LINEARS = BERT_LINEARS | {"fp"}
 
 
-def _restore(node, path):
+def _restore(node, path, linears):
     if node is None:
         return None
     if isinstance(node, dict):
         if "sep_w" in node:
             return _unpack_ddsconv(node, len(node["sep_w"]))
-        return {k: _restore(v, path + (k,)) for k, v in node.items()}
+        return {k: _restore(v, path + (k,), linears) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_restore(v, path + (str(i),)) for i, v in enumerate(node)]
+        return [_restore(v, path + (str(i),), linears) for i, v in enumerate(node)]
     a = np.asarray(node)
     if path[-1] in ("w_ih", "w_hh"):  # LSTM (4H, I) -> (I, 4H)
         return np.ascontiguousarray(a.T)
@@ -154,19 +165,21 @@ def _restore(node, path):
     if a.ndim == 4:  # (O, I, kh, kw) -> (kh, kw, I, O)
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     if a.ndim == 2:  # Linear (O, I) -> (I, O); 1x1 conv (O, I) -> (1, I, O)
-        return np.ascontiguousarray(a.T if path[-2] in _LINEARS else a.T[None])
+        return np.ascontiguousarray(a.T if path[-2] in linears else a.T[None])
     return np.ascontiguousarray(a.transpose(2, 1, 0))  # (O, I, K) -> (K, I, O)
 
 
-def from_port_layout(tree):
-    """Port-layout tree (numpy leaves) -> the JAX bundle layout: the inverse
-    of :func:`to_port_layout` for a VITS2 synthesizer, ``mpmsd_init``,
-    ``mpd_init``, ``duration_disc_init``, QuickVC, Matcha (before the fused
-    qkv: ``models.stabletts.bundle_layout`` inverts ``port_layout``),
-    HiFiGAN, Vocos or BigVGAN tree (DDSConv stacks unpacked per layer). The
-    BERT, HuBERT and GPT-SoVITS trees, whose Linears it does not name, are
-    not inverted."""
-    return _restore(tree, ())
+def from_port_layout(tree, linears):
+    """Port-layout tree (numpy leaves) -> the JAX bundle layout, the inverse
+    of :func:`to_port_layout` (DDSConv stacks unpacked per layer).
+    ``linears`` names the parents of the tree's Linears, which the port
+    layout alone does not tell: :data:`LINEARS` for a VITS2 synthesizer,
+    ``mpmsd_init``, ``mpd_init``, ``duration_disc_init``, QuickVC, Matcha
+    (before the fused qkv: ``models.stabletts.bundle_layout`` inverts
+    ``port_layout``), HiFiGAN, Vocos or BigVGAN tree; :data:`AR_LINEARS`, :data:`SOVITS_LINEARS`,
+    :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS` for the GPT-SoVITS AR and
+    SoVITS, BERT and HuBERT trees."""
+    return _restore(tree, (), linears)
 
 
 def to_torch(tree, device, dtype=torch.float32):
