@@ -177,24 +177,54 @@ result line is printed):
    (SoVITSConfig(), S2TrainConfig(): hop 640, 32-frame segments, 128
    mels), batch 8; run_gpt_sovits --stage s2 for one step (the codebook's
    k-means: ``vq inited`` and the cluster-size sum printed), resumed to
-   step 3, STATE_3 restored into a fresh state (EMA buffers included), no
+   step 3 (both runs in deterministic algorithms), STATE_3 restored into a fresh state (EMA buffers included), no
    hand-written kernel launched in a step; steps timed and profiled; the
    trained tree (the bundle layout, its codebook the EMA's) decodes one
    utterance through ``sovits_decode`` on the card, 12 launches of kernel
    1, within 1e-3 x peak of the CPU's decode of the same codes, and kernel
    1 against its plain version at that SSL encoder shape;
-   ``[train-s2-parity]``: one step at B2 from fresh EMA buffers on the
-   card, in f32 and f64 on the CPU (k-means rows, posterior noise, slice
-   starts pinned; D lr 0): losses 1e-3 relative, G and D gradients 1e-2
-   relative L2 of the f64 step's, the EMA buffers card vs CPU 1e-5
-   relative. Each phase prints its wall time.
+   ``[train-s2-parity]``: one step at B2 from STATE_3's trees and fresh
+   EMA buffers on the card (deterministic algorithms), in f32 and f64 on
+   the CPU (k-means rows, posterior noise, slice starts pinned; D lr 0):
+   losses 1e-3 relative (one that is 0 in exact arithmetic, 1e-6
+   absolute), G and D gradients 1e-2 relative L2 of the f64 step's, the
+   EMA buffers card vs CPU 1e-5 relative, summed over each group of codes
+   that k-means starts equal (which of them takes a row falls by
+   rounding), and the same check failing two faults planted in the card's
+   EMA step (a decay off by 0.01, one row moved to another group's code);
+14. VITS2 variant training (``[train-variants ...]``, run after 9, on a
+   corpus written as 9's): each of six variants at VITS2Config() widths
+   (``plain`` +
+   ``ms_istft``, ``pre_conv`` + ``istft``, ``pre_conv2`` + ``mb_istft``/onnx
+   + ``dp_apply``, ``fft`` + ``hifigan``, ``mono_layer_inter_residual`` +
+   ``ms_istft``/onnx + ``dp_apply``, ``mono_layer_post_residual`` +
+   ``istft``/onnx; 256 samples a frame each) with TrainConfig(): run_vits2
+   --max-steps 2 at B24 (MAS 2 launches, no other kernel), 2 steps timed
+   (MAS once a step), peak memory; G_2.npz served through
+   Model/Synth with per_synthesis_call's launches of kernels 1, 2 and 5
+   and the CPU's length; ``[... parity]``: one B2 step card vs CPU (every
+   lr but G's 0): losses 1e-3 relative, and for the ``dp_apply`` variants
+   the G, D and durD gradients against a CPU f64 step, 1e-2 relative L2;
+15. the WavLM/SLM loss (``[train-slm]``): a WavLMConfig() directory
+   (base-plus 12 x 768, 94 M parameters, from wavlm_init; config.json in
+   the Hugging Face form) and run_vits2 --wavlm-dir at full width, B24: 3
+   steps, STATE_3 restored (the WavLM discriminator and its AdamW state
+   included), a resumed step, MAS 4 launches and nothing else; 3 steps
+   timed and one profiled; ``resample`` 22050 -> 16000 card vs CPU within
+   1e-5 x peak; ``[train-slm-parity]``: one B2 step card vs CPU f32 and f64
+   with the full-width WavLM (every lr but G's 0): every loss (with
+   ``loss_slm_disc``, ``loss_lm``, ``loss_lm_gen``) 1e-3 relative, the G,
+   D, durD and WavLM-discriminator gradients 1e-2 relative L2 of the f64
+   step's. Each phase prints its wall time.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -217,11 +247,13 @@ sys.path.insert(0, ROOT)
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
 from vosk_tts_tpu_torch import pipelines  # noqa: E402
 from vosk_tts_tpu_torch.models import (bert, bigvgan, gpt_sovits, hubert, quickvc,  # noqa: E402
-                                        stabletts, vits2)
+                                        stabletts, vits2, wavlm)
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from vosk_tts_tpu_torch.ops import mas  # noqa: E402
+from vosk_tts_tpu_torch.ops import rvq  # noqa: E402
+from vosk_tts_tpu_torch.ops.resample import resample  # noqa: E402
 from vosk_tts_tpu_torch.ops.stft import mel_spectrogram, spectrogram  # noqa: E402
 from vosk_tts_tpu_torch.serving import batcher as batcher_mod  # noqa: E402
 from vosk_tts_tpu_torch.serving.batcher import BatchSynthesizer  # noqa: E402
@@ -243,7 +275,7 @@ from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  
                                              hifigan_init, hubert_init, matcha_init,
                                              perturb_matcha_zero_init, perturb_zero_init,
                                              quickvc_init, sovits_init, synthesizer_init,
-                                             to_port_layout, to_torch, vocos_init)
+                                             to_port_layout, to_torch, vocos_init, wavlm_init)
 
 # H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
 # f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
@@ -1656,14 +1688,16 @@ def grad_errors(a, ref):
 PARITY_GRAD_L2 = 1e-2
 
 
-def train_parity(mcfg, tcfg, trees, pair, seed, dev):
+def train_parity(mcfg, tcfg, trees, pair, seed, dev, tag="train-parity", f64=True, slm=None):
     """One train step of the B2 batch ``pair`` (numpy) in f32 on the card, in
-    f32 on the CPU and in f64 on the CPU (a differentiable cast of the f32
-    parameters, as the bf16 step), from the same trees, noise and alignment
-    (the card's). The D and durD learning rates are 0, so G's loss runs
-    through the same discriminators on every side (AdamW's first step moves
-    each parameter by about lr x sign(grad): float noise in a near-zero D
-    gradient would become a D parameter that differs by ~lr).
+    f32 on the CPU and (with ``f64``) in f64 on the CPU (a differentiable
+    cast of the f32 parameters, as the bf16 step), from the same trees, noise
+    and alignment (the card's); ``slm`` (a WavLMConfig and its port-layout
+    tree) turns on the WavLM/SLM branch on every side. Every learning rate
+    but G's is 0, so G's loss runs through the same discriminators on every
+    side (AdamW's first step moves each parameter by about lr x sign(grad):
+    float noise in a near-zero D gradient would become a D parameter that
+    differs by ~lr).
 
     Checks the card's losses against the CPU's f32 ones (1e-3 relative), and
     each network's gradients, all together, against the f64 step
@@ -1683,11 +1717,12 @@ def train_parity(mcfg, tcfg, trees, pair, seed, dev):
     sides, t0 = {}, time.perf_counter()
     cpu = torch.device("cpu")
     for name, device, dtype in (("card", dev, None), ("CPU", cpu, None),
-                                ("CPU f64", cpu, torch.float64)):
+                                ("CPU f64", cpu, torch.float64))[:3 if f64 else 2]:
         state = tt.init_train_state(mcfg, tcfg, device=device, trees=trees)
-        for k in ("d", "dur"):
-            for group in state.opt[k].param_groups:
-                group["lr"] = 0.0
+        for k, opt in state.opt.items():
+            if k != "g":
+                for group in opt.param_groups:
+                    group["lr"] = 0.0
         batch = to_device(pair, device)
         nz = {k: v.to(device) for k, v in noise.items()}
         if name == "card":
@@ -1697,26 +1732,35 @@ def train_parity(mcfg, tcfg, trees, pair, seed, dev):
                                            batch["mel_lengths"], batch["sid"], noise=nz)["attn"]
         else:
             nz["attn"] = attn.cpu()
-        step = tt.make_train_step(mcfg, tcfg, compute_dtype=dtype)
+        wl = None if slm is None else wavlm.WavLM(*slm).to(device)
+        step = tt.make_train_step(mcfg, tcfg, compute_dtype=dtype, slm=wl)
         sides[name] = (state, {k: float(v) for k, v in step(state, batch, noise=nz).items()})
-    (card, got), (ref, want), (ref64, exact) = sides["card"], sides["CPU"], sides["CPU f64"]
+        del wl
+    (card, got), (ref, want) = sides["card"], sides["CPU"]
+    exact = sides["CPU f64"][1] if f64 else "not run"
     rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
-    print(f"[train-parity] one step, B2 T_x {t_x} T_y {t_y}, card f32 vs CPU f32 and f64 (the "
-          f"CPU's and the card's {time.perf_counter() - t0:.1f} s, fed the card's alignment; D "
-          f"and durD lr 0): losses card {got}, CPU {want}, CPU f64 {exact}, card vs CPU f32 "
-          f"relative differences {rel} (tol 1e-3)")
-    check(all(r <= 1e-3 for r in rel.values()), f"card vs CPU losses differ: {rel}")
-    for k in tt.NETS:
+    lr0 = ", ".join(k for k in card.opt if k != "g")
+    print(f"[{tag}] one step, B2 T_x {t_x} T_y {t_y}, card f32 vs CPU f32"
+          f"{' and f64' if f64 else ''} (the CPU's and the card's "
+          f"{time.perf_counter() - t0:.1f} s, fed the card's alignment; {lr0} lr 0): losses "
+          f"card {got}, CPU {want}, CPU f64 {exact}, card vs CPU f32 relative differences {rel} "
+          f"(tol 1e-3)")
+    check(set(got) == set(want) and all(r <= 1e-3 for r in rel.values()),
+          f"[{tag}] card vs CPU losses differ: {rel}")
+    if not f64:
+        return
+    ref64 = sides["CPU f64"][0]
+    for k in card.params:
         (e_card, w_card, l2_card), (e_cpu, w_cpu, l2_cpu) = \
             grad_errors(card.params[k], ref64.params[k]), grad_errors(ref.params[k], ref64.params[k])
         e_pair, w_pair, l2_pair = grad_errors(card.params[k], ref.params[k])
-        print(f"[train-parity] {k} gradients against the f64 step: relative L2, all tensors "
+        print(f"[{tag}] {k} gradients against the f64 step: relative L2, all tensors "
               f"together, card {l2_card:.3e} (tol {PARITY_GRAD_L2}), CPU f32 {l2_cpu:.3e}; "
               f"largest max|err| / max|f64| a tensor card {e_card:.3e} ({w_card}), CPU f32 "
               f"{e_cpu:.3e} ({w_cpu}); card vs CPU f32: L2 {l2_pair:.3e}, largest a tensor "
               f"{e_pair:.3e} ({w_pair})")
         check(l2_card <= PARITY_GRAD_L2,
-              f"card {k} gradients differ from the f64 step: relative L2 {l2_card}")
+              f"[{tag}] card {k} gradients differ from the f64 step: relative L2 {l2_card}")
 
 
 def train_phase(kernels, smi, dev=torch.device("cuda")):
@@ -1872,6 +1916,223 @@ def train_phase(kernels, smi, dev=torch.device("cuda")):
 
 
 # ---------------------------------------------------------------------------
+# 14-15. VITS2 variant training and the WavLM/SLM loss at full width
+# ---------------------------------------------------------------------------
+
+#: a trained variant's export served on the card against the CPU: the
+#: largest sample difference, in int16 steps (the rounding of a value on
+#: either side of a step, twice)
+SERVE_INT16_TOL = 2
+
+#: the six variants the port serves, as the reference config.json's model
+#: block sets them (the port also reads ``istft_mode``), each decoder at 256
+#: samples a frame
+TRAIN_VARIANTS = (
+    ("plain+ms_istft", {"use_transformer_flows": False, "ms_istft_vits": True}),
+    ("pre_conv+istft", {"transformer_flow_type": "pre_conv", "istft_vits": True,
+                        "upsample_rates": [8, 8], "upsample_kernel_sizes": [16, 16]}),
+    ("pre_conv2+mb_istft/onnx+dp", {"mb_istft_vits": True, "istft_mode": "onnx",
+                                    "use_sdp": False}),
+    ("fft+hifigan", {"transformer_flow_type": "fft", "upsample_rates": [8, 8, 2, 2],
+                     "upsample_kernel_sizes": [16, 16, 4, 4]}),
+    ("mono_inter+ms_istft/onnx+dp", {"transformer_flow_type": "mono_layer_inter_residual",
+                                     "ms_istft_vits": True, "istft_mode": "onnx",
+                                     "use_sdp": False}),
+    ("mono_post+istft/onnx", {"transformer_flow_type": "mono_layer_post_residual",
+                              "istft_vits": True, "istft_mode": "onnx", "upsample_rates": [8, 8],
+                              "upsample_kernel_sizes": [16, 16]}),
+)
+#: the fields a variant sets; every other one stays VITS2Config()'s
+VARIANT_FIELDS = ("use_transformer_flows", "transformer_flow_type", "decoder_type", "istft_mode",
+                  "use_sdp", "upsample_rates", "upsample_kernel_sizes")
+
+
+def variant_train_config(root, over):
+    """train_config with the shipped decoder flag dropped and ``over`` set."""
+    cfg = train_config(root)
+    cfg["model"] = {**{k: v for k, v in cfg["model"].items() if k != "mb_istft_vits"}, **over}
+    return cfg
+
+
+def corpus_batch(dcfg, dev):
+    """The first B24 batch of the corpus (numpy, and on ``dev``)."""
+    batch_np = next(BucketBatcher(TTSDataset(dcfg), 24).epoch(0))
+    return batch_np, to_device(batch_np, dev)
+
+
+def train_variants_phase(kernels, smi, root, dev=torch.device("cuda")):
+    """``[train-variants]``: each of TRAIN_VARIANTS at full width
+    (VITS2Config() widths, TrainConfig(), the ``[train]`` corpus in
+    ``root``): run_vits2 --max-steps 2 at B24 (MAS 2 launches, no other
+    kernel); 2 steps timed by CUDA events (MAS once a step); G_2.npz (the
+    bundle layout) served through Model/Synth on the card (TEXTS[0], noise
+    0), its launches held to per_synthesis_call, its length equal to the
+    CPU's; one B2 step card vs CPU (every lr but G's 0), the gradients
+    against a CPU f64 step for the ``dp_apply`` variants; the time of each
+    part. Returns (MAS launches over the run_vits2 runs, the serving
+    launches of each kernel)."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    mas_launches, serve = 0, {n: 0 for n in kernels}
+    batch_np = batch = None
+    for i, (name, over) in enumerate(TRAIN_VARIANTS):
+        tag = f"train-variants {name}"
+        t_phase = time.perf_counter()
+        cfg = variant_train_config(root, over)
+        cfg_path = os.path.join(root, f"variant{i}.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(cfg, f)
+        mcfg, tcfg, dcfg = run_vits2.build_configs(cfg)
+        base = dataclasses.replace(mcfg, **{k: getattr(vits2.VITS2Config(), k)
+                                            for k in VARIANT_FIELDS})
+        check(base == vits2.VITS2Config() and tcfg == tt.TrainConfig()
+              and mcfg.upsample_factor == tcfg.hop_length,
+              f"[{tag}] not the full-width default: {mcfg} {tcfg}")
+        if batch is None:
+            batch_np, batch = corpus_batch(dcfg, dev)
+        model_dir = os.path.join(root, f"variant{i}")
+        expected = zeroed(all_kernels) | {"mas": 2}
+        t0 = time.perf_counter()
+        state, m = run_vits2.main(["-c", cfg_path, "-m", model_dir, "--max-steps", "2"])
+        got = launches_now(all_kernels)
+        check(state.step == 2 and m and all(np.isfinite(v) for v in m.values()),
+              f"[{tag}] run_vits2: step {state.step}, metrics {m}")
+        check(got == expected, f"[{tag}] run_vits2's 2 steps launched {got}, expected {expected}")
+        mas_launches += got["mas"]
+        print(f"[{tag}] {vits2.flow_type(mcfg)} flows, {mcfg.decoder_type} decoder "
+              f"({mcfg.istft_mode} iSTFT), {'SDP' if mcfg.use_sdp else 'dp_apply'}; run_vits2 "
+              f"--max-steps 2 at B24 in {time.perf_counter() - t0:.1f} s: launches {got}; last "
+              f"{m}")
+
+        b, t_x = batch_np["x"].shape
+        seg_s = b * mcfg.segment_size * tcfg.hop_length / tcfg.sampling_rate
+        t_run = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timed_steps(tag, tt.make_train_step(mcfg, tcfg), state, batch,
+                    torch.Generator(device=dev).manual_seed(TRAIN_SEED), 2, smi, all_kernels,
+                    seg_s=seg_s, per_step={"mas": 1}, profile=False)
+        t_timed, t0 = time.perf_counter() - t0, time.perf_counter()
+
+        # the exported generator, served on the card and on the CPU
+        g_path = ckpt.latest_checkpoint(model_dir, "G_")
+        check(os.path.basename(g_path) == "G_2.npz", f"[{tag}] the export is {g_path}")
+        with tempfile.TemporaryDirectory(prefix="vits2-variant-trained-") as bundle:
+            write_bundle(bundle, mcfg, load_params(g_path))
+            model = api.Model(bundle)
+            kw = dict(speaker_id=3, noise_level=0.0, duration_noise_level=0.0)
+            expected = zeroed(all_kernels) | per_synthesis_call(mcfg)
+            audio = api.Synth(model).synth_audio(TEXTS[0], **kw)
+            got = launches_now(all_kernels)
+            cpu_audio = api.Synth(api.Model(bundle, device="cpu")).synth_audio(TEXTS[0], **kw)
+            diff = int(np.abs(audio.astype(np.int32) - cpu_audio.astype(np.int32)).max()) \
+                if len(audio) == len(cpu_audio) else None
+            print(f"[{tag}] G_2.npz (the bundle layout) served through Model/Synth: "
+                  f"{len(audio)} samples (CPU {len(cpu_audio)}, largest difference {diff} int16), "
+                  f"launches {got} (expected {expected})")
+            check(got == expected, f"[{tag}] serving the export launched {got} != {expected}")
+            check(len(audio) == len(cpu_audio) > 0 and np.any(audio != 0)
+                  and diff <= SERVE_INT16_TOL,
+                  f"[{tag}] the export's audio: {len(audio)} samples, CPU {len(cpu_audio)}, "
+                  f"largest difference {diff} int16 (tol {SERVE_INT16_TOL})")
+            serve = {n: serve[n] + got[n] for n in kernels}
+            del model
+        t_serve, t0 = time.perf_counter() - t0, time.perf_counter()
+
+        trees = {k: mod.numpy_tree() for k, mod in state.params.items()}
+        train_parity(mcfg, tcfg, trees, {k: v[:2] for k, v in batch_np.items()},
+                     TRAIN_SEED + 20 + i, dev, tag=f"{tag} parity", f64=not mcfg.use_sdp)
+        del state, trees
+        torch.cuda.empty_cache()
+        print(f"[{tag}] done in {time.perf_counter() - t_phase:.1f} s: run_vits2 {t_run:.1f}, "
+              f"timed steps {t_timed:.1f}, serving {t_serve:.1f}, parity "
+              f"{time.perf_counter() - t0:.1f} s")
+    return mas_launches, serve
+
+
+SLM_SEED = SEED + 70
+
+
+def train_slm_phase(kernels, smi, root, dev=torch.device("cuda")):
+    """``[train-slm]``: a WavLMConfig() (base-plus, 12 x 768) directory from
+    wavlm_init (config.json in the Hugging Face form, params.npz in the
+    bundle layout); run_vits2 --wavlm-dir at full width (the shipped
+    configuration, B24): 3 steps, STATE_3 restored into a fresh state (the
+    WavLM discriminator and its AdamW state included), a resumed step; 3
+    steps timed and one profiled; ``resample`` card vs CPU on the batch's
+    waveforms (1e-5 x peak); ``[train-slm-parity]``: one B2 step card vs
+    CPU f32 and f64 with WavLM at full width (every lr but G's 0): losses
+    1e-3 relative, every network's gradients 1e-2 relative L2 of the f64
+    step's. Returns MAS's launches over the run_vits2 runs."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    tag = "train-slm"
+    wcfg = wavlm.WavLMConfig()
+    wdir = os.path.join(root, "wavlm")
+    os.makedirs(wdir)
+    t0 = time.perf_counter()
+    tree = wavlm_init(wcfg, SLM_SEED)
+    save_params(os.path.join(wdir, "params.npz"), tree)
+    with open(os.path.join(wdir, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(wcfg.to_hf(), f)
+    n_params = sum(a.size for a in tree_leaves(tree))
+    print(f"[{tag}] WavLMConfig() ({wcfg.num_hidden_layers} x {wcfg.hidden_size}, "
+          f"{n_params / 1e6:.2f} M parameters) written in {time.perf_counter() - t0:.1f} s")
+    cfg = train_config(root)
+    cfg_path = os.path.join(root, "slm.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f)
+    mcfg, tcfg, dcfg = run_vits2.build_configs(cfg)
+    tcfg = dataclasses.replace(tcfg, use_slm=True)
+    model_dir = os.path.join(root, "slm")
+    args = ["-c", cfg_path, "-m", model_dir, "--wavlm-dir", wdir]
+
+    expected = zeroed(all_kernels) | {"mas": 4}
+    t0 = time.perf_counter()
+    first, m1 = run_vits2.main(args + ["--max-steps", "3"])
+    check(first.step == 3 and "wd" in first.params
+          and all(np.isfinite(m1[k]) for k in ("loss_slm_disc", "loss_lm", "loss_lm_gen")),
+          f"[{tag}] run_vits2 --wavlm-dir: step {first.step}, metrics {m1}")
+    print(f"[{tag}] run_vits2 --wavlm-dir --max-steps 3 in {time.perf_counter() - t0:.1f} s "
+          f"(init, mels, 3 steps, save): last step {m1}")
+    slm_dims = dict(slm_hidden=wcfg.hidden_size, slm_layers=wcfg.num_hidden_layers + 1)
+    restored = tt.init_train_state(mcfg, tcfg, seed=TRAIN_SEED + 1, device=dev, **slm_dims)
+    resume_state(model_dir, restored)
+    check(same_state(first, restored), f"[{tag}] STATE_3 did not restore the state (the WavLM "
+          "discriminator's params and AdamW state included)")
+    del restored, first
+    t0 = time.perf_counter()
+    state, m2 = run_vits2.main(args + ["--max-steps", "4"])
+    got = launches_now(all_kernels)
+    check(state.step == 4 and all(np.isfinite(v) for v in m2.values()),
+          f"[{tag}] resumed run_vits2: step {state.step}, metrics {m2}")
+    check(got == expected, f"[{tag}] run_vits2's 4 steps launched {got}, expected {expected}")
+    print(f"[{tag}] resumed from STATE_3 (equal to the saved state), one more step in "
+          f"{time.perf_counter() - t0:.1f} s: {m2}; launches over the 4 steps {got}")
+
+    batch_np, batch = corpus_batch(dcfg, dev)
+    b = batch_np["x"].shape[0]
+    slm = run_vits2.load_wavlm(wdir, dev)
+    timed_steps(tag, tt.make_train_step(mcfg, tcfg, slm=slm), state, batch,
+                torch.Generator(device=dev).manual_seed(SLM_SEED), 3, smi, all_kernels,
+                seg_s=b * mcfg.segment_size * tcfg.hop_length / tcfg.sampling_rate,
+                per_step={"mas": 1})
+
+    # the resampler card vs CPU on the batch's first segments
+    y = batch["wav"][:, :mcfg.segment_size * tcfg.hop_length]
+    got_r = resample(y, tcfg.sampling_rate, 16000)
+    want_r = resample(y.cpu(), tcfg.sampling_rate, 16000)
+    err, peak = float((got_r.cpu() - want_r).abs().max()), float(want_r.abs().max())
+    print(f"[{tag}] resample {tuple(y.shape)} 22050 -> 16000 Hz {tuple(got_r.shape)}: card vs "
+          f"CPU max abs {err:.3e}, peak {peak:.3f} (tol 1e-5 x peak)")
+    check(got_r.shape == want_r.shape and err <= 1e-5 * peak, f"[{tag}] resample differs: {err}")
+
+    trees = {k: mod.numpy_tree() for k, mod in state.params.items()}
+    del state, slm
+    torch.cuda.empty_cache()
+    train_parity(mcfg, tcfg, trees, {k: v[:2] for k, v in batch_np.items()}, SLM_SEED, dev,
+                 tag="train-slm-parity", slm=(wcfg, to_port_layout(tree)))
+    return got["mas"]
+
+
+# ---------------------------------------------------------------------------
 # 10-11. StableTTS CFM training and QuickVC GAN training at full width
 # ---------------------------------------------------------------------------
 
@@ -1954,13 +2215,17 @@ def zeroed(all_kernels):
     return {n: 0 for n in all_kernels}
 
 
-def check_losses(tag, got, want, exact=None):
-    """Card losses against the CPU's f32 ones: 1e-3 relative."""
+def check_losses(tag, got, want, exact=None, zero=()):
+    """Card losses against the CPU's f32 ones: 1e-3 relative; the losses in
+    ``zero`` (0 in exact arithmetic, float noise on each side) 1e-6
+    absolute."""
     rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
     print(f"[{tag}] losses card {got}, CPU {want}"
-          + (f", CPU f64 {exact}" if exact else "") + f": relative differences {rel} (tol 1e-3)")
-    check(all(np.isfinite(v) for v in got.values()) and all(r <= 1e-3 for r in rel.values()),
-          f"[{tag}] card vs CPU losses differ: {rel}")
+          + (f", CPU f64 {exact}" if exact else "") + f": relative differences {rel} (tol 1e-3"
+          + (f"; {', '.join(zero)} 1e-6 absolute" if zero else "") + ")")
+    check(all(np.isfinite(v) for v in got.values())
+          and all(abs(got[k] - want[k]) <= 1e-6 if k in zero else r <= 1e-3
+                  for k, r in rel.items()), f"[{tag}] card vs CPU losses differ: {rel}")
 
 
 def check_grads(tag, nets, sides):
@@ -2311,14 +2576,16 @@ def write_s2_corpus(root):
     return os.path.join(root, "meta.csv")
 
 
-def timed_steps(tag, step, state, batch, gen, n, smi, all_kernels, tokens=None, seg_s=None):
+def timed_steps(tag, step, state, batch, gen, n, smi, all_kernels, tokens=None, seg_s=None,
+                per_step=None, profile=True):
     """One warm-up step, then n steps between CUDA events: ms, steps/s, tokens
     or segment audio s per s, peak memory, launches (none of the hand-written
-    kernels); then one step profiled. Returns the mean ms."""
+    kernels, but ``per_step``'s counts a step); then, with ``profile``, one
+    step profiled. Returns the mean ms."""
     step(state, batch, generator=gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    expected = zeroed(all_kernels)
+    expected = zeroed(all_kernels) | {k: c * n for k, c in (per_step or {}).items()}
     times = []
     for _ in range(n):
         ms, out = event_ms(lambda: step(state, batch, generator=gen))
@@ -2326,15 +2593,16 @@ def timed_steps(tag, step, state, batch, gen, n, smi, all_kernels, tokens=None, 
         vals = {k: float(v) for k, v in out.items()}
         check(all(np.isfinite(v) for v in vals.values()), f"[{tag}] a loss is not finite: {vals}")
     got = launches_now(all_kernels)
-    check(got == expected, f"[{tag}] a step launched a hand-written kernel: {got}")
+    check(got == expected, f"[{tag}] {n} steps launched {got}, expected {expected}")
     ms = float(np.mean(times))
     rate = (f"{tokens * 1e3 / ms:.1f} semantic tokens/s ({tokens} a step)" if tokens is not None
             else f"{seg_s * 1e3 / ms:.2f} segment audio s per s")
     print(f"[{tag}] a step {', '.join(f'{m:.3f}' for m in times)} ms (CUDA events), mean "
           f"{ms:.3f}: {1e3 / ms:.3f} steps/s, {rate}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {got}; {smi}; "
-          f"last {vals}")
-    profile_step(f"{tag} step", lambda: step(state, batch, generator=gen), smi)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches over {n} steps {got}; "
+          f"{smi}; last {vals}")
+    if profile:
+        profile_step(f"{tag} step", lambda: step(state, batch, generator=gen), smi)
     return ms
 
 
@@ -2456,12 +2724,25 @@ def train_s1_phase(kernels, smi, dev=torch.device("cuda")):
 
 
 def s2_parity(mcfg, tcfg, trees, pair, seed, dev):
-    """``[train-s2-parity]``: one S2 step of the B2 pair from fresh EMA
-    buffers (so k-means runs) on the card, in f32 and in f64 on the CPU,
+    """``[train-s2-parity]``: one S2 step of the B2 pair from ``trees`` and
+    fresh EMA buffers (so k-means runs) on the card, in f32 and in f64 on the CPU,
     from the same trees and draws (the k-means initial rows, the posterior
     normal, the slice starts), D's learning rate 0: losses card vs CPU f32
     within 1e-3 relative, G and D gradients within PARITY_GRAD_L2 of the
-    f64 step's, the EMA buffers card vs CPU f32 within 1e-5 relative."""
+    f64 step's, the EMA buffers card vs CPU f32 within 1e-5 relative,
+    summed over each group of codes that k-means starts equal; a loss that
+    the f64 step puts below 1e-9 (the commitment loss where every k-means
+    row drew a code of its own: 0 in exact arithmetic), 1e-6 absolute.
+
+    A B2 pair has fewer rows than the codebook has codes (and its padded
+    frames are equal rows), so k-means starts codes at equal values: the
+    argmin between equal codes falls by rounding, which differs between the
+    card and the CPU, so which of them takes a row, or how equal rows split
+    among them, is arbitrary. A group's sums do not depend on it (every
+    code of a group keeps the group's value); each code's own difference is
+    printed. The grouped check must fail two faults planted in the card's
+    EMA step: a decay off by 0.01, and one row's count and features moved
+    to a code of another group."""
     rng = np.random.default_rng(seed)
     t_f = pair["spec"].shape[1]
     n = min(2 * (t_f // 2), 500)  # the rows k-means samples from
@@ -2471,19 +2752,126 @@ def s2_parity(mcfg, tcfg, trees, pair, seed, dev):
                                        .astype(np.float32)),
              "ids_slice": torch.tensor((rng.uniform(size=2) * np.maximum(
                  pair["spec_lengths"] - mcfg.segment_size + 1, 1)).astype(np.int32))}
+    real, real_ema, initial, ema_args = rvq.kmeans_init, rvq.ema_step, [], []
+
+    def kmeans_init(state, x, **kw):  # each side's initial means, kept on the host
+        initial.append(x[:kw.get("max_samples", 500)][kw["ids"].to(x.device).long()].cpu())
+        return real(state, x, **kw)
+
+    def ema_step(state, x, **kw):  # each side's inputs, for the planted faults below
+        ema_args.append((state, x, kw))
+        return real_ema(state, x, **kw)
+
     t0 = time.perf_counter()
-    sides, losses = parity_sides(
-        lambda d: gpt_sovits_train.init_s2_state(mcfg, tcfg, device=d, trees=trees),
-        lambda dt: gpt_sovits_train.make_s2_step(mcfg, tcfg, compute_dtype=dt), pair, noise, dev,
-        d_lr0=True)
+    rvq.kmeans_init, rvq.ema_step = kmeans_init, ema_step
+    try:
+        sides, losses = parity_sides(
+            lambda d: gpt_sovits_train.init_s2_state(mcfg, tcfg, device=d, trees=trees),
+            lambda dt: gpt_sovits_train.make_s2_step(mcfg, tcfg, compute_dtype=dt), pair, noise,
+            dev, d_lr0=True)
+    finally:
+        rvq.kmeans_init, rvq.ema_step = real, real_ema
     print(f"[train-s2-parity] one step, B2 T_f {t_f}, card f32 vs CPU f32 and f64 (the three "
           f"{time.perf_counter() - t0:.1f} s; D lr 0; k-means from fresh buffers)")
-    check_losses("train-s2-parity", *losses)
+    # with fewer k-means rows than codes every row can draw a code of its own,
+    # and the first step's commitment loss is then 0 in exact arithmetic
+    check_losses("train-s2-parity", *losses,
+                 zero=tuple(k for k, v in losses[2].items() if abs(v) < 1e-9))
     check_grads("train-s2-parity", ("g", "d"), sides)
-    rel = {k: float((sides[0].vq[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1e-30)
-           for k, v in sides[1].vq.items()}
-    print(f"[train-s2-parity] EMA buffers card vs CPU f32: relative {rel} (tol 1e-5)")
+    each = {k: float((sides[0].vq[k].cpu() - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+            for k, v in sides[1].vq.items()}
+    group = equal_codes(initial[0], initial[1])
+    rel = grouped_rel(sides[0].vq, sides[1].vq, group)
+    # where the card's run may differ: the trained trees, each side's initial
+    # means (digests), and how many distinct rows each side's means hold
+    print(f"[train-s2-parity] digests: trees {digest(trees['g'])}, initial means "
+          f"card {digest(initial[0])} CPU {digest(initial[1])}; distinct initial means card "
+          f"{len(torch.unique(initial[0], dim=0))} CPU {len(torch.unique(initial[1], dim=0))}")
+    print(f"[train-s2-parity] EMA buffers card vs CPU f32, summed over each group of codes that "
+          f"start equal ({int(group.max()) + 1} groups, {mcfg.n_codes} codes): relative {rel} "
+          f"(tol 1e-5); code by code {each}")
     check(all(r <= 1e-5 for r in rel.values()), f"[train-s2-parity] EMA buffers differ: {rel}")
+
+    # the grouped check must see a fault in the card's EMA step: a decay off
+    # by 0.01; one row's count and features moved to a code of another group
+    state, x, kw = ema_args[0]
+    x0 = x[0].detach()
+    c = int(rvq.quantize(state["embed"], x0[None])[0])
+    c2 = int(torch.nonzero(group != group[c])[0, 0])
+    w = 1 - kw["decay"]
+    moved = {k: v.clone() for k, v in sides[0].vq.items()}
+    moved["cluster_size"][c] -= w
+    moved["cluster_size"][c2] += w
+    moved["embed_avg"][c] -= w * x0
+    moved["embed_avg"][c2] += w * x0
+    planted = {"decay": grouped_rel(real_ema(state, x, **{**kw, "decay": kw["decay"] - 0.01}),
+                                    sides[1].vq, group),
+               "moved row": grouped_rel(moved, sides[1].vq, group)}
+    print(f"[train-s2-parity] planted faults in the card's EMA step, grouped: {planted} (each must "
+          f"exceed 1e-5)")
+    check(all(max(r.values()) > 1e-5 for r in planted.values()),
+          f"[train-s2-parity] the grouped EMA check misses a planted fault: {planted}")
+
+
+def digest(*trees):
+    """The first 12 hex digits of a SHA-1 over the bytes of the trees' leaves
+    (numpy arrays or CPU tensors)."""
+    h = hashlib.sha1()
+    for a in tree_leaves(list(trees)):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:12]
+
+
+def grouped_rel(got, want, group):
+    """``cluster_size`` and ``embed_avg`` of two EMA states, each summed
+    over the codes of a ``group`` label (K,): the largest difference
+    relative to ``want``'s largest group sum."""
+    n_groups = int(group.max()) + 1
+
+    def by_group(v):
+        v = v.detach().cpu().double()
+        return torch.zeros((n_groups,) + v.shape[1:], dtype=v.dtype).index_add_(0, group, v)
+
+    return {k: float((by_group(got[k]) - by_group(want[k])).abs().max())
+            / max(float(by_group(want[k]).abs().max()), 1e-30)
+            for k in ("cluster_size", "embed_avg")}
+
+
+def equal_codes(*initial):
+    """Group labels (K,) of codes whose initial means (K, D) are equal on
+    any side: the components of "equal on the card or on the CPU"."""
+    labels = torch.arange(initial[0].shape[0])
+    while True:
+        old = labels.clone()
+        for means in initial:
+            inverse = torch.unique(means, dim=0, return_inverse=True)[1]
+            low = torch.full((int(inverse.max()) + 1,), labels.numel()).scatter_reduce(
+                0, inverse, labels, "amin")
+            labels = torch.minimum(labels, low[inverse])
+        if torch.equal(labels, old):
+            return torch.unique(labels, return_inverse=True)[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (cuDNN's too) inside the block: the
+    card's S2 step otherwise sums weight and embedding gradients in an
+    order that varies from run to run, so the trees the parity starts from
+    differed in every run. An op with no deterministic form warns
+    (``warn_only``: reflection padding's backward); cuBLAS on one stream is
+    deterministic, which is what its workspace setting asks for."""
+    old = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+           os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic = old[1]
+        if old[2] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
 
 
 def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
@@ -2519,7 +2907,10 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
         expected = zeroed(all_kernels)
         t0 = time.perf_counter()
         args = ["--stage", "s2", "-c", cfg_path, "-m", model_dir]
-        first, m1 = run_gpt_sovits.main(args + ["--max-steps", "1"])
+        # run_gpt_sovits's steps in deterministic algorithms, so the trees that
+        # [train-s2-parity] starts from are the same in every run
+        with deterministic():
+            first, m1 = run_gpt_sovits.main(args + ["--max-steps", "1"])
         check(first.step == 1 and first.vq_inited and bool(first.vq["inited"] > 0),
               f"[train-s2] after one step: step {first.step}, inited {first.vq['inited']}")
         print(f"[train-s2] run_gpt_sovits --stage s2 --max-steps 1 in "
@@ -2528,7 +2919,8 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
               f"{float(first.vq['cluster_size'].sum()):.4f}; {m1}")
         del first
         t0 = time.perf_counter()
-        state, metrics = run_gpt_sovits.main(args + ["--max-steps", "3"])
+        with deterministic():
+            state, metrics = run_gpt_sovits.main(args + ["--max-steps", "3"])
         got = launches_now(all_kernels)
         check(state.step == 3 and metrics and all(np.isfinite(v) for v in metrics.values())
               and state.params["g"].device.type == "cuda",
@@ -2544,6 +2936,7 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
         print("[train-s2] STATE_3 restored into a fresh state: step, params, AdamW states and "
               "EMA buffers equal")
         del fresh
+        trees = {k: m.numpy_tree() for k, m in state.params.items()}  # STATE_3's, for the parity
 
         ds = gpt_sovits_data.S2Dataset(dcfg)
         batch_np = next(ShuffleBatcher(ds, 8).epoch(0))
@@ -2557,7 +2950,6 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
         # the trained tree (the bundle layout, its codebook the EMA's) decodes
         # one utterance on the card through kernel 1, and on the CPU
         tree = to_port_layout(state.bundle_tree())
-        trees = {k: m.numpy_tree() for k, m in state.params.items()}
         del state
         torch.cuda.empty_cache()
         i = int(np.argmin(batch_np["spec_lengths"]))
@@ -2603,7 +2995,8 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
         nf += nf % 2
         pair = {**pair, "ssl": pair["ssl"][:, :nf], "spec": pair["spec"][:, :nf],
                 "text": pair["text"][:, :nt], "wav": pair["wav"][:, :nf * tcfg.hop_length]}
-        s2_parity(mcfg, tcfg, trees, pair, TRAIN_SEED + 34, dev)
+        with deterministic():
+            s2_parity(mcfg, tcfg, trees, pair, TRAIN_SEED + 34, dev)
     print(f"[train-s2] phase wall {time.perf_counter() - t_phase:.1f} s")
     return got["banded_attention"], case
 
@@ -2811,6 +3204,18 @@ def main() -> int:
     train_launches, mas_cases = train_phase(kernels, smi)
     torch.cuda.empty_cache()
 
+    # 14-15. every variant trains; the WavLM/SLM loss
+    with tempfile.TemporaryDirectory(prefix="vits2-train-more-") as root:
+        t0 = time.perf_counter()
+        write_corpus(root)
+        variant_mas, variant_serve = train_variants_phase(kernels, smi, root)
+        print(f"[train-variants] wall {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        slm_mas = train_slm_phase(kernels, smi, root)
+        print(f"[train-slm] wall {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     # 10-11. StableTTS CFM training and QuickVC GAN training at full width
     train_stabletts_phase(kernels, smi)
     torch.cuda.empty_cache()
@@ -2843,6 +3248,7 @@ def main() -> int:
                "variants_launches": var_launches[name],
                "variants_vc_launches": var_vc_launches[name],
                **({"train_s2_launches": s2_launches} if name == "banded_attention" else {}),
+               "train_variants_serve_launches": variant_serve[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
@@ -2860,6 +3266,7 @@ def main() -> int:
     record.append({"name": "mas", "route": "cuda",
                    "source": os.path.relpath(mas.KERNEL.source, ROOT),
                    "replaces": "vosk_tts_tpu/ops/mas.py:24", "launches": train_launches,
+                   "train_variants_launches": variant_mas, "train_slm_launches": slm_mas,
                    "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
                    **{key: mas_cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                    "library_ms": None, "shape": mas_cases[0]["shape"], "path": "train",

@@ -12,6 +12,10 @@ imports no JAX, so on a machine with the card and without JAX it runs as
   same parameters, noise and alignment (the card's) within 1e-3 relative
   in every loss (f32 on both sides, TF32 off, other summation orders);
 * the AdamW moments lie on the card;
+* a variant's step (``mono_layer_inter_residual`` + ``ms_istft``/onnx +
+  ``dp_apply``) and an SLM step (``fft`` + ``hifigan`` with a small WavLM
+  and its discriminator) on the card against the CPU: losses within 1e-3
+  relative, only MAS launched;
 * a StableTTS micro-step (a cycle of 2, so the second moves the
   parameters) and a QuickVC GAN step at small widths on the card against
   the same steps on the CPU from the same parameters, noise and batch:
@@ -34,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from vosk_tts_tpu_torch.models import gpt_sovits, quickvc, stabletts, vits2
+from vosk_tts_tpu_torch.models import gpt_sovits, quickvc, stabletts, vits2, wavlm
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
 from vosk_tts_tpu_torch.ops import mas
@@ -46,7 +50,7 @@ from vosk_tts_tpu_torch.train import vits2_train as tt
 from vosk_tts_tpu_torch.utils.params import (ar_init, matcha_init, mpd_init,
                                              perturb_matcha_zero_init, perturb_zero_init,
                                              quickvc_init, sovits_init, synthesizer_init,
-                                             to_port_layout)
+                                             to_port_layout, wavlm_init)
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +145,55 @@ def test_train_step_on_card(dev):
 
 ALL_KERNELS = (fa.KERNEL, ddf.KERNEL, fa.GLOBAL_ROPE_KERNEL, fa.GLOBAL_PACKED_KERNEL,
                fa.GLOBAL_KERNEL, mas.KERNEL)
+
+WAVLM = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+             conv_dim=(16, 16), conv_kernel=(10, 4), conv_stride=(5, 4), num_conv_pos_embeddings=16,
+             num_conv_pos_embedding_groups=4, num_buckets=32, max_bucket_distance=50)
+
+
+@pytest.mark.parametrize("over,use_slm", [
+    (dict(transformer_flow_type="mono_layer_inter_residual", decoder_type="ms_istft",
+          istft_mode="onnx", use_sdp=False), False),
+    (dict(transformer_flow_type="fft", decoder_type="hifigan", upsample_rates=(8, 8, 2, 2),
+          upsample_kernel_sizes=(16, 16, 4, 4)), True)],
+    ids=["mono_ms_istft_dp", "fft_hifigan_slm"])
+def test_variant_step_on_card(dev, over, use_slm):
+    """A variant's step (windowless flow attention, the deterministic
+    duration predictor, the onnx iSTFT; or the FFT flow and HiFiGAN with the
+    WavLM/SLM branch) on the card against the CPU from the same trees,
+    noise and alignment (the card's): losses within 1e-3 relative; only MAS
+    launched (kernel 5 serves these flows, training takes the dense route)."""
+    mcfg = vits2.VITS2Config(**{**CFG, **over})
+    tcfg = tt.TrainConfig(**TRAIN, use_slm=use_slm)
+    trees = tt.init_trees(mcfg, tcfg, seed=0, slm_hidden=32, slm_layers=3, slm_initial=16)
+    trees["g"] = to_port_layout(perturb_zero_init(synthesizer_init(mcfg, 0), seed=1))
+    wl_cfg = wavlm.WavLMConfig(**WAVLM)
+    wl_tree = to_port_layout(wavlm_init(wl_cfg, 2))
+    batch, noise = _batch(dev)
+    if not mcfg.use_sdp:
+        noise = {k: v for k, v in noise.items() if k not in ("e_q", "z")}
+    runs, attn = {}, None
+    for d in (dev, torch.device("cpu")):
+        state = tt.init_train_state(mcfg, tcfg, device=d, trees=trees)
+        b = {k: v.to(d) for k, v in batch.items()}
+        n = {k: v.to(d) for k, v in noise.items()}
+        if attn is None:
+            with torch.no_grad():
+                attn = vits2.forward_train(state.params["g"].params, mcfg, b["x"], b["x_lengths"],
+                                           b["mel"], b["mel_lengths"], b["sid"], noise=n)["attn"]
+        else:
+            n["attn"] = attn.to(d)
+        slm = wavlm.WavLM(wl_cfg, wl_tree).to(d) if use_slm else None
+        before = [k.launches for k in ALL_KERNELS]
+        out = tt.make_train_step(mcfg, tcfg, slm=slm)(state, b, noise=n)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert [k.launches - m for k, m in zip(ALL_KERNELS, before)] == [0] * 5 + [1]
+        runs[d.type] = {k: float(v) for k, v in out.items()}
+    got, want = runs["cuda"], runs["cpu"]
+    assert use_slm == ("loss_slm_disc" in got)
+    for k, w in want.items():
+        assert np.isfinite(got[k]) and abs(got[k] - w) <= 1e-3 * abs(w) + 1e-12, (k, got[k], w)
 
 
 def _card_and_cpu(dev, make_state, step_fn, batch, noise, n_steps=1):

@@ -50,14 +50,16 @@ _IMPORT_TRAIN = textwrap.dedent("""
                  "gpt_sovits_data", "gpt_sovits_train", "scaled_adam", "run_gpt_sovits"):
         importlib.import_module("vosk_tts_tpu_torch.train." + name)
     importlib.import_module("vosk_tts_tpu_torch.models.discriminators")
+    importlib.import_module("vosk_tts_tpu_torch.models.wavlm")
+    importlib.import_module("vosk_tts_tpu_torch.ops.resample")
     importlib.import_module("vosk_tts_tpu_torch.ops.rvq")
     print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))
 """)
 
 
 def test_train_imports_no_jax():
-    """The training package (train/, the discriminators, the codebook's
-    buffers) in a fresh process."""
+    """The training package (train/, the discriminators, WavLM and the
+    resampler of the SLM loss, the codebook's buffers) in a fresh process."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN], capture_output=True, text=True,
                        cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr

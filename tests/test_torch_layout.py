@@ -14,6 +14,7 @@ from vosk_tts_tpu_torch.models.bert import BertConfig
 from vosk_tts_tpu_torch.models.gpt_sovits import ARConfig, SoVITSConfig
 from vosk_tts_tpu_torch.models.hubert import HubertConfig
 from vosk_tts_tpu_torch.models.quickvc import QuickVCConfig
+from vosk_tts_tpu_torch.models.wavlm import WavLMConfig
 from vosk_tts_tpu_torch.utils import params as P
 from vosk_tts_tpu_torch.utils.checkpoint import _flatten
 
@@ -41,6 +42,7 @@ BERT = dict(vocab_size=30, hidden_size=16, num_hidden_layers=2, num_attention_he
 HUBERT = dict(hidden_size=16, num_hidden_layers=2, num_attention_heads=2, intermediate_size=32,
               conv_dim=(8, 8), conv_stride=(5, 2), conv_kernel=(10, 3),
               num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=4)
+WAVLM = dict(HUBERT, num_buckets=16, max_bucket_distance=32)
 
 
 def _matcha():
@@ -60,6 +62,9 @@ TREES = {
     "sovits": (lambda: P.sovits_init(SoVITSConfig(**SOVITS), 7), P.SOVITS_LINEARS),
     "bert": (lambda: P.bert_init(BertConfig(**BERT), 8), P.BERT_LINEARS),
     "hubert": (lambda: P.hubert_init(HubertConfig(**HUBERT), 9), P.HUBERT_LINEARS),
+    "wavlm": (lambda: P.wavlm_init(WavLMConfig(**WAVLM), 10), P.WAVLM_LINEARS),
+    # its pre is a 1x1 conv (1, 3 x 16, 8): under LINEARS it comes back as one
+    "wavlm_disc": (lambda: P.wavlm_disc_init(11, 16, 3, 8), P.LINEARS),
 }
 
 
@@ -92,6 +97,21 @@ def test_linears_differ_between_trees():
     assert P.from_port_layout(ar, P.LINEARS)["layers"][0]["qkv"]["w"].shape == (1, 32, 96)
     with pytest.raises(TypeError):
         P.from_port_layout(ar)
+
+
+def test_wavlm_leaves_keep_their_layout():
+    """WavLM's per-head tables are not ``"w"`` and keep their layout; its
+    Linears become (O, I); the discriminator's ``pre`` 1x1 conv (O, I), and
+    restored as (1, I, O), never as a Linear."""
+    port = P.to_port_layout(P.wavlm_init(WavLMConfig(**WAVLM), 10))
+    assert port["layers"][0]["gru_const"].shape == (1, 2, 1, 1)
+    assert port["rel_attn_embed"].shape == (16, 2)
+    assert port["layers"][0]["gru_lin"]["w"].shape == (8, 8)  # (8, head_dim)
+    assert port["fp"]["w"].shape == (16, 8)
+    disc = P.to_port_layout(P.wavlm_disc_init(11, 16, 3, 8))
+    assert disc["pre"]["w"].shape == (8, 48)
+    assert P.from_port_layout(disc, P.LINEARS)["pre"]["w"].shape == (1, 48, 8)
+    assert "pre" not in P.WAVLM_LINEARS
 
 
 def test_matcha_fused_qkv_round_trip():

@@ -14,11 +14,17 @@ with aligned phone texts, the shipped flags (``pre_conv2`` flows, SDP,
   ``mpmsd_init``/``duration_disc_init`` have the JAX inits' structure and
   shapes;
 * the port's ``G_*.npz`` is read by the JAX package's ``load_params`` and
-  equals the trained generator in the JAX layout.
+  equals the trained generator in the JAX layout;
+* ``--wavlm-dir`` (a tiny WavLM written by the port) trains the SLM
+  branch, saves and resumes the WavLM discriminator with its optimizer,
+  and finetunes from a pretrained state that has none;
+* a step given only one of the WavLM and the WavLM discriminator raises,
+  and a saved state may lack only the WavLM discriminator.
 """
 
 import dataclasses
 import json
+import shutil
 import wave
 
 import numpy as np
@@ -31,6 +37,7 @@ from vosk_tts_tpu.models import discriminators as jd
 from vosk_tts_tpu.models import vits2 as jv
 from vosk_tts_tpu.utils import checkpoint as jckpt
 from vosk_tts_tpu_torch.models import vits2 as tv
+from vosk_tts_tpu_torch.models.wavlm import WavLMConfig
 from vosk_tts_tpu_torch.ops import pqmf as tpqmf
 from vosk_tts_tpu_torch.ops import stft as tstft
 from vosk_tts_tpu_torch.train import losses as tl
@@ -159,7 +166,7 @@ def test_resume_restores_state(corpus, tmp_path):
     state = tt.init_train_state(mcfg, tcfg, seed=99, device="cpu")
     assert run_vits2.resume_state(model_dir, state) == saved["epoch"]
     assert state.step == 1
-    for net in tt.NETS:
+    for net in state.params:
         for k, v in saved[f"params_{net}"].items():
             torch.testing.assert_close(state.params[net].state_dict()[k], v, rtol=0, atol=0)
         opt = state.opt[net].state_dict()
@@ -217,10 +224,89 @@ def test_from_port_layout_inverts_to_port_layout():
                 == [a.shape for a in jax.tree.leaves(theirs)])
 
 
-def test_wavlm_dir_is_refused(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        run_vits2.main(["-c", _write_cfg(tmp_path, corpus), "-m", str(tmp_path / "m"),
-                        "--device", "cpu", "--wavlm-dir", str(tmp_path)])
+def _write_wavlm(path):
+    """A tiny WavLM directory: ``config.json`` in the Hugging Face form and
+    ``params.npz`` (``wavlm_init``'s tree, the bundle layout)."""
+    cfg = WavLMConfig(hidden_size=8, num_hidden_layers=1, num_attention_heads=2,
+                      intermediate_size=16, conv_dim=(8, 8), conv_kernel=(10, 4),
+                      conv_stride=(5, 4), num_conv_pos_embeddings=8,
+                      num_conv_pos_embedding_groups=2, num_buckets=16, max_bucket_distance=32)
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(cfg.to_hf()), encoding="utf-8")
+    ckpt.save_params(str(path / "params.npz"), P.wavlm_init(cfg, seed=3))
+    return str(path)
+
+
+def test_wavlm_dir_trains(corpus, tmp_path):
+    """``--wavlm-dir`` trains the SLM branch: finite ``loss_slm_disc``,
+    ``loss_lm`` and ``loss_lm_gen``; STATE_* carries the WavLM
+    discriminator (2 states, 8 channels in) and its AdamW state, and a resume
+    restores them; ``--finetune`` from a pretrained STATE without one starts
+    it fresh and copies G and D."""
+    cfg = _write_cfg(tmp_path, corpus)
+    wdir = _write_wavlm(tmp_path / "wavlm")
+    model_dir = str(tmp_path / "m")
+    state, metrics = run_vits2.main(["-c", cfg, "-m", model_dir, "--device", "cpu",
+                                     "--wavlm-dir", wdir, "--max-steps", "1"])
+    for k in ("loss_slm_disc", "loss_lm", "loss_lm_gen"):
+        assert np.isfinite(metrics[k]) and metrics[k] > 0, metrics
+    saved = ckpt.load_full_state(model_dir, "STATE")
+    assert "params_wd" in saved and saved["opt_wd"]["state"]
+    assert state.params["wd"].params["pre"]["w"].shape == (64, 2 * 8)
+
+    mcfg, tcfg, _ = run_vits2.build_configs(cfg_dict(corpus))
+    tcfg = dataclasses.replace(tcfg, use_slm=True)
+    fresh = tt.init_train_state(mcfg, tcfg, seed=99, device="cpu", slm_hidden=8, slm_layers=2)
+    assert run_vits2.resume_state(model_dir, fresh) == saved["epoch"]
+    for k, v in saved["params_wd"].items():
+        torch.testing.assert_close(fresh.params["wd"].state_dict()[k], v, rtol=0, atol=0)
+    for i, s in saved["opt_wd"]["state"].items():
+        torch.testing.assert_close(fresh.opt["wd"].state_dict()["state"][i]["exp_avg"],
+                                   s["exp_avg"], rtol=0, atol=0)
+    again, _ = run_vits2.main(["-c", cfg, "-m", model_dir, "--device", "cpu", "--wavlm-dir", wdir,
+                               "--max-steps", "2"])
+    assert again.step == 2
+
+    # finetune with the SLM loss from a pretrained run without it
+    pre, _ = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "pre"), "--device", "cpu",
+                             "--max-steps", "1"])
+    assert "params_wd" not in ckpt.load_full_state(str(tmp_path / "pre"), "STATE")
+    ft, m = run_vits2.main(["-c", cfg, "-m", str(tmp_path / "ft"), "--device", "cpu",
+                            "--wavlm-dir", wdir, "--finetune", str(tmp_path / "pre"),
+                            "--max-steps", "1"])
+    assert np.isfinite(m["loss_slm_disc"]) and ft.step == 1
+    before, after = _leaves(pre, "dur"), _leaves(ft, "dur")
+    for k in before:  # copied from the pretrained state, then kept frozen
+        torch.testing.assert_close(after[k], before[k], rtol=0, atol=0)
+    shutil.rmtree(tmp_path)  # ~0.5 GB a STATE (the full-size discriminators)
+
+
+def test_slm_switches_must_agree(corpus, tmp_path):
+    """A step raises ValueError where only one of the WavLM (``slm=``) and
+    the WavLM discriminator (``TrainConfig.use_slm``) is given, instead of
+    skipping the SLM loss; ``load_state_dict`` leaves only a missing WavLM
+    discriminator at its init and raises KeyError for any other missing
+    network."""
+    mcfg, tcfg, dcfg = run_vits2.build_configs(cfg_dict(corpus))
+    tcfg = dataclasses.replace(tcfg, disc_periods=(2,), disc_spec_ffts=(256,))
+    slm_tcfg = dataclasses.replace(tcfg, use_slm=True)
+    batch = to_device(next(iter(BucketBatcher(TTSDataset(dcfg), 2).epoch(0))), "cpu")
+    slm = run_vits2.load_wavlm(_write_wavlm(tmp_path / "wavlm"), "cpu")
+    dims = dict(slm_hidden=8, slm_layers=2)
+    plain = tt.init_train_state(mcfg, tcfg, seed=0, device="cpu")
+    with_wd = tt.init_train_state(mcfg, slm_tcfg, seed=0, device="cpu", **dims)
+    for state, step in ((plain, tt.make_train_step(mcfg, tcfg, slm=slm)),
+                        (with_wd, tt.make_train_step(mcfg, slm_tcfg))):
+        with pytest.raises(ValueError, match="SLM branch"):
+            step(state, batch, generator=torch.Generator().manual_seed(0))
+
+    fresh = tt.init_train_state(mcfg, slm_tcfg, seed=1, device="cpu", **dims)
+    fresh.load_state_dict(plain.state_dict())  # the WavLM discriminator keeps its init
+    for k, v in _leaves(plain, "dur").items():
+        torch.testing.assert_close(fresh.params["dur"].state_dict()[k], v, rtol=0, atol=0)
+    saved = {k: v for k, v in with_wd.state_dict().items() if not k.endswith("_dur")}
+    with pytest.raises(KeyError, match="params_dur"):
+        fresh.load_state_dict(saved)
 
 
 def test_driver_needs_cuda_without_device(corpus, tmp_path):

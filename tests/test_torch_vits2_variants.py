@@ -251,18 +251,45 @@ def test_inits_and_layouts_match_jax():
 
 
 def test_configs_refused_and_training_variants():
-    """Serving refuses only what neither package knows; training refuses
-    every configuration but the shipped one."""
+    """Serving refuses only what neither package knows; every configuration
+    it serves also trains: one port train step of each (tiny mel settings,
+    the decoder's samples a frame as the hop) gives finite losses and moves
+    the generator. Its parity with the JAX step is
+    tests/test_torch_vits2_variants_train.py's."""
+    from vosk_tts_tpu_torch.train import vits2_train as tt
+
     for bad in (dict(transformer_flow_type="nope"), dict(decoder_type="wavenet"),
                 dict(istft_mode="cufft")):
         with pytest.raises(ValueError):
             tv.check_ported(tv.VITS2Config(**{**BASE, **bad}))
-    tv.check_trainable(tv.VITS2Config())
-    for flow, extra in BUNDLES.items():
-        cfg = tv.VITS2Config(**_cfg(flow, **extra))
+    rng = np.random.default_rng(9)
+    for i, (flow, extra) in enumerate(BUNDLES.items()):
+        cfg = tv.VITS2Config(**{**_cfg(flow, **extra), "segment_size": 8})
         tv.check_ported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            tv.check_trainable(cfg)
+        hop, t_x, t_f = cfg.upsample_factor, 10, 24
+        tcfg = tt.TrainConfig(hop_length=hop, filter_length=256, win_length=256,
+                              n_mel_channels=cfg.spec_channels, disc_periods=(2,),
+                              disc_spec_ffts=(128,), fft_sizes=(64, 128, 32), hop_sizes=(8, 16, 4),
+                              win_lengths=(32, 64, 16))
+        trees = tt.init_trees(cfg, tcfg, seed=i)
+        trees["g"] = to_port_layout(perturb_zero_init(synthesizer_init(cfg, i), i + 1))
+        state = tt.init_train_state(cfg, tcfg, device="cpu", trees=trees)
+        before = {k: v.detach().clone() for k, v in state.params["g"].leaves().items()}
+        batch = {"x": torch.tensor(rng.integers(1, 40, (2, t_x))),
+                 "x_lengths": torch.tensor([t_x, 7]),
+                 "mel": torch.tensor(rng.standard_normal((2, t_f, cfg.spec_channels)),
+                                     dtype=torch.float32),
+                 "mel_lengths": torch.tensor([t_f, 19]),
+                 "wav": torch.tensor(rng.standard_normal((2, t_f * hop)) * 0.3,
+                                     dtype=torch.float32),
+                 "sid": torch.tensor([0, 3])}
+        metrics = tt.make_train_step(cfg, tcfg)(state, batch,
+                                                generator=torch.Generator().manual_seed(i))
+        vals = {k: float(v) for k, v in metrics.items()}
+        assert all(np.isfinite(v) for v in vals.values()), (flow, vals)
+        assert (vals["loss_subband"] != 0) == (cfg.decoder_type == "mb_istft"), flow
+        moved = sum(not torch.equal(before[k], v) for k, v in state.params["g"].leaves().items())
+        assert moved > 0.9 * len(before), (flow, moved, len(before))
 
 
 # ---------------------------------------------------------------------------

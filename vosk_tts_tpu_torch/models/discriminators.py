@@ -2,7 +2,8 @@
 (vosk_tts_tpu/models/discriminators.py): period (DiscriminatorP), scale
 (DiscriminatorS), multiband spectral (DiscriminatorSpec), their
 MultiPeriodMultiSpec combination (VITS2), the MultiPeriod one of S and the
-periods (QuickVC), and the duration discriminator (variant 2).
+periods (QuickVC), the duration discriminator (variant 2) and the WavLM
+discriminator of the SLM loss.
 
 Weights are in the port's layouts (utils/params.py: Conv2d (O, I, kh, kw),
 Conv1d (O, I/groups, K)). The waveform discriminators run channels-first,
@@ -12,7 +13,8 @@ torch's own layout for ``F.conv2d``/``F.conv1d``: a feature map is
 (B, n) rows, the spectral one's (B, 1, frames, F'). Every loss over them
 is a mean, a sum or a median over all elements, so it does not see the
 layout. The duration discriminator is channels-last, as in the JAX package.
-The WavLM discriminator waits for the SLM branch.
+The WavLM discriminator takes the stacked WavLM states channels-last, as
+the JAX package does, and runs its k=5 and k=3 convs channels-first.
 """
 
 from __future__ import annotations
@@ -138,3 +140,15 @@ def duration_disc_apply(params, x, x_mask, dur_r, dur_hat):
         h = block(h, "pre_out_conv2", "pre_out_norm2") * x_mask
         probs.append(torch.sigmoid(F.linear(h, params["output"]["w"], params["output"]["b"])))
     return probs
+
+
+def wavlm_disc_apply(params, x):
+    """The WavLM (SLM) discriminator: x (B, T, slm_hidden * slm_layers), the
+    stacked hidden states (models/wavlm.stacked_hidden_states: feature
+    l * hidden + h), -> logits (B, T). The 1x1 ``pre`` conv, three k=5
+    convs with leaky ReLU, a k=3 ``post`` conv."""
+    h = F.linear(x, params["pre"]["w"], params["pre"]["b"]).transpose(1, 2)  # (B, C, T)
+    for c in params["convs"]:
+        h = _lrelu(F.conv1d(h, c["w"], c["b"], padding=2))
+    h = F.conv1d(h, params["post"]["w"], params["post"]["b"], padding=1)
+    return h.reshape(h.shape[0], -1)

@@ -49,13 +49,18 @@ def _gelu(x):
     return F.gelu(x, approximate="none")
 
 
-def hubert_apply(params, cfg: HubertConfig, wav: torch.Tensor) -> torch.Tensor:
-    """wav: (B, T_samples) at 16 kHz -> last hidden state (B, T_frames, hidden)."""
+def encoder_input(params, cfg, wav: torch.Tensor, *, group_norm: bool = True) -> torch.Tensor:
+    """wav: (B, T_samples) at 16 kHz -> the transformer stack's input (B,
+    T_frames, hidden): the strided conv feature extractor (with
+    ``group_norm``, the first layer's group norm), the feature projection,
+    the grouped conv positional embedding and the encoder's layer norm.
+    HuBERT and WavLM (models/wavlm.py) share it; ``cfg`` needs the conv
+    strides, the positional conv's size and groups and ``layer_norm_eps``."""
     x = wav[..., None]
     for i, stride in enumerate(cfg.conv_stride):
         c = params["conv_layers"][i]
         x = conv1d(x, c["w"], c.get("b"), stride=stride, padding=0)
-        if i == 0:
+        if i == 0 and group_norm:
             # GroupNorm(dim groups, dim channels): each channel normalised over
             # time, biased variance
             mean = x.mean(dim=1, keepdim=True)
@@ -72,8 +77,13 @@ def hubert_apply(params, cfg: HubertConfig, wav: torch.Tensor) -> torch.Tensor:
                  groups=cfg.num_conv_pos_embedding_groups)
     if k % 2 == 0:
         pos = pos[:, :-1]
-    x = layer_norm(x + _gelu(pos), params["enc_ln"]["gamma"], params["enc_ln"]["beta"], eps)
+    return layer_norm(x + _gelu(pos), params["enc_ln"]["gamma"], params["enc_ln"]["beta"], eps)
 
+
+def hubert_apply(params, cfg: HubertConfig, wav: torch.Tensor) -> torch.Tensor:
+    """wav: (B, T_samples) at 16 kHz -> last hidden state (B, T_frames, hidden)."""
+    x = encoder_input(params, cfg, wav)
+    eps = cfg.layer_norm_eps
     b, t, h = x.shape
     heads = cfg.num_attention_heads
     dk = h // heads

@@ -13,12 +13,12 @@ generator also runs as the HiFiGAN v1 vocoder of the multistream bundles
 (``decoder_type="hifigan"`` without speaker conditioning,
 models/vocoder.py) and as GPT-SoVITS's speaker-conditioned ``hifigan``
 decoder with padded-frame masking (models/gpt_sovits.py). Training
-(``forward_train``, train/vits2_train.py) runs the shipped configuration
-(SDP, ``pre_conv2``, ``mb_istft``) with the SDP's NLL and the monotonic
-alignment search (ops/mas.py); its attention and DDSConv take the
-differentiable routes (``flash=False``, ``fused=False``) where the JAX
-package takes its XLA branches; other configurations raise
-NotImplementedError there (:func:`check_trainable`).
+(``forward_train``, train/vits2_train.py) runs every one of those
+configurations, with the monotonic alignment search (ops/mas.py) and the
+SDP's NLL or ``dp_apply``'s squared log-duration error; its attention and
+DDSConv take the differentiable routes (``flash=False``, ``fused=False``)
+where the JAX package takes its XLA branches, and every decoder runs its
+unfused tail.
 
 Shapes are bucketed as in the JAX package (``max_frames``, ``gen_frames``)
 so that both packages see the same shapes; real lengths are returned for
@@ -103,7 +103,8 @@ class VITS2Config:
     def from_reference_json(cls, model_cfg: dict, data_cfg: dict, train_cfg: dict) -> "VITS2Config":
         """From the reference config.json's model, data and train blocks
         (training/vits2/configs/mb_istft_vits2_multi.json), as the JAX
-        package reads them."""
+        package reads them, and the model block's ``istft_mode`` ("torch"
+        or "onnx"), which the JAX reader leaves at "torch"."""
         decoder = next((d for key, d in (("mb_istft_vits", "mb_istft"), ("ms_istft_vits", "ms_istft"),
                                           ("istft_vits", "istft")) if model_cfg.get(key)), "hifigan")
         spec_channels = (data_cfg.get("n_mel_channels", 80)
@@ -132,7 +133,8 @@ class VITS2Config:
             use_spk_conditioned_encoder=get("use_spk_conditioned_encoder", False),
             use_transformer_flows=get("use_transformer_flows", False),
             transformer_flow_type=get("transformer_flow_type", "pre_conv"),
-            decoder_type=decoder, use_noise_scaled_mas=get("use_noise_scaled_mas", False),
+            decoder_type=decoder, istft_mode=get("istft_mode", "torch"),
+            use_noise_scaled_mas=get("use_noise_scaled_mas", False),
             mas_noise_scale_initial=get("mas_noise_scale_initial", 0.01),
             noise_scale_delta=get("noise_scale_delta", 2e-6),
         )
@@ -170,19 +172,6 @@ def check_ported(cfg: VITS2Config):
     package knows: the serving passes run every known one."""
     check_flow(cfg)
     check_decoder(cfg)
-
-
-def check_trainable(cfg: VITS2Config):
-    """Raise NotImplementedError for a configuration :func:`forward_train`
-    does not run: it runs the shipped one (SDP, ``pre_conv2`` flows, the
-    ``mb_istft`` decoder with the torch iSTFT)."""
-    check_ported(cfg)
-    if not cfg.use_sdp or flow_type(cfg) != "pre_conv2" or cfg.decoder_type != "mb_istft" \
-            or cfg.istft_mode != "torch":
-        raise NotImplementedError(
-            f"training runs SDP + pre_conv2 + mb_istft (torch iSTFT), not use_sdp="
-            f"{cfg.use_sdp}, {flow_type(cfg)!r} flows, the {cfg.decoder_type!r} decoder "
-            f"({cfg.istft_mode!r} iSTFT); see ROADMAP A.7")
 
 
 # ---------------------------------------------------------------------------
@@ -610,24 +599,29 @@ def _neg_cent(z_p, m_p, logs_p):
 
 def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=None, *,
                   generator=None, noise=None):
-    """The training forward (vosk_tts_tpu/models/vits2.py forward_train):
-    text encoder, posterior over the mel y (B, T_y, spec_channels), flow
-    forward, the alignment by MAS (no gradient), the SDP's NLL and a
-    differentiable SDP sample (read by the duration discriminator), and the
-    generator on a random ``segment_size``-frame slice of z (unfused tail,
-    so ``wav_mb`` holds the subband waveforms). Returns the JAX package's
-    dict.
+    """The training forward (vosk_tts_tpu/models/vits2.py forward_train) of
+    any configuration :func:`check_ported` accepts: text encoder, posterior
+    over the mel y (B, T_y, spec_channels), flow forward (every flow type,
+    dense attention), the alignment by MAS (no gradient), the duration loss
+    ``l_length`` (B,) and the log-durations ``logw`` the duration
+    discriminator reads: with ``use_sdp`` the SDP's NLL and a differentiable
+    SDP sample, else ``dp_apply``'s prediction and its squared error to the
+    alignment's log-durations; then the generator on a random
+    ``segment_size``-frame slice of z (unfused tail, so ``wav_mb`` holds the
+    subband waveforms of ``mb_istft`` and ``ms_istft``). Returns the JAX
+    package's dict.
 
     ``noise`` (a dict, else everything is drawn from ``generator``) pins the
-    random draws: ``"posterior"`` (B, T_y, inter_channels), ``"e_q"`` and
-    ``"z"`` (B, T_x, 2) (the NLL's and the sample's standard normals),
-    ``"ids_slice"`` (B,) the slice starts; and optionally ``"attn"``
-    (B, T_y, T_x), an alignment that replaces MAS (a parity run feeds one
-    device's alignment to the other, as the serving parity feeds durations).
+    random draws: ``"posterior"`` (B, T_y, inter_channels), with the SDP
+    ``"e_q"`` and ``"z"`` (B, T_x, 2) (the NLL's and the sample's standard
+    normals; ``dp_apply`` draws none), ``"ids_slice"`` (B,) the slice
+    starts; and optionally ``"attn"`` (B, T_y, T_x), an alignment that
+    replaces MAS (a parity run feeds one device's alignment to the other, as
+    the serving parity feeds durations).
 
     MAS runs on the clean log-likelihoods: the JAX trainer's noise-scaled
     MAS is added at scale 0 (its driver never passes another)."""
-    check_trainable(cfg)
+    check_ported(cfg)
     noise = {k: v.to(y.dtype) if v.is_floating_point() else v for k, v in (noise or {}).items()}
     g = _speaker(params, cfg, sid)
     x, m_p, logs_p, x_mask = text_encoder_apply(params["enc_p"], cfg, x_ids, x_lengths,
@@ -644,11 +638,15 @@ def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=
     attn = attn.to(m_p.dtype)
 
     w = attn.sum(dim=1)[..., None]
-    l_length = sdp_forward_nll(params["dp"], cfg, x, x_mask, w, g, generator=generator,
-                               noise=noise.get("e_q")) / x_mask.sum()
-    logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator, noise=noise.get("z"),
-                       noise_scale=1.0, fused=False)
     logw_ = torch.log(w + 1e-6) * x_mask
+    if cfg.use_sdp:
+        l_length = sdp_forward_nll(params["dp"], cfg, x, x_mask, w, g, generator=generator,
+                                   noise=noise.get("e_q")) / x_mask.sum()
+        logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator,
+                           noise=noise.get("z"), noise_scale=1.0, fused=False)
+    else:
+        logw = dp_apply(params["dp"], cfg, x, x_mask, g)
+        l_length = ((logw - logw_) ** 2).sum(dim=(1, 2)) / x_mask.sum()
 
     m_p = torch.bmm(attn, m_p)
     logs_p = torch.bmm(attn, logs_p)

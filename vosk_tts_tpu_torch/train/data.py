@@ -152,7 +152,7 @@ def _bucket_of(value: int, buckets: Sequence[int]) -> int:
 class BucketBatcher:
     """Length-bucketed, epoch-shuffled batches of numpy arrays padded to
     shape classes, for one process (the JAX package's shards them across
-    hosts; multi-card training is ROADMAP A.8)."""
+    hosts; multi-card training is ROADMAP A.5)."""
 
     def __init__(self, dataset: TTSDataset, batch_size: int):
         self.ds = dataset

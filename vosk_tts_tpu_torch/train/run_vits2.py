@@ -2,33 +2,45 @@
 
 Usage:
   python -m vosk_tts_tpu_torch.train.run_vits2 -c config.json -m MODEL_DIR \
-      [--finetune PRETRAINED_DIR] [--epochs N] [--max-steps N] [--device cpu]
+      [--finetune PRETRAINED_DIR] [--wavlm-dir WAVLM_DIR] [--epochs N] \
+      [--max-steps N] [--device cpu]
 
 ``config.json`` follows the reference schema the JAX package reads
 (training/vits2/configs/mb_istft_vits2_multi.json: train, data and model
-blocks). Each step runs D -> durD -> G (train/vits2_train.py). Every
-``eval_interval`` steps, and at the end, the driver writes ``STATE_{step}.pt``
-(the whole state, for resume) and ``G_{step}.npz`` (the generator in the
-bundle layout, loadable by both packages); a later run with the same model
-directory resumes from the newest STATE. ``--finetune DIR`` starts from
-DIR's newest STATE and keeps the duration discriminator's parameters
-frozen (restored after every step, while its optimizer state advances, as
-the JAX driver does). It runs on the card unless ``--device cpu`` is given
-and raises without CUDA. ``--wavlm-dir`` (the SLM loss) is not ported.
+blocks), for every flow type, duration predictor and decoder; the port
+also reads the model block's ``istft_mode`` ("torch", the default, or
+"onnx"), which the JAX reader leaves at "torch". Each step runs D ->
+(WavLM D) -> durD -> G (train/vits2_train.py). Every ``eval_interval``
+steps, and at the end, the driver writes ``STATE_{step}.pt`` (the whole
+state, for resume) and ``G_{step}.npz`` (the generator in the bundle
+layout, loadable by both packages); a later run with the same model
+directory resumes from the newest STATE. ``--finetune DIR`` starts G, D
+and durD from DIR's newest STATE (a WavLM discriminator starts fresh, as in
+the JAX driver) and keeps the duration discriminator's parameters frozen
+(restored after every step, while its optimizer state advances, as the JAX
+driver does). ``--wavlm-dir DIR`` turns on the WavLM/SLM loss: a frozen
+WavLM from ``DIR/config.json`` (a Hugging Face ``WavLMConfig`` dict) and
+``DIR/params.npz`` (the bundle layout), and a WavLM discriminator with its
+own AdamW over its ``num_hidden_layers + 1`` states (the train block's
+``slm_initial`` channels, default 64). It runs on the card unless
+``--device cpu`` is given and raises without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
+import os
 
 import torch
 
 from ..api import resolve_device
 from ..models.vits2 import VITS2Config
+from ..models.wavlm import WavLM, WavLMConfig
 from ..utils import checkpoint as ckpt
-from ..utils.params import LINEARS, from_port_layout
+from ..utils.params import LINEARS, from_port_layout, to_port_layout
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
 from .driver_common import log, resume_state, save_state, train_loop
@@ -71,6 +83,15 @@ def build_configs(cfg: dict):
     return mcfg, tcfg, dcfg
 
 
+def load_wavlm(wavlm_dir: str, device) -> WavLM:
+    """The frozen WavLM of ``wavlm_dir``: ``config.json`` (Hugging Face
+    ``WavLMConfig`` keys) and ``params.npz`` (the bundle layout)."""
+    with open(os.path.join(wavlm_dir, "config.json"), encoding="utf-8") as f:
+        cfg = WavLMConfig.from_hf(json.load(f))
+    tree = to_port_layout(ckpt.load_params(os.path.join(wavlm_dir, "params.npz")))
+    return WavLM(cfg, tree).to(device)
+
+
 def save(model_dir: str, state: T.TrainState, epoch: int) -> None:
     save_state(model_dir, state, epoch)
     ckpt.save_train_state(model_dir, "G", state.step,
@@ -84,7 +105,8 @@ def main(argv=None):
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model-dir", required=True)
     ap.add_argument("--finetune", default=None, help="pretrained model directory (its STATE_*)")
-    ap.add_argument("--wavlm-dir", default=None, help="not ported (ROADMAP A.7)")
+    ap.add_argument("--wavlm-dir", default=None,
+                    help="a WavLM (config.json, params.npz): turns on the SLM loss")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--max-steps", type=int, default=None,
                     help="stop (and save) once the step count reaches this")
@@ -92,9 +114,6 @@ def main(argv=None):
     ap.add_argument("--save-interval-steps", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
-    if args.wavlm_dir:
-        raise NotImplementedError("--wavlm-dir: the WavLM/SLM loss branch is not ported "
-                                  "(ROADMAP A.7, models/wavlm.py and ops/resample.py)")
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
 
@@ -108,15 +127,26 @@ def main(argv=None):
     batcher = BucketBatcher(TTSDataset(dcfg), train_cfg.get("batch_size", 24))
     log.info("dataset: %d utterances, %d batches an epoch", len(batcher.ds), batcher.num_batches())
 
+    slm, slm_dims = None, {}
+    if args.wavlm_dir:
+        slm = load_wavlm(args.wavlm_dir, device)
+        tcfg = dataclasses.replace(tcfg, use_slm=True)
+        slm_dims = {"slm_hidden": slm.cfg.hidden_size,
+                    "slm_layers": slm.cfg.num_hidden_layers + 1,
+                    "slm_initial": train_cfg.get("slm_initial", 64)}
+        log.info("SLM loss on (WavLM from %s)", args.wavlm_dir)
+
     seed = train_cfg.get("seed", 1234)
-    state = T.init_train_state(mcfg, tcfg, seed=seed, device=device)
+    state = T.init_train_state(mcfg, tcfg, seed=seed, device=device, **slm_dims)
     start_epoch = resume_state(args.model_dir, state)
     if start_epoch is None and args.finetune:
         pre = ckpt.load_full_state(args.finetune, "STATE", map_location=device)
         if pre is None:
             raise FileNotFoundError(f"no pretrained STATE_* in {args.finetune}")
-        for k, m in state.params.items():
-            m.load_state_dict(pre[f"params_{k}"])
+        # G, D and durD, as the JAX driver copies them; a WavLM discriminator starts fresh
+        for k in ("g", "d", "dur"):
+            if k in state.params and f"params_{k}" in pre:
+                state.params[k].load_state_dict(pre[f"params_{k}"])
         log.info("finetuning from %s", args.finetune)
 
     after_step = None
@@ -124,8 +154,8 @@ def main(argv=None):
         frozen = {k: v.detach().clone() for k, v in state.params["dur"].state_dict().items()}
         after_step = lambda st: st.params["dur"].load_state_dict(frozen)
     metrics = train_loop(model_dir=args.model_dir, state=state,
-                         step_fn=T.make_train_step(mcfg, tcfg), batcher=batcher, epochs=epochs,
-                         device=device, start_epoch=start_epoch or 0, log_interval=log_interval,
+                         step_fn=T.make_train_step(mcfg, tcfg, slm=slm), batcher=batcher,
+                         epochs=epochs, device=device, start_epoch=start_epoch or 0, log_interval=log_interval,
                          save_interval=save_interval, max_steps=args.max_steps,
                          generator=torch.Generator(device=device).manual_seed(seed), save=save,
                          set_lr=lambda st, epoch: T.set_lr(st, T.lr_at_epoch(tcfg, epoch)),

@@ -4,18 +4,32 @@ One step runs the JAX package's order:
 
   * one generator forward (``vits2.forward_train``), its graph kept;
   * the discriminator update on the detached generated segment;
+  * with the WavLM/SLM branch (``slm=``, the reference's train_ms.py:
+    397-406, 441-444), the WavLM discriminator update on the detached
+    WavLM states of the real and generated segments (resampled to 16 kHz);
   * the duration discriminator update on the detached encoder output and
     log-durations;
   * the generator loss through the UPDATED discriminators, backpropagated
     through the one kept generator graph; the discriminators' parameters
     take no gradient there (``requires_grad`` is off around it), so
-    nothing accumulates into their next step.
+    nothing accumulates into their next step. With the SLM branch it adds
+    ``loss_lm``, the sum over the WavLM states of the mean |real - fake|,
+    and ``loss_lm_gen``, LSGAN through the updated WavLM discriminator.
+
+The frozen WavLM's leaves are buffers: it takes no gradient, but the
+generator's gradient flows through it and through the resampler into the
+generated waveform. The JAX step runs WavLM on each segment twice (under
+``stop_gradient`` for the discriminator update, then again inside the
+generator loss); the port runs it once a segment: the real segment's
+states without a graph, the generated segment's with its graph kept, read
+detached by the discriminator update and attached by the generator loss.
+The values are the same.
 
 Each network is a ``TreeModule`` of ``nn.Parameter`` leaves in the port's
 layouts; each has its own ``torch.optim.AdamW`` (betas (0.8, 0.99), eps
 1e-9, weight decay 0.01: optax ``adamw``'s update, decoupled decay of the
 old parameter and eps outside the root), all on one per-epoch exponential
-learning-rate schedule. The WavLM/SLM branch waits for its port.
+learning-rate schedule.
 """
 
 from __future__ import annotations
@@ -29,8 +43,10 @@ import torch
 from ..models import discriminators as D
 from ..models import vits2
 from ..models.tree import TreeModule
+from ..models.wavlm import stacked_hidden_states, wavlm_apply
 from ..ops.commons import slice_segments
 from ..ops.pqmf import pqmf_analysis
+from ..ops.resample import resample
 from ..ops.stft import mel_spectrogram
 from ..utils import params as P
 from . import losses as L
@@ -55,6 +71,7 @@ class TrainConfig:
     hop_sizes: Sequence[int] = (30, 60, 10)
     win_lengths: Sequence[int] = (150, 300, 60)
     use_dur_disc: bool = True
+    use_slm: bool = False
     disc_periods: Sequence[int] = field(default=D.PERIODS)
     disc_spec_ffts: Sequence[int] = field(default=D.SPEC_FFTS)
 
@@ -64,15 +81,16 @@ def make_optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
                              eps=tcfg.eps, weight_decay=0.01)
 
 
-NETS = ("g", "d", "dur")
+NETS = ("g", "d", "dur", "wd")
 
 
 class TrainState:
-    """The networks (``params["g"]``, ``["d"]`` and, with the duration
-    discriminator, ``["dur"]``: trainable TreeModules), their optimizers
-    (``opt``, same keys, each ``make_opt(parameters, tcfg)``) and the step
-    count. Updated in place by a step; the StableTTS and QuickVC trainers
-    hold theirs in one too."""
+    """The networks (``params["g"]``, ``["d"]``, with the duration
+    discriminator ``["dur"]``, with the SLM branch ``["wd"]``, the WavLM
+    discriminator: trainable TreeModules), their optimizers (``opt``, same
+    keys, each ``make_opt(parameters, tcfg)``) and the step count. Updated
+    in place by a step; the StableTTS and QuickVC trainers hold theirs in
+    one too."""
 
     def __init__(self, tcfg, trees: dict, device, make_opt=make_optimizer):
         self.params = {k: TreeModule(t, trainable=True).to(device)
@@ -85,17 +103,25 @@ class TrainState:
                 **{f"opt_{k}": o.state_dict() for k, o in self.opt.items()}}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore every network and its optimizer; only a WavLM
+        discriminator may be missing from ``state`` (the SLM loss turned on
+        for a run saved without it): it keeps its fresh init. Any other
+        missing network raises KeyError."""
         self.step = int(state["step"])
         for k, m in self.params.items():
+            if k == "wd" and "params_wd" not in state:
+                continue
             m.load_state_dict(state[f"params_{k}"])
-        for k, o in self.opt.items():
-            o.load_state_dict(state[f"opt_{k}"])
+            self.opt[k].load_state_dict(state[f"opt_{k}"])
 
 
-def init_trees(mcfg: vits2.VITS2Config, tcfg: TrainConfig, seed: int) -> dict:
+def init_trees(mcfg: vits2.VITS2Config, tcfg: TrainConfig, seed: int, *, slm_hidden: int = 768,
+               slm_layers: int = 13, slm_initial: int = 64) -> dict:
     """Port-layout trees of the generator and discriminators from numpy
     inits (utils/params.py), the generator's zero projections as
-    initialised (the JAX package's ``init_train_state`` draws other numbers)."""
+    initialised (the JAX package's ``init_train_state`` draws other
+    numbers); with ``tcfg.use_slm`` the WavLM discriminator over
+    ``slm_layers`` states of ``slm_hidden`` features."""
     return {
         "g": P.to_port_layout(P.synthesizer_init(mcfg, seed)),
         "d": P.to_port_layout(P.mpmsd_init(seed + 1, tuple(tcfg.disc_periods),
@@ -103,14 +129,19 @@ def init_trees(mcfg: vits2.VITS2Config, tcfg: TrainConfig, seed: int) -> dict:
         "dur": (P.to_port_layout(P.duration_disc_init(seed + 2, mcfg.hidden_channels,
                                                       mcfg.hidden_channels, 3))
                 if tcfg.use_dur_disc else None),
+        "wd": (P.to_port_layout(P.wavlm_disc_init(seed + 3, slm_hidden, slm_layers, slm_initial))
+               if tcfg.use_slm else None),
     }
 
 
 def init_train_state(mcfg: vits2.VITS2Config, tcfg: TrainConfig, *, seed: int = 0, device,
-                     trees: dict | None = None) -> TrainState:
+                     trees: dict | None = None, **slm_dims) -> TrainState:
     """A fresh state on ``device`` from ``trees`` (port layout; default
-    :func:`init_trees` of ``seed``)."""
-    return TrainState(tcfg, trees if trees is not None else init_trees(mcfg, tcfg, seed), device)
+    :func:`init_trees` of ``seed`` and ``slm_dims``: ``slm_hidden``,
+    ``slm_layers``, ``slm_initial``)."""
+    if trees is None:
+        trees = init_trees(mcfg, tcfg, seed, **slm_dims)
+    return TrainState(tcfg, trees, device)
 
 
 def lr_at_epoch(tcfg: TrainConfig, epoch: int) -> float:
@@ -148,7 +179,7 @@ def _cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=None):
+def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=None, slm=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     metrics`` (0-dim tensors, not synchronised). ``batch``: x (B, Tx) int,
     x_lengths (B,), mel (B, Tf, n_mel), mel_lengths (B,), wav (B, Ts),
@@ -156,11 +187,17 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
     ``forward_train``'s draws. After the step each parameter's ``.grad``
     holds the gradient its optimizer applied.
 
+    ``slm``: a frozen ``models.wavlm.WavLM`` on the state's device turns on
+    the WavLM/SLM branch (the state must then hold ``"wd"``:
+    ``tcfg.use_slm``; a step raises ValueError where one of the two is
+    missing); it adds ``loss_slm_disc``, ``loss_lm`` and ``loss_lm_gen`` to the
+    metrics.
+
     ``compute_dtype`` (e.g. torch.bfloat16) runs forward and backward in
     that type through a differentiable cast of the f32 master parameters
-    and of mel and wav, with no loss scaling (bf16 keeps f32's exponent
-    range), as the JAX package's mixed-precision step; the optimizers and
-    their state stay f32."""
+    (the frozen WavLM's too) and of mel and wav, with no loss scaling (bf16
+    keeps f32's exponent range), as the JAX package's mixed-precision step;
+    the optimizers and their state stay f32."""
     seg_frames = mcfg.segment_size
     seg_samples = seg_frames * tcfg.hop_length
     periods, spec_ffts = tuple(tcfg.disc_periods), tuple(tcfg.disc_spec_ffts)
@@ -169,9 +206,17 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
         return mel_spectrogram(wav, tcfg.filter_length, tcfg.n_mel_channels, tcfg.sampling_rate,
                                tcfg.hop_length, tcfg.win_length, tcfg.mel_fmin, tcfg.mel_fmax)
 
+    def slm_states(wav):
+        return wavlm_apply(_cast(slm.params, compute_dtype), slm.cfg,
+                           resample(wav, tcfg.sampling_rate, 16000))
+
     def step(state: TrainState, batch: dict, *, generator=None, noise=None) -> dict:
-        net_g, net_d, net_dur = (state.params.get(k) for k in NETS)
-        opt_g, opt_d, opt_dur = (state.opt.get(k) for k in NETS)
+        net_g, net_d, net_dur, net_wd = (state.params.get(k) for k in NETS)
+        opt_g, opt_d, opt_dur, opt_wd = (state.opt.get(k) for k in NETS)
+        use_slm = slm is not None
+        if use_slm != (net_wd is not None):
+            raise ValueError("the SLM branch needs both a WavLM (make_train_step(slm=)) and a "
+                             "WavLM discriminator in the state (TrainConfig.use_slm)")
         mel = _cast(batch["mel"], compute_dtype)
         wav = _cast(batch["wav"], compute_dtype)
 
@@ -194,6 +239,20 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
         opt_d.step()
         metrics["loss_disc"] = loss_disc.detach()
 
+        # the WavLM discriminator, on the detached states of both segments
+        if use_slm:
+            with torch.no_grad():
+                hs_real = slm_states(y_real)
+            hs_fake = slm_states(y_hat)  # the graph kept for the generator loss
+            opt_wd.zero_grad(set_to_none=True)
+            wd = _cast(net_wd.params, compute_dtype)
+            dr = D.wavlm_disc_apply(wd, stacked_hidden_states(hs_real))
+            dg = D.wavlm_disc_apply(wd, stacked_hidden_states([h.detach() for h in hs_fake]))
+            loss_slm_disc = torch.mean((1 - dr) ** 2) + torch.mean(dg**2)
+            loss_slm_disc.backward()
+            opt_wd.step()
+            metrics["loss_slm_disc"] = loss_slm_disc.detach()
+
         # the duration discriminator, on the detached encoder output and durations
         if net_dur is not None:
             opt_dur.zero_grad(set_to_none=True)
@@ -206,7 +265,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             metrics["loss_dur_disc"] = loss_dur_disc.detach()
 
         # the generator, through the updated discriminators
-        with _frozen(net_d, net_dur):
+        with _frozen(net_d, net_dur, net_wd):
             yh_mel = mel_of(y_hat)
             yr_, yg_, fmap_r, fmap_g = D.mpmsd_apply(_cast(net_d.params, compute_dtype), y_real,
                                                      y_hat, periods, spec_ffts)
@@ -218,15 +277,25 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             loss_dur = torch.sum(out["l_length"])
             loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
                                 out["y_mask"]) * tcfg.c_kl
-            y_mb = pqmf_analysis(y_real[..., None], subbands=mcfg.subbands)
-            loss_subband = L.subband_stft_loss(y_mb, out["wav_mb"], tcfg.fft_sizes,
-                                               tcfg.hop_sizes, tcfg.win_lengths)
+            if mcfg.decoder_type == "mb_istft":
+                y_mb = pqmf_analysis(y_real[..., None], subbands=mcfg.subbands)
+                loss_subband = L.subband_stft_loss(y_mb, out["wav_mb"], tcfg.fft_sizes,
+                                                   tcfg.hop_sizes, tcfg.win_lengths)
+            else:
+                loss_subband = loss_mel.new_zeros(())
             total = (loss_gen + loss_gen_tprls + loss_fm + loss_mel + loss_dur + loss_kl
                      + loss_subband)
             if net_dur is not None:
                 _, pg = D.duration_disc_apply(_cast(net_dur.params, compute_dtype), out["x"],
                                               out["x_mask"], out["logw_"], out["logw"])
                 total = total + L.generator_loss([pg])[0]
+            if use_slm:
+                loss_lm = sum(torch.mean(torch.abs(hr - hf)) for hr, hf in zip(hs_real, hs_fake))
+                dg = D.wavlm_disc_apply(_cast(net_wd.params, compute_dtype),
+                                        stacked_hidden_states(hs_fake))
+                loss_lm_gen = torch.mean((1 - dg) ** 2)
+                total = total + loss_lm + loss_lm_gen
+                metrics.update({"loss_lm": loss_lm.detach(), "loss_lm_gen": loss_lm_gen.detach()})
             total.backward()
         opt_g.step()
         state.step += 1

@@ -47,12 +47,16 @@ is one in one tree and the other in another (VITS2's and MRTE's attention
 ``q``/``k``/``v``/``o`` are 1x1 convs, BERT's and HuBERT's Linears), so
 the caller names the tree's Linears: :data:`LINEARS` (VITS2,
 the discriminators, QuickVC, Matcha, the vocoders), :data:`AR_LINEARS`,
-:data:`SOVITS_LINEARS`, :data:`BERT_LINEARS` or :data:`HUBERT_LINEARS`.
+:data:`SOVITS_LINEARS`, :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS` or
+:data:`WAVLM_LINEARS`. The WavLM discriminator's ``pre`` (1, 13 x 768, 64)
+is a 1x1 conv (under :data:`LINEARS`); WavLM's ``gru_const`` (1, H, 1, 1)
+and ``rel_attn_embed`` (buckets, H) are not ``"w"`` and keep their layout.
 
 :func:`synthesizer_init` (every flow type, duration predictor and
 decoder), :func:`matcha_init`, :func:`hifigan_init`, :func:`vocos_init`,
 :func:`bigvgan_init`, :func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
-:func:`ar_init` and :func:`sovits_init` draw trees in the BUNDLE layout
+:func:`ar_init`, :func:`sovits_init`, :func:`wavlm_init` and
+:func:`wavlm_disc_init` draw trees in the BUNDLE layout
 (the JAX one) from the same distributions and shapes as the JAX package's
 inits, so a full-width bundle can be made where JAX is absent; their
 numbers differ from JAX's draws. The GPT-SoVITS trees convert by the same
@@ -144,6 +148,7 @@ AR_LINEARS = frozenset({"qkv", "out", "ff1", "ff2", "bert_proj", "predict"})
 SOVITS_LINEARS = LINEARS | {"spec1", "spec2", "wq", "wk", "wv", "fc_attn", "fc"}
 BERT_LINEARS = frozenset({"q", "k", "v", "attn_out", "ffn_in", "ffn_out"})
 HUBERT_LINEARS = BERT_LINEARS | {"fp"}
+WAVLM_LINEARS = frozenset({"q", "k", "v", "out", "gru_lin", "ffn_in", "ffn_out", "fp"})
 
 
 def _restore(node, path, linears):
@@ -177,8 +182,9 @@ def from_port_layout(tree, linears):
     ``mpmsd_init``, ``mpd_init``, ``duration_disc_init``, QuickVC, Matcha
     (before the fused qkv: ``models.stabletts.bundle_layout`` inverts
     ``port_layout``), HiFiGAN, Vocos or BigVGAN tree; :data:`AR_LINEARS`, :data:`SOVITS_LINEARS`,
-    :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS` for the GPT-SoVITS AR and
-    SoVITS, BERT and HuBERT trees."""
+    :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS`, :data:`WAVLM_LINEARS` for
+    the GPT-SoVITS AR and SoVITS, BERT, HuBERT and WavLM trees (the WavLM
+    discriminator's under :data:`LINEARS`)."""
     return _restore(tree, (), linears)
 
 
@@ -613,6 +619,42 @@ def hubert_init(cfg, seed: int):
     }
 
 
+def wavlm_init(cfg, seed: int):
+    """Bundle-layout WavLM tree with the structure and shapes that
+    ``models.wavlm.wavlm_from_state_dict`` gives an HF ``WavLMModel``
+    state dict (the JAX package has no WavLM init): bias-free feature convs
+    N(0, 2/(I*K)) (kaiming), the first with its group norm; linears
+    N(0, 0.02^2) with zero biases (``gru_lin`` (head_dim, 8) too);
+    ``pos_conv`` N(0, 4/(K*hidden)), its weight norm folded; ``gru_const``
+    ones (1, H, 1, 1); ``rel_attn_embed`` N(0, 1) (buckets, H); unit layer
+    norms, as HF initialises them."""
+    rng = np.random.default_rng(seed)
+    h, heads = cfg.hidden_size, cfg.num_attention_heads
+    normal = lambda shape, std: (rng.standard_normal(shape) * std).astype(np.float32)
+    lin = lambda i, o: {"w": normal((i, o), 0.02), "b": np.zeros((o,), np.float32)}
+    convs, in_dim = [], 1
+    for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        c = {"w": normal((k, in_dim, dim), (2.0 / (in_dim * k)) ** 0.5)}
+        if i == 0 and cfg.feat_extract_norm == "group":
+            c["gn_gamma"], c["gn_beta"] = np.ones((dim,), np.float32), np.zeros((dim,), np.float32)
+        convs.append(c)
+        in_dim = dim
+    k, groups = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
+    return {
+        "conv_layers": convs, "fp_ln": _norm(cfg.conv_dim[-1]), "fp": lin(cfg.conv_dim[-1], h),
+        "pos_conv": {"w": normal((k, h // groups, h), 2 * (k * h) ** -0.5),
+                     "b": np.zeros((h,), np.float32)},
+        "enc_ln": _norm(h),
+        "rel_attn_embed": normal((cfg.num_buckets, heads), 1.0),
+        "layers": [{"q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "out": lin(h, h),
+                    "gru_lin": lin(h // heads, 8),
+                    "gru_const": np.ones((1, heads, 1, 1), np.float32),
+                    "attn_ln": _norm(h), "ffn_in": lin(h, cfg.intermediate_size),
+                    "ffn_out": lin(cfg.intermediate_size, h), "ffn_ln": _norm(h)}
+                   for _ in range(cfg.num_hidden_layers)],
+    }
+
+
 def quickvc_init(cfg, seed: int):
     """Bundle-layout QuickVC tree (``quickvc.synthesizer_init``): the
     posterior encoders over ContentVec (no speaker conditioning) and over
@@ -777,3 +819,15 @@ def duration_disc_init(seed: int, in_channels: int, filter_channels: int, kernel
         "norm1": _norm(fc), "norm2": _norm(fc), "pre_out_norm1": _norm(fc),
         "pre_out_norm2": _norm(fc),
     }
+
+
+def wavlm_disc_init(seed: int, slm_hidden: int = 768, slm_layers: int = 13, initial: int = 64):
+    """Bundle-layout WavLM discriminator (``discriminators.wavlm_disc_init``):
+    the 1x1 ``pre`` conv over the stacked states, three k=5 convs (initial
+    -> 2x -> 4x -> 4x channels), the k=3 ``post`` conv; every weight and bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    rng = np.random.default_rng(seed)
+    return {"pre": _conv(rng, 1, slm_hidden * slm_layers, initial),
+            "convs": [_conv(rng, 5, initial, initial * 2), _conv(rng, 5, initial * 2, initial * 4),
+                      _conv(rng, 5, initial * 4, initial * 4)],
+            "post": _conv(rng, 3, initial * 4, 1)}
