@@ -215,6 +215,30 @@ result line is printed):
    with the full-width WavLM (every lr but G's 0): every loss (with
    ``loss_slm_disc``, ``loss_lm``, ``loss_lm_gen``) 1e-3 relative, the G,
    D, durD and WavLM-discriminator gradients 1e-2 relative L2 of the f64
+   step's;
+16. evaluation (``[eval]``): the ``[main]`` bundle again (the same seed)
+   through the eval harness on the card: tools.build_examples (5
+   speakers) and batch_synthesize (5 speakers x 2 texts) to WAVs (22050 Hz
+   int16, nonzero), eval_rtf over the 16 TEXTS, each stage in a
+   profiling.StageTimer; launches exactly per_synthesis_call's a call and no
+   other kernel; speaker_similarity and frechet_audio_distance with the
+   default (committed artifact) embedder on the card; lstm_embedder card vs
+   CPU 1e-4 absolute; ``python -m vosk_tts_tpu_torch.tools.eval_tts`` with
+   ``--ref-dir`` at the batch_synthesize WAVs, its JSON line parsed;
+17. Whisper content features (``[whisper]``): WhisperEncConfig() ("small",
+   12 x 768, 1500 positions, ~88 M parameters from whisper_init):
+   get_content of a 10 s and a 29.9 s waveform (shapes), card vs CPU
+   log-mel 1e-4 absolute and features 1e-3 x peak (f32, TF32 off); a call
+   timed between CUDA events and by profiling.device_timeit, within 25%;
+   peak memory, one call profiled; profiling.trace writes a non-empty file
+   and device_stats lists the card; no hand-written kernel;
+18. the GE2E speaker encoder (``[ge2e]``): train_speaker_encoder at its
+   defaults on the card (400 steps): the loss falls, steps/s, the held-out
+   check of tests/test_speaker_embedder.py (same > 0.75, same > cross +
+   0.15); ``python -m vosk_tts_tpu_torch.tools.train_speaker_embedder
+   --steps 400 --out <tmp>`` on the card, its artifact loaded;
+   ``[ge2e-parity]``: one step from the trained tree card vs CPU f32 and
+   f64: the loss 1e-4 relative, the gradients 1e-2 relative L2 of the f64
    step's. Each phase prints its wall time.
 
 The lines before the last: the kernels' JSON record, then the
@@ -225,6 +249,7 @@ The lines before the last: the kernels' JSON record, then the
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
@@ -246,8 +271,9 @@ sys.path.insert(0, ROOT)
 
 from vosk_tts_tpu_torch import api  # noqa: E402  (fails outside a checkout of the repo)
 from vosk_tts_tpu_torch import pipelines  # noqa: E402
+from vosk_tts_tpu_torch.eval import harness, speaker_embed, speaker_train  # noqa: E402
 from vosk_tts_tpu_torch.models import (bert, bigvgan, gpt_sovits, hubert, quickvc,  # noqa: E402
-                                        stabletts, vits2, wavlm)
+                                        stabletts, vits2, wavlm, whisper)
 from vosk_tts_tpu_torch.models import vocoder as voc  # noqa: E402
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf  # noqa: E402
 from vosk_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -262,20 +288,22 @@ from vosk_tts_tpu_torch.text import convert  # noqa: E402
 from vosk_tts_tpu_torch.train import (gpt_sovits_data, gpt_sovits_train,  # noqa: E402
                                       run_gpt_sovits, run_stabletts, run_vc, run_vits2,
                                       stabletts_data, stabletts_train, vc_data, vc_train)
+from vosk_tts_tpu_torch.tools import build_examples  # noqa: E402
 from vosk_tts_tpu_torch.train import vits2_train as tt  # noqa: E402
 from vosk_tts_tpu_torch.train.data import (BucketBatcher, TTSDataset, load_wav,  # noqa: E402
                                            text_to_ids_aligned)
 from vosk_tts_tpu_torch.train.gpt_sovits_data import ShuffleBatcher  # noqa: E402
 from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # noqa: E402
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
-from vosk_tts_tpu_torch.utils import cuda_build  # noqa: E402
+from vosk_tts_tpu_torch.utils import cuda_build, profiling  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import load_params, save_params  # noqa: E402
 from vosk_tts_tpu_torch.models.tree import TreeModule  # noqa: E402
 from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  # noqa: E402
                                              hifigan_init, hubert_init, matcha_init,
                                              perturb_matcha_zero_init, perturb_zero_init,
                                              quickvc_init, sovits_init, synthesizer_init,
-                                             to_port_layout, to_torch, vocos_init, wavlm_init)
+                                             to_port_layout, to_torch, vocos_init, wavlm_init,
+                                             whisper_init)
 
 # H100 SXM at 700 W: TF32 tensor cores 495 TFLOP/s dense, a third of it for
 # f32-accurate products (3xTF32: three TF32 products per f32 product); HBM3
@@ -3001,6 +3029,314 @@ def train_s2_phase(kernels, smi, dev=torch.device("cuda")):
     return got["banded_attention"], case
 
 
+# ---------------------------------------------------------------------------
+# 16-18. evaluation, Whisper content features and the GE2E speaker encoder
+# ---------------------------------------------------------------------------
+
+
+def wav_ok(path):
+    """A WAV that opens with ``wave``: 22050 Hz mono int16, not all zeros."""
+    with wave.open(str(path)) as f:
+        ok = f.getframerate() == 22050 and f.getsampwidth() == 2 and f.getnchannels() == 1
+        data = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+    return ok and len(data) > 0 and bool(np.any(data != 0))
+
+
+def held_out(embedder):
+    """tests/test_speaker_embedder.py's held-out voices (rng 999): the
+    (same-voice, cross-voice) mean similarities under ``embedder``."""
+    rng = np.random.default_rng(999)
+    va, vb, vc = (speaker_train.synthetic_voice(rng) for _ in range(3))
+    a = [speaker_train.synthetic_utterance(rng, va) for _ in range(3)]
+    b = [speaker_train.synthetic_utterance(rng, vb) for _ in range(3)]
+    c = [speaker_train.synthetic_utterance(rng, vc) for _ in range(2)]
+    same = harness.speaker_similarity([(a[0], a[1]), (a[1], a[2]), (b[0], b[1]), (c[0], c[1])],
+                                      embedder=embedder)
+    cross = harness.speaker_similarity([(a[0], b[0]), (a[1], b[1]), (b[2], c[0]), (a[2], c[1])],
+                                       embedder=embedder)
+    return same.value, cross.value
+
+
+def module_json(args, timeout=600):
+    """``python -m <args>`` from the checkout's root (it runs on the card by
+    default); returns its stdout's lines. Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, cwd=ROOT,
+                       timeout=timeout)
+    check(r.returncode == 0, f"python -m {args[0]} exited {r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def eval_phase(kernels, smi):
+    """``[eval]``: the ``[main]`` bundle (VITS2Config(), the same seed) on the
+    card through the eval harness: ``tools.build_examples`` (5 speakers) and
+    ``batch_synthesize`` (5 speakers x 2 TEXTS) to WAVs, ``eval_rtf`` over
+    the 16 TEXTS, each stage in a ``profiling.StageTimer``; kernel launches
+    exactly per_synthesis_call's a call (10 of kernel 1, 4 of kernel 2) and
+    no other kernel; ``speaker_similarity`` and ``frechet_audio_distance``
+    with the default (artifact) embedder on the card; ``lstm_embedder`` on
+    the card against the CPU (1e-4 absolute on the unit-norm embedding);
+    ``python -m vosk_tts_tpu_torch.tools.eval_tts`` with ``--ref-dir`` at the
+    batch_synthesize WAVs, its JSON line parsed. Returns the launches."""
+    t_phase = time.perf_counter()
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    cfg = vits2.VITS2Config()
+    tree = perturb_zero_init(synthesizer_init(cfg, seed=SEED), seed=SEED + 1)
+    timer = profiling.StageTimer(sample_rate=22050)
+    with tempfile.TemporaryDirectory(prefix="eval-") as root:
+        bundle = os.path.join(root, "bundle")
+        os.makedirs(bundle)
+        write_bundle(bundle, cfg, tree)
+        del tree
+        model = api.Model(bundle)
+        check(model.device.type == "cuda", "[eval] Model() did not default to the card")
+        synth = api.Synth(model)
+        synth.synth_audio(TEXTS[0])  # the first request's one-off costs, out of the stages
+        expected = zeroed(all_kernels)
+        with timer.stage("build_examples"), contextlib.redirect_stdout(io.StringIO()):
+            ex = build_examples.main([bundle, os.path.join(root, "examples"), "--speakers",
+                                      "0,1,2,3,4", "--text", TEXTS[1]])
+        with timer.stage("batch_synthesize"):
+            refs = harness.batch_synthesize(synth, TEXTS[:2], os.path.join(root, "ref"))
+        paths = ex + refs
+        check(len(ex) == 5 and len(refs) == 10 and all(wav_ok(p) for p in paths),
+              f"[eval] bad WAVs among {paths}")
+        with timer.stage("eval_rtf"):
+            rtf = harness.eval_rtf(synth, TEXTS)
+        timer.add_audio(int(round(rtf.extra["audio_sec"] * 22050)))
+        calls = len(ex) + len(refs) + 1 + len(TEXTS)  # eval_rtf warms up on one text
+        got = launches_now(all_kernels)
+        expected |= {n: c * calls for n, c in per_synthesis_call(cfg).items()}
+        print(f"[eval] {len(paths)} WAVs (22050 Hz int16, nonzero); eval_rtf over "
+              f"{len(TEXTS)} texts: RTF {rtf.value:.4f}, {rtf.extra['audio_sec_per_sec']:.2f} "
+              f"audio s/s, {rtf.extra['audio_sec']:.2f} s audio; launches over {calls} synthesis "
+              f"calls {got} (expected {expected})")
+        check(np.isfinite(rtf.value) and rtf.value > 0, f"[eval] RTF {rtf.value}")
+        check(got == expected, f"[eval] kernel launches {got} != {expected}")
+
+        def load(p):
+            with wave.open(p) as f:
+                return np.frombuffer(f.readframes(f.getnframes()), np.int16) / 32768.0
+
+        wavs = {os.path.basename(p): load(p) for p in refs}
+        check(harness._default_embedder() is not speaker_embed.mfcc_f0_embedding,
+              "[eval] the default embedder is not the committed artifact")
+        with timer.stage("speaker_similarity", sync=torch.zeros(1, device=model.device)):
+            same = harness.speaker_similarity([(wavs[f"spk{s}_0000.wav"], wavs[f"spk{s}_0001.wav"])
+                                               for s in range(5)])
+            cross = harness.speaker_similarity([(wavs[f"spk{s}_0000.wav"],
+                                                 wavs[f"spk{(s + 1) % 5}_0000.wav"])
+                                                for s in range(5)])
+        with timer.stage("frechet_audio_distance"):
+            fad = harness.frechet_audio_distance([wavs[f"spk{s}_0000.wav"] for s in range(5)],
+                                                 [wavs[f"spk{s}_0001.wav"] for s in range(5)])
+        print(f"[eval] artifact embedder on the card (random-weight voices): same speaker, "
+              f"two texts {same.value:.4f} (min {same.extra['min']:.4f}); next speaker, one text "
+              f"{cross.value:.4f}; FAD {fad.value:.4f} ({fad.extra})")
+        check(all(np.isfinite(v) and -1.0 - 1e-6 <= v <= 1.0 + 1e-6
+                  for v in (same.value, cross.value)) and np.isfinite(fad.value)
+              and fad.value >= 0, "[eval] bad similarity or FAD")
+
+        wav = wavs["spk2_0001.wav"]
+        emb_g = speaker_train.lstm_embedder()(wav, 22050)
+        emb_c = speaker_train.lstm_embedder(device="cpu")(wav, 22050)
+        err = float(np.abs(emb_g - emb_c).max())
+        print(f"[eval] lstm_embedder card vs CPU on one WAV: max abs err {err:.3e} (tol 1e-4), "
+              f"norms {np.linalg.norm(emb_g):.6f}, {np.linalg.norm(emb_c):.6f}")
+        check(emb_g.shape == (64,) and err <= 1e-4, f"[eval] embedder card vs CPU differs by {err}")
+        report = timer.report()
+        print(f"[eval] StageTimer: {json.dumps(report)}")
+        del model, synth
+        torch.cuda.empty_cache()
+
+        texts = os.path.join(root, "texts.txt")
+        with open(texts, "w", encoding="utf-8") as f:
+            f.write("\n".join(TEXTS[:2]) + "\n")
+        lines, wall = module_json(["vosk_tts_tpu_torch.tools.eval_tts", bundle, "--texts", texts,
+                                   "--out", os.path.join(root, "tool"), "--speakers", "0,1,2,3,4",
+                                   "--ref-dir", os.path.join(root, "ref")])
+        res = json.loads(lines[-1])
+        print(f"[eval] python -m vosk_tts_tpu_torch.tools.eval_tts (on the card, {wall:.1f} s "
+              f"with the process' start): {json.dumps(res, ensure_ascii=False)}")
+        check(res["n_wavs"] == 10 and res["rtf"] > 0 and np.isfinite(
+            res["speaker_similarity_avg"]) and -1 - 1e-6 <= res["speaker_similarity_min"] <= 1,
+            f"[eval] eval_tts printed {res}")
+    print(f"[eval] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def whisper_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[whisper]``: WhisperEncConfig() ("small": 12 x 768, FFN 3072, 1500
+    positions) from ``whisper_init`` on the card: get_content of a 10 s and
+    a 29.9 s 16 kHz waveform; the log-mel and the features against the CPU
+    (1e-4 absolute, 1e-3 x peak; f32, TF32 off); a call (log-mel +
+    encoder at 30 s) timed between CUDA events and by
+    ``profiling.device_timeit``, within 25% of each other; peak memory; one
+    call under torch.profiler; ``profiling.trace`` writes a non-empty file;
+    ``device_stats`` lists the card with bytes in use. No hand-written
+    kernel on this path (the JAX encoder's attention is plain XLA)."""
+    t_phase = time.perf_counter()
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    cfg = whisper.WhisperEncConfig()
+    t0 = time.perf_counter()
+    tree = to_port_layout(whisper_init(cfg, seed=SEED + 90))
+    enc_c = TreeModule(tree)
+    enc = TreeModule(tree).to(dev)
+    n_params = sum(b.numel() for b in enc.buffers())
+    print(f"[whisper] WhisperEncConfig() {n_params / 1e6:.2f} M parameters built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del tree
+    rng = np.random.default_rng(SEED + 91)
+
+    def voice(seconds):
+        t = np.arange(int(seconds * 16000)) / 16000
+        return (0.3 * np.sin(2 * np.pi * 180 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 0.9 * t))
+                + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+
+    wavs = {10.0: voice(10.0), 29.9: voice(29.9)}
+    expected = zeroed(all_kernels)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for s, w in wavs.items():
+            feats = whisper.get_content(enc.params, cfg, w)
+            torch.cuda.synchronize()
+            check(feats.shape == (1, len(w) // 160 // 2, cfg.d_model)
+                  and feats.device.type == dev.type and bool(torch.isfinite(feats).all()),
+                  f"[whisper] bad features {feats.shape}")
+            print(f"[whisper] get_content {s} s: {tuple(feats.shape)}")
+        check(launches_now(all_kernels) == expected, "[whisper] a hand-written kernel launched")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        w = wavs[29.9]
+        mel_g = whisper.whisper_log_mel(torch.tensor(whisper.pad_or_trim(w), device=dev)[None])
+        mel_c = whisper.whisper_log_mel(torch.tensor(whisper.pad_or_trim(w))[None])
+        t0 = time.perf_counter()
+        feat_c = whisper.get_content(enc_c.params, cfg, w)
+        cpu_s = time.perf_counter() - t0
+        feat_g = whisper.get_content(enc.params, cfg, w).cpu()
+        mel_err = float((mel_g.cpu() - mel_c).abs().max())
+        peak = float(feat_c.abs().max())
+        err = float((feat_g - feat_c).abs().max())
+        print(f"[whisper] card vs CPU at 29.9 s: log-mel {mel_err:.3e} (tol 1e-4), features "
+              f"{err:.3e} (peak {peak:.4f}, tol {1e-3 * peak:.3e}); the CPU took {cpu_s:.1f} s")
+        check(mel_err <= 1e-4 and err <= 1e-3 * peak, "[whisper] card vs CPU differs")
+
+        x0 = torch.tensor(whisper.pad_or_trim(w), device=dev)[None]
+        call = lambda x: whisper.whisper_encoder_apply(enc.params, cfg,
+                                                       whisper.whisper_log_mel(x))
+        event = cuda_ms(lambda: call(x0), 10)
+        # carry -> carry: the waveform plus a vanishing multiple of the features' mean
+        per, t1, t2 = profiling.device_timeit(lambda x: x + 1e-30 * call(x).mean(), x0,
+                                              n1=2, n2=10, reps=3)
+        d, f, t = cfg.d_model, cfg.encoder_ffn_dim, cfg.max_source_positions
+        flops = (2 * 3 * (2 * t * cfg.num_mel_bins * d + t * d * d)  # the two convs
+                 + cfg.encoder_layers * 2 * t * (4 * d * d + 2 * d * f + 2 * t * d))
+    print(f"[whisper] a call (log-mel + encoder, 30 s window): {event:.3f} ms between CUDA "
+          f"events; device_timeit {1e3 * per:.3f} ms an iteration (t_2 {1e3 * t1:.3f}, t_10 "
+          f"{1e3 * t2:.3f} ms); ~{flops / 1e12:.3f} TFLOP f32 ({flops / (event * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s); peak memory {peak_gib:.2f} GiB; {smi}")
+    check(abs(1e3 * per - event) <= 0.25 * event,
+          f"[whisper] device_timeit {1e3 * per} ms vs CUDA events {event} ms")
+    with torch.inference_mode():
+        profile_requests([("whisper get_content 29.9 s",
+                           lambda: whisper.get_content(enc.params, cfg, w))])
+        with tempfile.TemporaryDirectory(prefix="whisper-trace-") as d:
+            with profiling.trace(d):
+                whisper.get_content(enc.params, cfg, wavs[10.0])
+            files = [os.path.join(d, f) for f in os.listdir(d)]
+            sizes = [os.path.getsize(f) for f in files]
+        print(f"[whisper] profiling.trace wrote {len(files)} file(s) of {sizes} bytes")
+        check(len(files) == 1 and sizes[0] > 0, "[whisper] profiling.trace wrote no trace")
+    stats = profiling.device_stats()
+    print(f"[whisper] device_stats {stats}")
+    check(len(stats) == 1 and stats[0]["bytes_in_use"] > 0, f"[whisper] device_stats {stats}")
+    del enc, enc_c
+    torch.cuda.empty_cache()
+    print(f"[whisper] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def ge2e_parity(tree, seed, dev):
+    """``[ge2e-parity]``: one GE2E step's loss and gradients (B 8 x 4
+    windows) on the card, on the CPU in f32 and in f64, from the same tree
+    and batch: the loss 1e-4 relative card vs CPU f32; the gradients (all
+    tensors together) 1e-2 relative L2 of the f64 step's."""
+    rng = np.random.default_rng(seed)
+    voices = [speaker_train.synthetic_voice(rng) for _ in range(8)]
+    wavs = np.stack([speaker_train.synthetic_utterance(rng, v) for v in voices for _ in range(4)])
+    with torch.no_grad():
+        mels = speaker_train._mels(torch.as_tensor(wavs))[:, :speaker_train.PARTIAL_FRAMES]
+    batch = mels.reshape(8, 4, *mels.shape[1:])
+    sides = {}
+    for name, d, dtype in (("card", dev, torch.float32), ("cpu", torch.device("cpu"),
+                                                          torch.float32),
+                           ("f64", torch.device("cpu"), torch.float64)):
+        m = TreeModule(tree, trainable=True).to(device=d, dtype=dtype)
+        loss = speaker_train.batch_loss(m.params, batch.to(device=d, dtype=dtype))
+        loss.backward()
+        sides[name] = (float(loss.detach()), [p.grad.cpu().double() for p in m.parameters()])
+
+    def rel_l2(a, b):
+        return (sum(float((x - y).pow(2).sum()) for x, y in zip(a, b))
+                / sum(float(y.pow(2).sum()) for y in b)) ** 0.5
+
+    loss_err = abs(sides["card"][0] - sides["cpu"][0]) / abs(sides["cpu"][0])
+    g_card, g_cpu = rel_l2(sides["card"][1], sides["f64"][1]), rel_l2(sides["cpu"][1],
+                                                                      sides["f64"][1])
+    print(f"[ge2e-parity] B8x4 x {speaker_train.PARTIAL_FRAMES} frames: loss card "
+          f"{sides['card'][0]:.6f}, CPU f32 {sides['cpu'][0]:.6f}, f64 {sides['f64'][0]:.6f} "
+          f"(card vs CPU {loss_err:.3e}, tol 1e-4); gradients against f64, relative L2: card "
+          f"{g_card:.3e}, CPU f32 {g_cpu:.3e} (tol {PARITY_GRAD_L2})")
+    check(loss_err <= 1e-4 and g_card <= PARITY_GRAD_L2,
+          f"[ge2e-parity] loss {loss_err} or gradients {g_card} off")
+
+
+def ge2e_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[ge2e]``: train_speaker_encoder at its defaults on the card (64 voices
+    x 6 utterances, B 8 x 4 windows of 80 frames, hidden 64, emb 64, 2
+    layers, 400 steps): the first and last loss (the last below the first),
+    steps/s over steps 0-350 (the host clock between the loss reads of the
+    log, each a synchronisation); the held-out check of
+    tests/test_speaker_embedder.py on the card-trained embedder (same >
+    0.75, same > cross + 0.15); ``python -m
+    vosk_tts_tpu_torch.tools.train_speaker_embedder --steps 400 --out <tmp>``
+    on the card, whose artifact ``lstm_embedder`` loads; then
+    ``[ge2e-parity]`` from the trained tree. No hand-written kernel."""
+    t_phase = time.perf_counter()
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    expected = zeroed(all_kernels)
+    logs = []
+    t0 = time.perf_counter()
+    params, extra = speaker_train.train_speaker_encoder(
+        SEED, log=lambda m: logs.append((time.perf_counter(), m)), device=dev)
+    wall = time.perf_counter() - t0
+    first = float(logs[0][1].rsplit(" ", 1)[1])
+    steps_s = 350 / (logs[-1][0] - logs[0][0])
+    print(f"[ge2e] train_speaker_encoder defaults on the card: {wall:.1f} s with the corpus; "
+          f"loss first {first:.4f}, last {extra['loss']:.4f}; {steps_s:.1f} steps/s "
+          f"({1e3 / steps_s:.3f} ms a step, steps 0-350); {smi}")
+    check(np.isfinite(extra["loss"]) and extra["loss"] < first,
+          f"[ge2e] the loss did not fall: {first} -> {extra['loss']}")
+    check(launches_now(all_kernels) == expected, "[ge2e] a hand-written kernel launched")
+    same, cross = held_out(speaker_train.lstm_embedder(params, device=dev))
+    print(f"[ge2e] held-out voices, the card-trained embedder on the card: same {same:.4f}, "
+          f"cross {cross:.4f} (need same > 0.75 and same > cross + 0.15)")
+    check(same > 0.75 and same > cross + 0.15, f"[ge2e] held-out same {same}, cross {cross}")
+
+    with tempfile.TemporaryDirectory(prefix="ge2e-") as d:
+        out = os.path.join(d, "speaker_encoder.npz")
+        lines, wall = module_json(["vosk_tts_tpu_torch.tools.train_speaker_embedder", "--steps",
+                                   "400", "--out", out])
+        print(f"[ge2e] python -m vosk_tts_tpu_torch.tools.train_speaker_embedder --steps 400 "
+              f"(on the card, {wall:.1f} s with the process' start): {lines[-2]}; {lines[-1]}")
+        e = speaker_train.lstm_embedder(speaker_train.load_artifact(out)["params"], device=dev)(
+            np.asarray(speaker_train.synthetic_utterance(np.random.default_rng(7),
+                       speaker_train.synthetic_voice(np.random.default_rng(8)))), 22050)
+        check(e.shape == (64,) and abs(float(np.linalg.norm(e)) - 1) < 1e-5,
+              "[ge2e] the tool's artifact does not embed")
+    ge2e_parity(to_port_layout(params), SEED + 95, dev)
+    print(f"[ge2e] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -3232,6 +3568,13 @@ def main() -> int:
     att.append(s2_case)
     torch.cuda.empty_cache()
 
+    # 16-18. evaluation, Whisper content features, the GE2E speaker encoder
+    eval_launches = eval_phase(kernels, smi)
+    torch.cuda.empty_cache()
+    whisper_phase(kernels, smi)
+    ge2e_phase(kernels, smi)
+    torch.cuda.empty_cache()
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -3249,6 +3592,7 @@ def main() -> int:
                "variants_vc_launches": var_vc_launches[name],
                **({"train_s2_launches": s2_launches} if name == "banded_attention" else {}),
                "train_variants_serve_launches": variant_serve[name],
+               "eval_launches": eval_launches[name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],

@@ -82,6 +82,26 @@ def test_vocoders_import_no_jax():
     assert r.stdout.strip() == "[]", r.stdout
 
 
+_IMPORT_EVAL = textwrap.dedent("""
+    import importlib, sys
+    for name in ("eval", "eval.harness", "eval.speaker_embed", "eval.speaker_train",
+                 "models.whisper", "utils.profiling", "utils.repro", "utils.plotting",
+                 "tools", "tools.eval_tts", "tools.build_examples",
+                 "tools.train_speaker_embedder"):
+        importlib.import_module("vosk_tts_tpu_torch." + name)
+    print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vosk_tts_tpu")))
+""")
+
+
+def test_eval_imports_no_jax():
+    """The eval harness and speaker embedders, Whisper, the profiling,
+    repro and plotting utilities and the tools, in a fresh process."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_EVAL], capture_output=True, text=True,
+                       cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
 def test_port_sources_name_no_jax():
     """No source of the port, and not chip_smoke.py, imports JAX or the JAX
     package (also where an import sits inside a function)."""

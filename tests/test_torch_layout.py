@@ -1,9 +1,11 @@
 """The port's layout conversion round trip: ``from_port_layout(to_port_layout(t),
 linears) == t`` (every leaf: path, shape and value) for each tree the port
 initialises, with that kind of tree's Linears, from the port's numpy inits at
-small widths; the StableTTS tree also through its fused qkv
+small widths, and for the committed speaker-encoder artifact; the StableTTS
+tree also through its fused qkv
 (``stabletts.bundle_layout(stabletts.port_layout(t)) == t``). No JAX here:
-the inits' structures are held to the JAX package's in the trainers' tests.
+the inits' structures are held to the JAX package's in the trainers' tests
+(Whisper's in tests/test_torch_whisper.py).
 """
 
 import numpy as np
@@ -15,6 +17,8 @@ from vosk_tts_tpu_torch.models.gpt_sovits import ARConfig, SoVITSConfig
 from vosk_tts_tpu_torch.models.hubert import HubertConfig
 from vosk_tts_tpu_torch.models.quickvc import QuickVCConfig
 from vosk_tts_tpu_torch.models.wavlm import WavLMConfig
+from vosk_tts_tpu_torch.models.whisper import WhisperEncConfig
+from vosk_tts_tpu_torch.eval import speaker_train
 from vosk_tts_tpu_torch.utils import params as P
 from vosk_tts_tpu_torch.utils.checkpoint import _flatten
 
@@ -43,6 +47,8 @@ HUBERT = dict(hidden_size=16, num_hidden_layers=2, num_attention_heads=2, interm
               conv_dim=(8, 8), conv_stride=(5, 2), conv_kernel=(10, 3),
               num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=4)
 WAVLM = dict(HUBERT, num_buckets=16, max_bucket_distance=32)
+WHISPER = dict(num_mel_bins=8, d_model=16, encoder_layers=2, encoder_attention_heads=2,
+               encoder_ffn_dim=32, max_source_positions=20)
 
 
 def _matcha():
@@ -65,6 +71,9 @@ TREES = {
     "wavlm": (lambda: P.wavlm_init(WavLMConfig(**WAVLM), 10), P.WAVLM_LINEARS),
     # its pre is a 1x1 conv (1, 3 x 16, 8): under LINEARS it comes back as one
     "wavlm_disc": (lambda: P.wavlm_disc_init(11, 16, 3, 8), P.LINEARS),
+    "whisper": (lambda: P.whisper_init(WhisperEncConfig(**WHISPER), 12), P.WHISPER_LINEARS),
+    # the committed GE2E speaker encoder (its scalar w and b keep their layout)
+    "speaker_encoder": (lambda: speaker_train.load_artifact()["params"], P.LINEARS),
 }
 
 

@@ -117,7 +117,8 @@ def make_s1_step(mcfg: G.ARConfig, tcfg: S1TrainConfig, compute_dtype=None):
             loss, acc = G.ar_forward_train(*args)
         loss.backward()
         if tcfg.optimizer == "adamw":
-            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            T.fill_missing_grads(opt)
+            grads = [p.grad for p in net.parameters()]
             norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
             # optax clip_by_global_norm: g / norm * max_norm where norm >= max_norm
             torch._foreach_mul_(grads, torch.where(norm < tcfg.grad_clip, 1.0,
@@ -243,6 +244,7 @@ def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None):
         yr, yg, _, _ = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real, y_hat.detach())
         loss_disc = L.discriminator_loss(yr, yg)[0]
         loss_disc.backward()
+        T.fill_missing_grads(opt_d)
         opt_d.step()
 
         # the generator, through the updated discriminator
@@ -259,6 +261,7 @@ def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None):
             commit = out["commit_loss"]
             total = loss_gen + loss_fm + loss_mel + loss_kl + commit * tcfg.c_commit
             total.backward()
+        T.fill_missing_grads(opt_g)
         opt_g.step()
 
         state.vq = rvq.ema_step(state.vq, flat, decay=tcfg.vq_decay, epsilon=tcfg.vq_epsilon)

@@ -14,16 +14,18 @@ also reads the model block's ``istft_mode`` ("torch", the default, or
 steps, and at the end, the driver writes ``STATE_{step}.pt`` (the whole
 state, for resume) and ``G_{step}.npz`` (the generator in the bundle
 layout, loadable by both packages); a later run with the same model
-directory resumes from the newest STATE. ``--finetune DIR`` starts G, D
-and durD from DIR's newest STATE (a WavLM discriminator starts fresh, as in
-the JAX driver) and keeps the duration discriminator's parameters frozen
-(restored after every step, while its optimizer state advances, as the JAX
-driver does). ``--wavlm-dir DIR`` turns on the WavLM/SLM loss: a frozen
-WavLM from ``DIR/config.json`` (a Hugging Face ``WavLMConfig`` dict) and
-``DIR/params.npz`` (the bundle layout), and a WavLM discriminator with its
-own AdamW over its ``num_hidden_layers + 1`` states (the train block's
-``slm_initial`` channels, default 64). It runs on the card unless
-``--device cpu`` is given and raises without CUDA.
+directory resumes from the newest STATE, and warns where the code's git
+commit differs from the one the first run wrote to ``githash``.
+``--finetune DIR`` starts G, D and durD from DIR's newest STATE (a WavLM
+discriminator starts fresh, as in the JAX driver) and keeps the duration
+discriminator's parameters frozen (restored after every step, while its
+optimizer state advances, as the JAX driver does). ``--wavlm-dir DIR``
+turns on the WavLM/SLM loss: a frozen WavLM from ``DIR/config.json`` (a
+Hugging Face ``WavLMConfig`` dict) and ``DIR/params.npz`` (the bundle
+layout), and a WavLM discriminator with its own AdamW over its
+``num_hidden_layers + 1`` states (the train block's ``slm_initial``
+channels, default 64). It runs on the card unless ``--device cpu`` is given
+and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..models.vits2 import VITS2Config
 from ..models.wavlm import WavLM, WavLMConfig
 from ..utils import checkpoint as ckpt
 from ..utils.params import LINEARS, from_port_layout, to_port_layout
+from ..utils.repro import check_git_hash
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
 from .driver_common import log, resume_state, save_state, train_loop
@@ -116,6 +119,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
+    check_git_hash(args.model_dir)
 
     with open(args.config, encoding="utf-8") as f:
         cfg = json.load(f)

@@ -81,6 +81,7 @@ def make_train_step(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, compute_dtype=No
         yr, yg, _, _ = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real, y_hat.detach())
         loss_disc = L.discriminator_loss(yr, yg)[0] + L.discriminator_tprls_loss(yr, yg)
         loss_disc.backward()
+        T.fill_missing_grads(opt_d)
         opt_d.step()
 
         # the generator, through the updated discriminator
@@ -97,6 +98,7 @@ def make_train_step(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, compute_dtype=No
                                 out["spec_mask"]) * tcfg.c_kl
             total = loss_gen + loss_tprls + loss_fm + loss_mel + loss_kl
             total.backward()
+        T.fill_missing_grads(opt_g)
         opt_g.step()
         state.step += 1
         return {"loss_disc": loss_disc.detach(), "loss_gen_all": total.detach(),

@@ -28,8 +28,9 @@ The values are the same.
 Each network is a ``TreeModule`` of ``nn.Parameter`` leaves in the port's
 layouts; each has its own ``torch.optim.AdamW`` (betas (0.8, 0.99), eps
 1e-9, weight decay 0.01: optax ``adamw``'s update, decoupled decay of the
-old parameter and eps outside the root), all on one per-epoch exponential
-learning-rate schedule.
+old parameter and eps outside the root; a parameter that no loss reaches
+takes a zero gradient, :func:`fill_missing_grads`, and decays as under
+optax), all on one per-epoch exponential learning-rate schedule.
 """
 
 from __future__ import annotations
@@ -79,6 +80,17 @@ class TrainConfig:
 def make_optimizer(params, tcfg: TrainConfig) -> torch.optim.AdamW:
     return torch.optim.AdamW(params, lr=tcfg.learning_rate, betas=tuple(tcfg.betas),
                              eps=tcfg.eps, weight_decay=0.01)
+
+
+def fill_missing_grads(opt: torch.optim.Optimizer) -> None:
+    """Give each parameter of ``opt`` that no loss reached a zero gradient.
+    torch's AdamW skips a parameter whose ``.grad`` is None; optax's
+    ``adamw`` gives it a zero gradient, whose update is 0 / (0 + eps) plus
+    the decay ``-lr * wd * p``. Called before every ``opt.step()``."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 NETS = ("g", "d", "dur", "wd")
@@ -236,6 +248,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
                                      periods, spec_ffts)
         loss_disc = L.discriminator_loss(yr, yg)[0] + L.discriminator_tprls_loss(yr, yg)
         loss_disc.backward()
+        fill_missing_grads(opt_d)
         opt_d.step()
         metrics["loss_disc"] = loss_disc.detach()
 
@@ -250,6 +263,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             dg = D.wavlm_disc_apply(wd, stacked_hidden_states([h.detach() for h in hs_fake]))
             loss_slm_disc = torch.mean((1 - dr) ** 2) + torch.mean(dg**2)
             loss_slm_disc.backward()
+            fill_missing_grads(opt_wd)
             opt_wd.step()
             metrics["loss_slm_disc"] = loss_slm_disc.detach()
 
@@ -261,6 +275,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
                                            out["logw_"].detach(), out["logw"].detach())
             loss_dur_disc = L.discriminator_loss([pr], [pg])[0]
             loss_dur_disc.backward()
+            fill_missing_grads(opt_dur)
             opt_dur.step()
             metrics["loss_dur_disc"] = loss_dur_disc.detach()
 
@@ -297,6 +312,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
                 total = total + loss_lm + loss_lm_gen
                 metrics.update({"loss_lm": loss_lm.detach(), "loss_lm_gen": loss_lm_gen.detach()})
             total.backward()
+        fill_missing_grads(opt_g)
         opt_g.step()
         state.step += 1
         metrics.update({"loss_gen_all": total.detach(), "loss_gen": loss_gen.detach(),

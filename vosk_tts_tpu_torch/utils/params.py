@@ -32,7 +32,8 @@ order. Every other leaf (embedding tables such as ``emb``, ``punc_emb``,
 ``spk_emb``, ``word_emb``, ``pos_emb``; ``fake_speaker``,
 ``fake_content``; norm ``gamma``/``beta``, ``gn_gamma``/``gn_beta``;
 Vocos' layer scale ``gamma``; BigVGAN's snake ``alpha``/``beta``;
-biases) keeps its layout. The StableTTS DiT attention's fused qkv
+biases; the speaker-encoder artifact's scalar ``w`` and ``b``, the GE2E
+similarity scale and offset) keeps its layout. The StableTTS DiT attention's fused qkv
 projection is a layout of that model alone: ``models.stabletts.port_layout``
 makes it from this one.
 
@@ -47,16 +48,16 @@ is one in one tree and the other in another (VITS2's and MRTE's attention
 ``q``/``k``/``v``/``o`` are 1x1 convs, BERT's and HuBERT's Linears), so
 the caller names the tree's Linears: :data:`LINEARS` (VITS2,
 the discriminators, QuickVC, Matcha, the vocoders), :data:`AR_LINEARS`,
-:data:`SOVITS_LINEARS`, :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS` or
-:data:`WAVLM_LINEARS`. The WavLM discriminator's ``pre`` (1, 13 x 768, 64)
-is a 1x1 conv (under :data:`LINEARS`); WavLM's ``gru_const`` (1, H, 1, 1)
+:data:`SOVITS_LINEARS`, :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS`,
+:data:`WAVLM_LINEARS` or :data:`WHISPER_LINEARS`. The WavLM
+discriminator's ``pre`` (1, 13 x 768, 64) is a 1x1 conv (under :data:`LINEARS`); WavLM's ``gru_const`` (1, H, 1, 1)
 and ``rel_attn_embed`` (buckets, H) are not ``"w"`` and keep their layout.
 
 :func:`synthesizer_init` (every flow type, duration predictor and
 decoder), :func:`matcha_init`, :func:`hifigan_init`, :func:`vocos_init`,
 :func:`bigvgan_init`, :func:`bert_init`, :func:`hubert_init`, :func:`quickvc_init`,
-:func:`ar_init`, :func:`sovits_init`, :func:`wavlm_init` and
-:func:`wavlm_disc_init` draw trees in the BUNDLE layout
+:func:`ar_init`, :func:`sovits_init`, :func:`wavlm_init`,
+:func:`wavlm_disc_init` and :func:`whisper_init` draw trees in the BUNDLE layout
 (the JAX one) from the same distributions and shapes as the JAX package's
 inits, so a full-width bundle can be made where JAX is absent; their
 numbers differ from JAX's draws. The GPT-SoVITS trees convert by the same
@@ -76,6 +77,7 @@ import numpy as np
 import torch
 
 from ..models.vits2 import check_decoder, check_ported, flow_type
+from ..models.whisper import _sinusoids
 
 
 def _pack_ddsconv(p):
@@ -107,7 +109,7 @@ def _convert(node, path):
     a = np.asarray(node)
     if path[-1] in ("w_ih", "w_hh"):  # LSTM (I, 4H) -> (4H, I)
         return np.ascontiguousarray(a.T)
-    if path[-1] != "w":
+    if path[-1] != "w" or a.ndim == 0:  # a scalar "w": the GE2E similarity scale
         return a
     if "ups" in path:  # ConvTranspose1d (K, I, O) -> (I, O, K)
         return np.ascontiguousarray(a.transpose(1, 2, 0))
@@ -149,6 +151,7 @@ SOVITS_LINEARS = LINEARS | {"spec1", "spec2", "wq", "wk", "wv", "fc_attn", "fc"}
 BERT_LINEARS = frozenset({"q", "k", "v", "attn_out", "ffn_in", "ffn_out"})
 HUBERT_LINEARS = BERT_LINEARS | {"fp"}
 WAVLM_LINEARS = frozenset({"q", "k", "v", "out", "gru_lin", "ffn_in", "ffn_out", "fp"})
+WHISPER_LINEARS = frozenset({"q", "k", "v", "out", "fc1", "fc2"})
 
 
 def _restore(node, path, linears):
@@ -163,7 +166,7 @@ def _restore(node, path, linears):
     a = np.asarray(node)
     if path[-1] in ("w_ih", "w_hh"):  # LSTM (4H, I) -> (I, 4H)
         return np.ascontiguousarray(a.T)
-    if path[-1] != "w":
+    if path[-1] != "w" or a.ndim == 0:
         return a
     if "ups" in path:  # (I, O, K) -> (K, I, O)
         return np.ascontiguousarray(a.transpose(2, 0, 1))
@@ -182,9 +185,10 @@ def from_port_layout(tree, linears):
     ``mpmsd_init``, ``mpd_init``, ``duration_disc_init``, QuickVC, Matcha
     (before the fused qkv: ``models.stabletts.bundle_layout`` inverts
     ``port_layout``), HiFiGAN, Vocos or BigVGAN tree; :data:`AR_LINEARS`, :data:`SOVITS_LINEARS`,
-    :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS`, :data:`WAVLM_LINEARS` for
-    the GPT-SoVITS AR and SoVITS, BERT, HuBERT and WavLM trees (the WavLM
-    discriminator's under :data:`LINEARS`)."""
+    :data:`BERT_LINEARS`, :data:`HUBERT_LINEARS`, :data:`WAVLM_LINEARS`,
+    :data:`WHISPER_LINEARS` for the GPT-SoVITS AR and SoVITS, BERT, HuBERT,
+    WavLM and Whisper trees (the WavLM discriminator's and the speaker
+    encoder's under :data:`LINEARS`)."""
     return _restore(tree, (), linears)
 
 
@@ -831,3 +835,25 @@ def wavlm_disc_init(seed: int, slm_hidden: int = 768, slm_layers: int = 13, init
             "convs": [_conv(rng, 5, initial, initial * 2), _conv(rng, 5, initial * 2, initial * 4),
                       _conv(rng, 5, initial * 4, initial * 4)],
             "post": _conv(rng, 3, initial * 4, 1)}
+
+
+def whisper_init(cfg, seed: int):
+    """Bundle-layout Whisper encoder tree (``whisper.whisper_encoder_init``):
+    convs N(0, 0.02^2) with zero biases, linears N(0, 1/I) with zero biases
+    (``k``'s bias, which the encoder does not read, too), the sinusoidal
+    ``pos`` table, unit layer norms."""
+    rng = np.random.default_rng(seed)
+    d, f = cfg.d_model, cfg.encoder_ffn_dim
+    normal = lambda shape, std: (rng.standard_normal(shape) * std).astype(np.float32)
+    lin = lambda i, o: {"w": normal((i, o), i**-0.5), "b": np.zeros((o,), np.float32)}
+    ln = lambda: {"g": np.ones((d,), np.float32), "b": np.zeros((d,), np.float32)}
+    return {
+        "conv1": {"w": normal((3, cfg.num_mel_bins, d), 0.02), "b": np.zeros((d,), np.float32)},
+        "conv2": {"w": normal((3, d, d), 0.02), "b": np.zeros((d,), np.float32)},
+        "pos": _sinusoids(cfg.max_source_positions, d),
+        "layers": [{"ln1": ln(),
+                    "attn": {"q": lin(d, d), "k": lin(d, d), "v": lin(d, d), "out": lin(d, d)},
+                    "ln2": ln(), "fc1": lin(d, f), "fc2": lin(f, d)}
+                   for _ in range(cfg.encoder_layers)],
+        "ln_post": ln(),
+    }
