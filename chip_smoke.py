@@ -239,7 +239,24 @@ result line is printed):
    --steps 400 --out <tmp>`` on the card, its artifact loaded;
    ``[ge2e-parity]``: one step from the trained tree card vs CPU f32 and
    f64: the loss 1e-4 relative, the gradients 1e-2 relative L2 of the f64
-   step's. Each phase prints its wall time.
+   step's;
+19. data- and tensor-parallel training and ``synth_batch`` over replicas
+   (``[dist]``, vosk_tts_tpu_torch/parallel/): (a) a data-parallel VITS2
+   step of two ranks (this script with ``--dist-rank``, both on cuda:0
+   over gloo: NCCL refuses two ranks on one card) at VITS2Config() and
+   TrainConfig(), global B24 = 2 x 12 of ``[train]``'s corpus, draws
+   pinned per row, against the 1-rank B24 step, both in deterministic
+   algorithms: every loss 1e-3 relative, each network's gradients 1e-2
+   relative L2, the ranks' gradients and parameters equal, MAS once a
+   rank; (b) ``run_vits2 --distributed`` as one NCCL rank (torchrun's
+   environment) for 2 steps, STATE_2 restored, a resumed step; (c) the
+   generator tensor-parallel over a model axis of 2 (each rank half of
+   the sharded weights) at VITS2Config() width against the unsharded one,
+   1e-3 x peak; (d) ``Synth.synth_batch`` of 5 texts (padded to 6) over two
+   replicas on cuda:0 against one, noise 0: equal lengths, 1e-3 x peak,
+   20 launches of kernel 1 and 8 of kernel 2. Any rank that fails, exits
+   non-zero or outlives DIST_TIMEOUT (its group times out too) fails the
+   phase. Each phase prints its wall time.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -3337,6 +3354,324 @@ def ge2e_phase(kernels, smi, dev=torch.device("cuda")):
     print(f"[ge2e] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 19. Data- and tensor-parallel training, synth_batch over replicas
+# ---------------------------------------------------------------------------
+
+DIST_SEED = SEED + 90
+#: seconds: the ranks' group (each collective) and the wait for the ranks
+DIST_TIMEOUT = 300
+#: the tensor-parallel generator's input: rows and frames (x 256 samples)
+DIST_TP_B, DIST_TP_T = 2, 128
+
+
+def flat_grads(module):
+    """A network's gradients, flattened in its parameters' order, on the host."""
+    return torch.cat([p.grad.reshape(-1) for p in module.parameters()]).cpu()
+
+
+def digest_of(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def dist_rank(rank: int, root: str) -> int:
+    """One of the two ranks of ``[dist]`` (a) and (c), both on ``cuda:0``
+    over gloo (NCCL refuses two ranks on one card; gloo's CUDA collectives
+    are all_reduce and broadcast, all the port's collectives use):
+    (a) the data-parallel VITS2 step on this rank's 12 rows of the B24
+    batch in ``inputs.pt``, draws pinned per row, in deterministic
+    algorithms; (c) the generator tensor-parallel over a model axis of 2.
+    Writes ``rank{rank}.pt``."""
+    from vosk_tts_tpu_torch.parallel import mesh as pmesh
+    from vosk_tts_tpu_torch.parallel import tp as ptp
+    import datetime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = "0"
+    dev = pmesh.initialize(f"file://{root}/store", 2, rank, device="cuda", backend="gloo",
+                           timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+    mcfg, tcfg = inputs["mcfg"], inputs["tcfg"]
+    out = {}
+
+    # (a) the data-parallel step
+    grid = pmesh.make_grid()
+    rows = slice(12 * rank, 12 * rank + 12)
+    with deterministic():
+        state = tt.init_train_state(mcfg, tcfg, device=dev, trees=inputs["trees"])
+        step = tt.make_train_step(mcfg, tcfg, dp=grid.data)
+        batch = to_device({k: v[rows] for k, v in inputs["batch"].items()}, dev)
+        noise = {k: v[rows].to(dev) for k, v in inputs["noise"].items()}
+        mas.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch, noise=noise)
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["mas_launches"] = mas.KERNEL.launches
+        out["metrics"] = {k: float(v) for k, v in metrics.items()}
+        grads = {k: flat_grads(m) for k, m in state.params.items()}
+        out["digest"] = {k: digest_of([g]) for k, g in grads.items()}
+        out["params_digest"] = {k: digest_of(m.parameters()) for k, m in state.params.items()}
+        if rank == 0:
+            out["grads"] = grads
+    del state, grads
+    torch.cuda.empty_cache()
+
+    # (c) the tensor-parallel generator
+    tp_grid = pmesh.make_grid(n_data=1, n_model=2)
+    local, tp = ptp.shard_generator_params(inputs["trees"]["g"]["dec"], tp_grid.model)
+    dec = TreeModule(local).to(dev)
+    z, g = inputs["tp_z"].to(dev), inputs["tp_g"].to(dev)
+    with torch.no_grad():
+        wav = vits2.generator_apply(dec.params, mcfg, z, g, tp=tp)[0]
+        out["tp_ms"] = float(np.median([event_ms(lambda: vits2.generator_apply(
+            dec.params, mcfg, z, g, tp=tp))[0] for _ in range(5)]))
+    out["tp_out"] = wav.cpu()
+    out["tp_weights"] = sum(t.numel() for t in dec.buffers())
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    pmesh.shutdown()
+    return 0
+
+
+def run_ranks(root, n):
+    """``n`` ranks of this script (``--dist-rank``), each waited for at most
+    DIST_TIMEOUT s; every one is stopped before this returns. Fails unless
+    every rank exits 0."""
+    env = dict(os.environ, LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+                               "--dist-root", root], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(n)]
+    logs = []
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("(timed out)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(f"[dist] rank {r} exited {p.returncode}; the end of its output:\n{log[-3000:]}")
+        check(p.returncode == 0, f"[dist] rank {r} failed (exit {p.returncode})")
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int = 1):
+    """torchrun's environment for rank 0 of ``world`` on this host, a free
+    port for its store; the old environment is put back after."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dist_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[dist]``: (a) a 2-rank data-parallel VITS2 step (VITS2Config(),
+    TrainConfig(), global B24 = 2 x 12 of [train]'s corpus, draws pinned per
+    row) against the 1-rank B24 step, both in deterministic algorithms, with
+    ``[train-parity]``'s gates: every loss within 1e-3 relative, each
+    network's gradients within PARITY_GRAD_L2 relative L2, MAS launched once
+    a rank, the two ranks' gradients and parameters equal; (b) ``run_vits2
+    --distributed`` as one NCCL rank for 2 steps, then a resume from its
+    STATE_2 for one more; (c) the generator tensor-parallel over a model axis
+    of 2 at VITS2Config() width against the unsharded one (1e-3 x peak);
+    (d) ``synth_batch`` of 5 texts (padded to 6) over two replicas on
+    ``cuda:0`` against one replica, noise 0: equal lengths, 1e-3 x peak, 10
+    banded attention and 4 DDSConv launches a replica. Returns the launches
+    (MAS over the ranks' steps, kernels 1-2 over (d)'s two-replica call)."""
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="dist-") as root:
+        t0 = time.perf_counter()
+        write_corpus(root)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w", encoding="utf-8") as f:
+            json.dump(train_config(root), f)
+        mcfg, tcfg, dcfg = run_vits2.build_configs(train_config(root))
+        check(mcfg == vits2.VITS2Config() and tcfg == tt.TrainConfig(),
+              f"[dist] the training config is not the full-width default: {mcfg} {tcfg}")
+        batch_np = next(BucketBatcher(TTSDataset(dcfg), 24).epoch(0))
+        b, t_x = batch_np["x"].shape
+        t_y = batch_np["mel"].shape[1]
+        rng = np.random.default_rng(DIST_SEED)
+        noise = {k: torch.tensor(rng.standard_normal(shape).astype(np.float32)) for k, shape in
+                 (("posterior", (b, t_y, mcfg.inter_channels)), ("e_q", (b, t_x, 2)),
+                  ("z", (b, t_x, 2)))}
+        noise["ids_slice"] = torch.tensor((rng.uniform(size=b) * np.maximum(
+            batch_np["mel_lengths"] - mcfg.segment_size + 1, 1)).astype(np.int64))
+        trees = tt.init_trees(mcfg, tcfg, DIST_SEED)  # the flows' projections perturbed
+        trees["g"] = to_port_layout(perturb_zero_init(synthesizer_init(mcfg, DIST_SEED),
+                                                      seed=DIST_SEED + 1))
+        tp_z = torch.tensor(rng.standard_normal((DIST_TP_B, DIST_TP_T, mcfg.inter_channels))
+                            .astype(np.float32))
+        tp_g = torch.tensor(rng.standard_normal((DIST_TP_B, 1, mcfg.gin_channels))
+                            .astype(np.float32))
+        torch.save({"mcfg": mcfg, "tcfg": tcfg, "trees": trees, "batch": batch_np,
+                    "noise": noise, "tp_z": tp_z, "tp_g": tp_g}, os.path.join(root, "inputs.pt"))
+        print(f"[dist] [train]'s corpus and B{b} batch (T_x {t_x}, T_y {t_y}), full-width "
+              f"trees and pinned draws in {time.perf_counter() - t0:.1f} s")
+
+        # (a) the 1-rank B24 step, the reference of the 2-rank step
+        with deterministic():
+            state = tt.init_train_state(mcfg, tcfg, device=dev, trees=trees)
+            step = tt.make_train_step(mcfg, tcfg)
+            mas.KERNEL.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = {k: float(v) for k, v in step(state, to_device(batch_np, dev),
+                                                  noise={k: v.to(dev) for k, v in
+                                                         noise.items()}).items()}
+            torch.cuda.synchronize()
+            ms_one = 1e3 * (time.perf_counter() - t0)
+            check(mas.KERNEL.launches == 1, f"[dist] the 1-rank step launched MAS "
+                                            f"{mas.KERNEL.launches} times")
+            ref = {k: flat_grads(m) for k, m in state.params.items()}
+        del state
+        torch.cuda.empty_cache()
+        # (c)'s reference: the unsharded generator
+        dec = TreeModule(trees["g"]["dec"]).to(dev)
+        with torch.no_grad():
+            wav_ref = vits2.generator_apply(dec.params, mcfg, tp_z.to(dev), tp_g.to(dev))[0]
+            tp_ref_ms = float(np.median([event_ms(lambda: vits2.generator_apply(
+                dec.params, mcfg, tp_z.to(dev), tp_g.to(dev)))[0] for _ in range(5)]))
+        wav_ref, dec_weights = wav_ref.cpu(), sum(t.numel() for t in dec.buffers())
+        del dec, trees
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run_ranks(root, 2)
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        got = ranks[0]["metrics"]
+        rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
+        print(f"[dist] (a) 2 ranks x B12 on cuda:0 (gloo) vs 1 rank x B24, deterministic "
+              f"algorithms: losses 2 ranks {got}, 1 rank {want}, relative differences {rel} "
+              f"(tol 1e-3); step {ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} ms a "
+              f"rank vs {ms_one:.1f} ms (host clock, first step, both ranks on one card); "
+              f"the ranks' process wall {t_ranks:.1f} s; {smi}")
+        check(set(got) == set(want) and all(r <= 1e-3 for r in rel.values()),
+              f"[dist] the 2-rank step's losses differ from the 1-rank step's: {rel}")
+        check(ranks[0]["metrics"] == ranks[1]["metrics"], "[dist] the ranks' losses differ")
+        for k, g in ref.items():
+            l2 = rel_l2(ranks[0]["grads"][k], g)
+            print(f"[dist] (a) {k} gradients (reduced, rank 0) vs the 1-rank step: relative "
+                  f"L2 {l2:.3e} (tol {PARITY_GRAD_L2}); equal on both ranks: "
+                  f"{ranks[0]['digest'][k] == ranks[1]['digest'][k]}")
+            check(l2 <= PARITY_GRAD_L2, f"[dist] {k} gradients differ: relative L2 {l2}")
+        check(ranks[0]["digest"] == ranks[1]["digest"]
+              and ranks[0]["params_digest"] == ranks[1]["params_digest"],
+              "[dist] the ranks' gradients or parameters after the step differ")
+        mas_launches = [r["mas_launches"] for r in ranks]
+        check(mas_launches == [1, 1], f"[dist] MAS launches a rank {mas_launches} != [1, 1]")
+        out["mas"] = sum(mas_launches)
+
+        # (c) the tensor-parallel generator
+        peak = float(wav_ref.abs().max())
+        errs = [float((r["tp_out"] - wav_ref).abs().max()) for r in ranks]
+        print(f"[dist] (c) generator at VITS2Config() width (upsample_initial_channel "
+              f"{mcfg.upsample_initial_channel}), model axis 2 on cuda:0 (gloo), B{DIST_TP_B} "
+              f"{DIST_TP_T} frames: max |TP - unsharded| {errs} (peak {peak:.4f}, tol 1e-3 x "
+              f"peak); weights a rank {ranks[0]['tp_weights']} of {dec_weights}; "
+              f"{ranks[0]['tp_ms']:.3f} ms (TP, CUDA events, median of 5, both ranks on one "
+              f"card) vs {tp_ref_ms:.3f} ms unsharded; {smi}")
+        check(all(e <= 1e-3 * peak for e in errs), f"[dist] the TP generator differs: {errs}")
+        check(ranks[0]["tp_weights"] < dec_weights, "[dist] the TP ranks hold every weight")
+        del ranks, ref
+
+        # (b) run_vits2 --distributed as one NCCL rank, then a resume
+        model_dir = os.path.join(root, "model")
+        args = ["-c", cfg_path, "-m", model_dir, "--distributed"]
+        mas.KERNEL.launches = 0
+        with torchrun_env():
+            t0 = time.perf_counter()
+            first, m1 = run_vits2.main(args + ["--max-steps", "2"])
+            t_first = time.perf_counter() - t0
+            check(first.step == 2 and m1 and all(np.isfinite(v) for v in m1.values()),
+                  f"[dist] run_vits2 --distributed: step {first.step}, metrics {m1}")
+            check(not torch.distributed.is_initialized(), "[dist] run_vits2 left the group up")
+            restored = tt.init_train_state(mcfg, tcfg, seed=DIST_SEED + 2, device=dev)
+            resume_state(model_dir, restored)
+            check(same_state(first, restored), "[dist] STATE_2 did not restore the state")
+            del restored, first
+            t0 = time.perf_counter()
+            state, m2 = run_vits2.main(args + ["--max-steps", "3"])
+            check(state.step == 3 and all(np.isfinite(v) for v in m2.values()),
+                  f"[dist] resumed run_vits2 --distributed: step {state.step}, metrics {m2}")
+            del state
+        check(mas.KERNEL.launches == 3, f"[dist] MAS launched {mas.KERNEL.launches} times in "
+                                        f"run_vits2's 3 steps")
+        print(f"[dist] (b) run_vits2 --distributed, one NCCL rank (torchrun's environment): 2 "
+              f"steps in {t_first:.1f} s (init, mels, steps, save), STATE_2 restored (params, "
+              f"AdamW state equal), a resumed step in {time.perf_counter() - t0:.1f} s: {m2}; "
+              f"{smi}")
+    torch.cuda.empty_cache()
+
+    # (d) synth_batch over two replicas on cuda:0 against one
+    cfg = vits2.VITS2Config()
+    with tempfile.TemporaryDirectory(prefix="dist-bundle-") as bundle:
+        write_bundle(bundle, cfg, perturb_zero_init(synthesizer_init(cfg, seed=DIST_SEED),
+                                                    seed=DIST_SEED + 3))
+        synth = api.Synth(api.Model(bundle))
+        kw = dict(noise_level=0.0, duration_noise_level=0.0, speaker_ids=[0, 3, 7, 1, 2])
+        texts = TEXTS[:5]
+        for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):  # warm-up (the replica made)
+            synth.synth_batch(texts, devices=devices, **kw)
+        t0 = time.perf_counter()
+        one = synth.synth_batch(texts, devices=["cuda:0"], **kw)
+        t_one = time.perf_counter() - t0
+        for k in all_kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        two = synth.synth_batch(texts, devices=["cuda:0", "cuda:0"], **kw)
+        t_two = time.perf_counter() - t0
+        got = {n: k.launches for n, k in all_kernels.items()}
+        expected = {n: 0 for n in all_kernels} | {"banded_attention": 20, "ddsconv": 8}
+        peak = max(float(np.abs(a.astype(np.float64)).max()) for a in one)
+        err = max(float(np.abs(a.astype(np.float64) - w).max()) for a, w in zip(two, one))
+        print(f"[dist] (d) synth_batch of {len(texts)} texts (padded to 6) over 2 replicas on "
+              f"cuda:0 vs 1, noise 0: lengths {[len(a) for a in two]} vs "
+              f"{[len(a) for a in one]}, max |diff| {err:.0f} int16 steps (peak {peak:.0f}, "
+              f"tol 1e-3 x peak); {t_two * 1e3:.1f} ms vs {t_one * 1e3:.1f} ms (host clock); "
+              f"launches {got} (expected {expected}); {smi}")
+        check([len(a) for a in two] == [len(a) for a in one], "[dist] synth_batch lengths differ")
+        check(err <= 1e-3 * peak, f"[dist] synth_batch over 2 replicas differs: {err}")
+        check(got == expected, f"[dist] synth_batch launches {got} != {expected}")
+        out |= {n: got[n] for n in ("banded_attention", "ddsconv")}
+        del synth
+    torch.cuda.empty_cache()
+    print(f"[dist] wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -3575,6 +3910,10 @@ def main() -> int:
     ge2e_phase(kernels, smi)
     torch.cuda.empty_cache()
 
+    # 19. data- and tensor-parallel training, synth_batch over two replicas
+    dist_launches = dist_phase(kernels, smi)
+    torch.cuda.empty_cache()
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -3593,6 +3932,7 @@ def main() -> int:
                **({"train_s2_launches": s2_launches} if name == "banded_attention" else {}),
                "train_variants_serve_launches": variant_serve[name],
                "eval_launches": eval_launches[name],
+               "dist_synth_launches": dist_launches.get(name, 0),
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
@@ -3611,6 +3951,7 @@ def main() -> int:
                    "source": os.path.relpath(mas.KERNEL.source, ROOT),
                    "replaces": "vosk_tts_tpu/ops/mas.py:24", "launches": train_launches,
                    "train_variants_launches": variant_mas, "train_slm_launches": slm_mas,
+                   "dist_launches": dist_launches["mas"],
                    "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
                    **{key: mas_cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                    "library_ms": None, "shape": mas_cases[0]["shape"], "path": "train",
@@ -3624,4 +3965,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":  # a rank of [dist] (a) and (c)
+        sys.exit(dist_rank(int(sys.argv[2]), sys.argv[sys.argv.index("--dist-root") + 1]))
     sys.exit(main())

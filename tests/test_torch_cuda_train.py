@@ -29,10 +29,15 @@ imports no JAX, so on a machine with the card and without JAX it runs as
   (the AR's attention is dense; SoVITS trains on the dense route);
 * ``run_gpt_sovits`` trains on the card by default and on the CPU with
   ``--device cpu`` (without CUDA it raises: tests/test_torch_gpt_sovits_
-  train.py).
+  train.py);
+* ``run_vits2 --distributed`` as one NCCL rank (torchrun's environment for
+  a world of 1): two steps on ``cuda:0``, then a resumed step from its
+  ``STATE_2``, the group left after each run.
 """
 
 import json
+import socket
+import wave
 
 import numpy as np
 import pytest
@@ -43,7 +48,7 @@ from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
 from vosk_tts_tpu_torch.ops import mas
 from vosk_tts_tpu_torch.train import gpt_sovits_train as gt
-from vosk_tts_tpu_torch.train import run_gpt_sovits
+from vosk_tts_tpu_torch.train import run_gpt_sovits, run_vits2
 from vosk_tts_tpu_torch.train import stabletts_train as st
 from vosk_tts_tpu_torch.train import vc_train as vt
 from vosk_tts_tpu_torch.train import vits2_train as tt
@@ -349,3 +354,49 @@ def test_run_gpt_sovits_defaults_to_the_card(dev, tmp_path):
     assert state.params["ar"].device.type == "cuda"
     state, _ = run_gpt_sovits.main(args + ["-m", str(tmp_path / "cpu"), "--device", "cpu"])
     assert state.params["ar"].device.type == "cpu"
+
+
+def test_run_vits2_distributed_one_nccl_rank(dev, tmp_path, monkeypatch):
+    lines = []
+    for i, aligned in enumerate(["m_a1 vj_i1_r", "d_o1_m u1"]):
+        data = (np.random.default_rng(20 + i).standard_normal(64 * 48) * 3000).astype(np.int16)
+        with wave.open(str(tmp_path / f"t{i}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(22050)
+            f.writeframes(data.tobytes())
+        lines.append(f"{tmp_path}/t{i}.wav|{i}|{aligned}|{aligned}")
+    (tmp_path / "meta.csv").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    cfg = {"train": {"batch_size": 2, "epochs": 10, "log_interval": 1, "eval_interval": 100,
+                     "segment_size": 2048, "fft_sizes": [64, 128, 32], "hop_sizes": [8, 16, 4],
+                     "win_lengths": [32, 64, 16]},
+           "data": {"training_files": f"{tmp_path}/meta.csv", "sampling_rate": 22050,
+                    "filter_length": 256, "hop_length": 64, "win_length": 256,
+                    "n_mel_channels": 40, "aligned_text": True, "n_speakers": 4,
+                    "use_mel_posterior_encoder": True},
+           "model": {"use_mel_posterior_encoder": True, "mb_istft_vits": True,
+                     "use_transformer_flows": True, "transformer_flow_type": "pre_conv2",
+                     "use_spk_conditioned_encoder": True, "inter_channels": 16,
+                     "hidden_channels": 16, "filter_channels": 32, "n_heads": 2, "n_layers": 1,
+                     "n_flows": 1, "posterior_wn_layers": 2, "sdp_n_flows": 1,
+                     "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3]],
+                     "upsample_rates": [4], "upsample_kernel_sizes": [8],
+                     "upsample_initial_channel": 32, "n_speakers": 4, "gin_channels": 8,
+                     "use_duration_discriminator": True}}
+    (tmp_path / "c.json").write_text(json.dumps(cfg), encoding="utf-8")
+    with socket.socket() as s:  # a free port on this host for rank 0's store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+    args = ["-c", str(tmp_path / "c.json"), "-m", str(tmp_path / "model"), "--distributed"]
+    mas.KERNEL.launches = 0
+    state, metrics = run_vits2.main(args + ["--max-steps", "2"])
+    assert state.step == 2 and all(np.isfinite(v) for v in metrics.values())
+    assert state.params["g"].device == torch.device("cuda", 0)
+    assert not torch.distributed.is_initialized()
+    state, metrics = run_vits2.main(args + ["--max-steps", "3"])
+    assert state.step == 3 and all(np.isfinite(v) for v in metrics.values())
+    assert mas.KERNEL.launches == 3
+    assert not torch.distributed.is_initialized()

@@ -28,6 +28,7 @@ would have to be captured for.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -369,11 +370,35 @@ def make_multistream_decode_runner(model: Model, max_frames: int, n_timesteps: i
     return run
 
 
+def visible_devices(model: Model) -> list:
+    """Every visible card where the model is on a card, else the model's
+    device: the devices :meth:`Synth.synth_batch` spreads a batch over."""
+    if model.device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [model.device]
+
+
 class Synth:
     def __init__(self, model: Model):
         self.model = model
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(int(model.config.get("seed", 0)))
+        self._replicas: dict = {}
+
+    def _replica(self, i: int, device):
+        """(synthesizer, generator) of shard ``i`` on ``device``: the model's
+        own for shard 0 on the model's device, else a copy kept for the
+        shard (one a card; two shards named on one card hold two), its
+        generator seeded by the seed + ``i``."""
+        device = torch.device(device)
+        if i == 0 and device == self.model.device:
+            return self.model.synthesizer, self.generator
+        if (i, device) not in self._replicas:
+            syn = copy.deepcopy(self.model.synthesizer).to(device)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(self.model.config.get("seed", 0)) + i)
+            self._replicas[(i, device)] = (syn, gen)
+        return self._replicas[(i, device)]
 
     def _defaults(self, noise_level, speech_rate, duration_noise_level, scale):
         inference = self.model.config.get("inference", {})
@@ -384,51 +409,69 @@ class Synth:
     def _encode(self, text: str):
         return encode_plain(self.model, re.sub("—", "-", text.strip()))
 
-    def _encode_pass(self, x, x_lengths, sid, inv_rate, dur_noise, bucket):
-        """Duration-adaptive pass one: encoder + SDP once, fetch only the
-        predicted frame count; returns (enc, frame bucket, gen_frames), or
-        (None, worst case, None) when disabled with VOSK_TTS_ADAPTIVE=0."""
+    def _encode_pass(self, shards, inv_rate, dur_noise, bucket):
+        """Duration-adaptive pass one on every shard (synthesizer, generator,
+        (x, x_lengths, sid), real rows): encoder + SDP once each, then fetch
+        only the predicted frame counts; returns (each shard's enc, the
+        frame bucket, gen_frames) from the largest count of the real rows,
+        or (Nones, worst case, None) when disabled with VOSK_TTS_ADAPTIVE=0."""
         if os.environ.get("VOSK_TTS_ADAPTIVE", "1") == "0":
-            return None, bucket * FRAMES_PER_TOKEN, None
-        enc = self.model.synthesizer.encode_for_infer(
-            x, x_lengths, sid, generator=self.generator, length_scale=inv_rate,
-            noise_scale_w=dur_noise)
-        pred = int(enc["pred_frames"].max())
+            return [None] * len(shards), bucket * FRAMES_PER_TOKEN, None
+        encs = [syn.encode_for_infer(*args, generator=gen, length_scale=inv_rate,
+                                     noise_scale_w=dur_noise) for syn, gen, args, _ in shards]
+        pred = max(int(enc["pred_frames"][:real].max()) for enc, (*_, real) in zip(encs, shards))
         fb = pick_frame_bucket(pred, bucket)
-        return enc, fb, pick_gen_frames(pred, fb)
+        return encs, fb, pick_gen_frames(pred, fb)
 
     @torch.inference_mode()
-    def _run(self, all_ids, speaker_ids, noise_level, speech_rate, duration_noise_level):
+    def _run(self, all_ids, speaker_ids, noise_level, speech_rate, duration_noise_level,
+             devices=None):
         """Pad a batch to its text bucket, run both passes; returns
-        (wav (B, samples) numpy, lengths (B,) numpy)."""
+        (wav (B, samples) numpy, lengths (B,) numpy). ``devices`` (default
+        the model's) splits the batch, padded to a multiple of their count,
+        into one shard a device (:meth:`_replica`): the encode pass runs on
+        every shard, then one frame bucket and one ``gen_frames`` from the
+        largest ``pred_frames`` of every shard's real rows (a row's tail
+        depends on the frames after it, so every shard decodes at the same
+        geometry), then each shard's decode, the rows back in order."""
+        devices = [self.model.device] if devices is None else [torch.device(d) for d in devices]
         bucket = next((b for b in TEXT_BUCKETS if b >= max(len(i) for i in all_ids)),
                       TEXT_BUCKETS[-1])
-        n = len(all_ids)
-        x = np.zeros((n, bucket), np.int64)
-        x_lengths = np.ones((n,), np.int32)
+        n, k = len(all_ids), len(devices)
+        per = -(-n // k)  # rows a shard: the batch padded to a multiple of the devices
+        x = np.zeros((per * k, bucket), np.int64)
+        x_lengths = np.ones((per * k,), np.int32)
+        sid = np.zeros((per * k,), np.int64)
         for i, ids in enumerate(all_ids):
             if len(ids) > bucket:
                 logging.warning("text too long (%d tokens), truncating to %d", len(ids), bucket)
                 ids = ids[:bucket]
             x[i, : len(ids)] = ids
             x_lengths[i] = len(ids)
-        dev = self.model.device
-        x = torch.as_tensor(x, device=dev)
-        x_lengths = torch.as_tensor(x_lengths, device=dev)
-        sid = torch.as_tensor([s or 0 for s in speaker_ids], dtype=torch.int64, device=dev)
+            sid[i] = speaker_ids[i] or 0
         inv_rate = 1.0 / speech_rate
-        syn = self.model.synthesizer
-        enc, max_frames, gen = self._encode_pass(x, x_lengths, sid, inv_rate,
-                                                 duration_noise_level, bucket)
-        if enc is None:
-            out = syn.infer(x, x_lengths, sid, generator=self.generator, max_frames=max_frames,
-                            noise_scale=noise_level, length_scale=inv_rate,
-                            noise_scale_w=duration_noise_level)
-        else:
-            out = syn.decode_from_durations(enc, sid, generator=self.generator,
-                                            max_frames=max_frames, noise_scale=noise_level,
-                                            gen_frames=gen)
-        return out["wav"][..., 0].cpu().numpy(), out["wav_lengths"].cpu().numpy()
+        shards = []
+        for i, dev in enumerate(devices):
+            if i * per >= n:  # a shard of padding only: nothing to run
+                break
+            rows = slice(i * per, (i + 1) * per)
+            syn, gen = self._replica(i, dev)
+            args = [torch.as_tensor(a[rows], device=dev) for a in (x, x_lengths, sid)]
+            shards.append((syn, gen, args, min(n - i * per, per)))
+        encs, max_frames, gen_frames = self._encode_pass(shards, inv_rate, duration_noise_level,
+                                                         bucket)
+        wavs, lengths = [], []
+        for (syn, gen, (xs, xls, sids), _), enc in zip(shards, encs):
+            if enc is None:
+                out = syn.infer(xs, xls, sids, generator=gen, max_frames=max_frames,
+                                noise_scale=noise_level, length_scale=inv_rate,
+                                noise_scale_w=duration_noise_level)
+            else:
+                out = syn.decode_from_durations(enc, sids, generator=gen, max_frames=max_frames,
+                                                noise_scale=noise_level, gen_frames=gen_frames)
+            wavs.append(out["wav"][..., 0].cpu().numpy())
+            lengths.append(out["wav_lengths"].cpu().numpy())
+        return np.concatenate(wavs)[:n], np.concatenate(lengths)[:n]
 
     @torch.inference_mode()
     def _synth_multistream(self, text, speaker_id, noise_level, speech_rate):
@@ -490,10 +533,12 @@ class Synth:
             f.writeframes(audio.tobytes())
 
     def synth_batch(self, texts, speaker_ids=None, noise_level=None, speech_rate=None,
-                    duration_noise_level=None, scale=None):
-        """Many utterances as one batch on the model's device (one encode
-        pass, one decode pass). Returns a list of int16 arrays. VITS2
-        bundles only, as in the JAX package."""
+                    duration_noise_level=None, scale=None, devices=None):
+        """Many utterances as one batch (one encode pass, one decode pass),
+        spread over ``devices`` (default :func:`visible_devices`: every
+        visible card), one shard and one replica of the synthesizer a
+        device (:meth:`_run`); a list may name a card more than once. Returns
+        a list of int16 arrays. VITS2 bundles only, as in the JAX package."""
         if self.model.model_type in MULTISTREAM_TYPES:
             raise NotImplementedError("synth_batch runs VITS2 bundles only")
         noise_level, speech_rate, duration_noise_level, scale = self._defaults(
@@ -502,7 +547,8 @@ class Synth:
             speaker_ids = [0] * len(texts)
         start = time.perf_counter()
         wav, lengths = self._run([self._encode(t) for t in texts], speaker_ids, noise_level,
-                                 speech_rate, duration_noise_level)
+                                 speech_rate, duration_noise_level,
+                                 visible_devices(self.model) if devices is None else devices)
         audios = [audio_float_to_int16(wav[i, : lengths[i]] * scale) for i in range(len(texts))]
         elapsed = time.perf_counter() - start
         dur = sum(len(a) for a in audios) / self.model.sample_rate

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from ..ops import attention as att
 from ..ops.commons import rand_slice_segments, sequence_mask
 from ..ops.conv import conv1d
+from ..parallel.mesh import mean_share, size
 from . import vits2
 
 #: the host reads the decode's stop flags once every this many tokens
@@ -160,21 +161,23 @@ def _target_logps(logits, targets):
     return torch.log_softmax(logits, dim=-1).gather(-1, targets[..., None].long())[..., 0]
 
 
-def _ce_and_acc(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
+def _ce_and_acc(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert, dp=None):
     """(the targets' log-probabilities (B, Ty), the accuracy): targets are
     the EOS-padded codes shifted by one."""
     logits = ar_logits(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
     targets = _eos_padded(cfg, y_ids, y_lens)[:, 1:]
-    acc = (logits.argmax(-1) == targets).to(logits.dtype).mean()
+    acc = mean_share((logits.argmax(-1) == targets).to(logits.dtype), dp)
     return _target_logps(logits, targets), acc
 
 
-def ar_forward_train(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
+def ar_forward_train(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert, *, dp=None):
     """(loss, acc): the cross-entropy SUMMED over every position, padded ones
     too (their target is EOS; t2s_model.py:243 ``reduction="sum"`` with no
     mask), and the accuracy of the argmax over every position. x_ids (B,
-    Tx), y_ids (B, Ty) codes, bert (B, Tx, bert_dim)."""
-    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
+    Tx), y_ids (B, Ty) codes, bert (B, Tx, bert_dim). ``dp`` (the data axis
+    of a data-parallel step, parallel/mesh.py): this rank's shares (the
+    loss is a sum, so its share is the local sum)."""
+    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert, dp)
     return -logps.sum(), acc
 
 
@@ -209,16 +212,17 @@ def _batch_logps(logits, targets):
 
 
 def ar_forward_train_dpo(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert, *,
-                         generator=None, ids=None):
+                         generator=None, ids=None, dp=None):
     """(loss, acc) of the DPO forward (t2s_model.py forward :145-182): the
     summed cross-entropy of the chosen codes plus the DPO term against
     :func:`make_reject_y`'s rejection (``ids`` pins its spans), whose pass
-    runs on the 2 Ty buffer."""
-    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert)
+    runs on the 2 Ty buffer. ``dp`` as in :func:`ar_forward_train`."""
+    logps, acc = _ce_and_acc(params, cfg, x_ids, x_lens, y_ids, y_lens, bert, dp)
     reject, reject_lens = make_reject_y(y_ids, y_lens, generator=generator, ids=ids)
     r_logits = ar_logits(params, cfg, x_ids, x_lens, reject, reject_lens, bert)
     r_logps = _batch_logps(r_logits, _eos_padded(cfg, reject, reject_lens)[:, 1:])
-    return -logps.sum() + dpo_loss(logps.sum(-1), r_logps), acc
+    # the DPO term is a mean over the rows: a rank's share is its mean / the axis size
+    return -logps.sum() + dpo_loss(logps.sum(-1), r_logps) / size(dp), acc
 
 
 def prefill(params, cfg: ARConfig, x_ids, x_lens, bert, prompts, *, max_new: int):
@@ -592,7 +596,7 @@ def sovits_decode(params, cfg: SoVITSConfig, codes, text, text_lengths, refer, r
 
 
 def sovits_forward_train(params, cfg: SoVITSConfig, ssl, spec, spec_lengths, text, text_lengths,
-                         *, generator=None, noise=None):
+                         *, generator=None, noise=None, dp=None):
     """The training forward (module/models.py:902-937). ssl (B, Ts,
     ssl_dim) frame-aligned to the spectrogram (Ts = Tf at 50 Hz), spec (B,
     Tf, spec_channels), text (B, Tt). The style encoder on the masked
@@ -605,7 +609,9 @@ def sovits_forward_train(params, cfg: SoVITSConfig, ssl, spec, spec_lengths, tex
     gradient. ``noise`` {"posterior" (B, Tf, inter_channels) normal,
     "ids_slice" (B,) int} pins the draws; else they come from
     ``generator``. Returns the JAX package's dict: wav, commit_loss,
-    ids_slice, y_mask, z, z_p, m_p, logs_p, m_q, logs_q."""
+    ids_slice, y_mask, z, z_p, m_p, logs_p, m_q, logs_q. ``dp`` (the data
+    axis of a data-parallel step, parallel/mesh.py): ``commit_loss`` is this
+    rank's share of the global batch's."""
     noise = noise or {}
     y_mask = sequence_mask(spec_lengths, spec.shape[1]).to(spec.dtype)[..., None]
     ge = mel_style_encoder_apply(params["ref_enc"], cfg, spec * y_mask, y_mask)
@@ -613,7 +619,7 @@ def sovits_forward_train(params, cfg: SoVITSConfig, ssl, spec, spec_lengths, tex
     x_ssl = conv1d(ssl, params["ssl_proj"]["w"], params["ssl_proj"]["b"], stride=up, padding=0)
     codebook = params["codebook"].detach()
     quantized = rvq_decode(codebook, rvq_encode(codebook, x_ssl.detach()))
-    commit_loss = torch.mean((x_ssl - quantized) ** 2)
+    commit_loss = mean_share((x_ssl - quantized) ** 2, dp)
     quantized = (x_ssl + (quantized - x_ssl).detach()).repeat_interleave(up, dim=1)
     quantized = quantized[:, :spec.shape[1]]
     _, m_p, logs_p, y_mask = _sovits_enc_p(params["enc_p"], cfg, quantized, spec_lengths, text,

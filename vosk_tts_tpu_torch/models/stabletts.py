@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..ops import flash_attention as fa
 from ..ops.commons import generate_path, sequence_mask
 from ..ops.conv import conv1d
+from ..parallel.mesh import mean_share, total
 from ..utils.params import LINEARS, from_port_layout, to_port_layout
 from .tree import TreeModule
 
@@ -432,12 +433,14 @@ MAX_PHONE_DUR = 50  # the duration rows of dp_out_channels
 BOUNDARY_DUR = 10.0  # the duration the loss pins at BOS and at the sentence end
 
 
-def cfm_loss(params, cfg: StableTTSConfig, x1, mask, mu, spks, *, generator=None, noise=None):
+def cfm_loss(params, cfg: StableTTSConfig, x1, mask, mu, spks, *, generator=None, noise=None,
+             dp=None):
     """OT-CFM: the MSE of the decoder's velocity against x1 - z at
     y = (1 - t) z + t x1, t = 1 - cos(u * 0.98 * pi/2), on the dense
     attention route. ``noise`` {"t": u (B, 1, 1) uniform, "z": (B, T,
     n_feats) normal, other keys unread} pins the draws; else they come from
-    ``generator``."""
+    ``generator``. ``dp`` (the data axis of a data-parallel step,
+    parallel/mesh.py): this rank's share, the mask's sum over the axis."""
     b = x1.shape[0]
     if noise is None:
         noise = {"t": torch.rand((b, 1, 1), generator=generator, device=x1.device, dtype=x1.dtype),
@@ -446,15 +449,16 @@ def cfm_loss(params, cfg: StableTTSConfig, x1, mask, mu, spks, *, generator=None
     z = noise["z"]
     y = (1 - t) * z + t * x1
     est = decoder_apply(params["decoder"], cfg, y, mask, mu, t[:, 0, 0], spks, flash=False)
-    return torch.sum(((est - (x1 - z)) * mask) ** 2) / (torch.sum(mask) * cfg.n_feats)
+    return torch.sum(((est - (x1 - z)) * mask) ** 2) / (total(torch.sum(mask), dp) * cfg.n_feats)
 
 
-def duration_loss(mu_dp, durations, x_mask, x_lengths):
+def duration_loss(mu_dp, durations, x_mask, x_lengths, dp=None):
     """The StyleTTS duration loss: a row's log-L1 of the sigmoid-sum
     duration plus 10 x the BCE against the target's duration row (columns
     below the duration set), averaged over valid phones, then over the
     batch. mu_dp: (B, T, 50) logits; durations (B, T) frames, clipped to
-    [1, 49], pinned to 10 at BOS and at x_lengths - 2."""
+    [1, 49], pinned to 10 at BOS and at x_lengths - 2. ``dp``: this rank's
+    share of the global batch's (the row means / the axis size)."""
     m = x_mask[..., 0]
     dur = torch.floor(durations.clamp(max=MAX_PHONE_DUR - 1)).clamp(min=1)
     idx = torch.arange(dur.shape[1], device=dur.device)[None, :]
@@ -466,11 +470,11 @@ def duration_loss(mu_dp, durations, x_mask, x_lengths):
     l1 = (torch.abs(torch.log(dur_pred) - torch.log(dur)) * m).sum(dim=1) / denom
     bce = -trg * F.logsigmoid(mu_dp) - (1.0 - trg) * F.logsigmoid(-mu_dp)  # optax's sigmoid BCE
     bce = (bce * m[..., None]).sum(dim=(1, 2)) / (denom * mu_dp.shape[-1])
-    return l1.mean() + 10.0 * bce.mean()
+    return mean_share(l1, dp) + 10.0 * mean_share(bce, dp)
 
 
 def forward_train(params, cfg: StableTTSConfig, x, x_lengths, y, y_lengths, spks_id, bert,
-                  durations, *, cfg_dropout: float = 0.1, generator=None, noise=None):
+                  durations, *, cfg_dropout: float = 0.1, generator=None, noise=None, dp=None):
     """The training forward on the given durations: the duration encoder's
     loss, the alignment from the durations, classifier-free-guidance dropout
     (a row's speaker and content replaced by the learned fakes) and the CFM
@@ -479,7 +483,8 @@ def forward_train(params, cfg: StableTTSConfig, x, x_lengths, y, y_lengths, spks
     "z" as in :func:`cfm_loss`} pins the draws; else they come from
     ``generator``. Returns {"dur_loss", "diff_loss", "attn" (B, T_f, T)}.
     The mel encoder's output is not read by either loss, so it is not run
-    (its gradient is 0)."""
+    (its gradient is 0). ``dp``: both losses are this rank's shares of the
+    global batch's (:func:`cfm_loss`, :func:`duration_loss`)."""
     sid = spks_id.long()
     spks, dur_spks = params["spk_emb"][sid], params["dur_spk_emb"][sid]
     te = params["text_encoder"]
@@ -489,7 +494,7 @@ def forward_train(params, cfg: StableTTSConfig, x, x_lengths, y, y_lengths, spks
     y_mask = sequence_mask(y_lengths, y.shape[1]).to(x_mask.dtype)[..., None]
     attn = generate_path(durations.to(x_mask.dtype), x_mask[..., 0], y_mask[..., 0])
     logw_ = attn.sum(dim=1) * x_mask[..., 0]
-    dur_loss = duration_loss(mu_dp, logw_, x_mask, x_lengths)
+    dur_loss = duration_loss(mu_dp, logw_, x_mask, x_lengths, dp)
     mu_y = torch.bmm(attn, xc)
 
     b = y.shape[0]
@@ -499,7 +504,8 @@ def forward_train(params, cfg: StableTTSConfig, x, x_lengths, y, y_lengths, spks
     spks = spks * keep + (1 - keep) * params["fake_speaker"]
     fake_mu = params["fake_content"][0, :, 0][None, None, :]
     mu_y = mu_y * keep[..., None] + (1 - keep[..., None]) * fake_mu
-    diff_loss = cfm_loss(params, cfg, y, y_mask, mu_y, spks, generator=generator, noise=noise)
+    diff_loss = cfm_loss(params, cfg, y, y_mask, mu_y, spks, generator=generator, noise=noise,
+                         dp=dp)
     return {"dur_loss": dur_loss, "diff_loss": diff_loss, "attn": attn}
 
 

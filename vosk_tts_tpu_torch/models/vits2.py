@@ -44,6 +44,7 @@ from ..ops.mas import maximum_path
 from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
 from ..ops.norm import layer_norm
 from ..ops.stft import istft, istft_multiband, mb_decoder_tail_fused
+from ..parallel.mesh import total
 from .tree import TreeModule
 
 
@@ -409,15 +410,26 @@ def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bo
 # ---------------------------------------------------------------------------
 
 
-def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None):
+def _tp_conv(tp, keys, x, p, **kw):
+    """conv1d (conv_transpose1d with ``transpose=True``), or with ``tp`` the
+    tensor-parallel conv named ``keys`` (parallel/tp.py)."""
+    if tp is not None:
+        return tp.conv(keys, x, p, **kw)
+    fn = conv_transpose1d if kw.pop("transpose", False) else conv1d
+    return fn(x, p["w"], p["b"], **kw)
+
+
+def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None, tp=None):
     """``x_lengths`` (B,), where given, re-zeroes every conv input beyond
     each row's length (scaled by each upsample), so that the samples below
-    the length equal an unpadded run's."""
+    the length equal an unpadded run's. ``tp``: as in :func:`generator_apply`;
+    the activations between its convs may be channel-sharded."""
     lengths = x_lengths
     mask = None if lengths is None else sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
-    x = conv1d(x, params["conv_pre"]["w"], params["conv_pre"]["b"], padding=3)
+    x = _tp_conv(tp, ("conv_pre",), x, params["conv_pre"], padding=3)
     if g is not None and "cond" in params:
-        x = x + conv1d(g, params["cond"]["w"], params["cond"]["b"])
+        c = _tp_conv(tp, ("cond",), g, params["cond"])
+        x = x + c if tp is None else tp.add(x, c)
     if mask is not None:
         x = x * mask
     n_kernels = len(cfg.resblock_kernel_sizes)
@@ -426,16 +438,18 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None):
         x = wnops.leaky_relu(x)
         pad = cfg.upsample_paddings[i] if cfg.upsample_paddings else (k - u) // 2
         opad = cfg.upsample_output_paddings[i] if cfg.upsample_output_paddings else 0
-        x = conv_transpose1d(x, params["ups"][i]["w"], params["ups"][i]["b"], stride=u,
-                             padding=pad, output_padding=opad)
+        x = _tp_conv(tp, ("ups", i), x, params["ups"][i], transpose=True, stride=u, padding=pad,
+                     output_padding=opad)
         if lengths is not None:
             lengths = lengths * u
             mask = sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
             x = x * mask
         xs = None
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
-            r = resblock_apply(params["resblocks"][i * n_kernels + j], x, mask, kernel_size=rk,
-                               dilation=tuple(rd))
+            k_rb = i * n_kernels + j
+            r = resblock_apply(params["resblocks"][k_rb], x, mask, kernel_size=rk,
+                               dilation=tuple(rd),
+                               tp=None if tp is None else tp.scope("resblocks", k_rb))
             xs = r if xs is None else xs + r
         x = xs / n_kernels
     # the final activation uses torch's default slope 0.01, not LRELU_SLOPE
@@ -443,7 +457,7 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None):
 
 
 def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
-                    fused_tail: bool = False):
+                    fused_tail: bool = False, tp=None):
     """x: (B, T, inter), g: (B, 1, gin) or None (read where the bundle has a
     ``cond`` conv) -> (waveform (B, T * upsample_factor, 1), the subband
     waveforms (B, T * upsample_factor / subbands, subbands) of the unfused
@@ -457,14 +471,18 @@ def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
     gives no subband waveforms: training reads them, serving does not.
     ``ms_istft``: the multiband iSTFT, then the learned upsampling filter
     ``multistream_conv_post``. ``istft``: the single-band iSTFT. Every
-    iSTFT takes ``cfg.istft_mode``."""
+    iSTFT takes ``cfg.istft_mode``.
+
+    ``tp`` (a ``parallel.tp.TensorParallel``, with ``params`` this rank's
+    part from ``parallel.tp.shard_generator_params``) runs the trunk and
+    ``conv_post`` tensor-parallel over its model axis; the output is whole
+    and equal on every rank of the axis."""
     check_decoder(cfg)
-    x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths)
+    x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths, tp=tp)
     if cfg.decoder_type == "hifigan":
-        return torch.tanh(conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"],
-                                 padding=3)), None
+        return torch.tanh(_tp_conv(tp, ("conv_post",), x, params["conv_post"], padding=3)), None
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
-    x = conv1d(x, params["conv_post"]["w"], params["conv_post"]["b"], padding=3)
+    x = _tp_conv(tp, ("conv_post",), x, params["conv_post"], padding=3)
     n_fft, hop, sub, mode = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands, cfg.istft_mode
     cutoff = n_fft // 2 + 1
     if cfg.decoder_type == "istft":
@@ -598,7 +616,7 @@ def _neg_cent(z_p, m_p, logs_p):
 
 
 def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=None, *,
-                  generator=None, noise=None):
+                  generator=None, noise=None, dp=None, tp=None):
     """The training forward (vosk_tts_tpu/models/vits2.py forward_train) of
     any configuration :func:`check_ported` accepts: text encoder, posterior
     over the mel y (B, T_y, spec_channels), flow forward (every flow type,
@@ -620,7 +638,12 @@ def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=
     the serving parity feeds durations).
 
     MAS runs on the clean log-likelihoods: the JAX trainer's noise-scaled
-    MAS is added at scale 0 (its driver never passes another)."""
+    MAS is added at scale 0 (its driver never passes another).
+
+    ``dp`` (the data axis of a data-parallel step, parallel/mesh.py) makes
+    ``l_length`` this rank's share of the global batch's: its normalizer,
+    the text mask's sum, is summed over the axis. ``tp`` runs the generator
+    tensor-parallel (:func:`generator_apply`)."""
     check_ported(cfg)
     noise = {k: v.to(y.dtype) if v.is_floating_point() else v for k, v in (noise or {}).items()}
     g = _speaker(params, cfg, sid)
@@ -641,18 +664,18 @@ def forward_train(params, cfg: VITS2Config, x_ids, x_lengths, y, y_lengths, sid=
     logw_ = torch.log(w + 1e-6) * x_mask
     if cfg.use_sdp:
         l_length = sdp_forward_nll(params["dp"], cfg, x, x_mask, w, g, generator=generator,
-                                   noise=noise.get("e_q")) / x_mask.sum()
+                                   noise=noise.get("e_q")) / total(x_mask.sum(), dp)
         logw = sdp_reverse(params["dp"], cfg, x, x_mask, g, generator=generator,
                            noise=noise.get("z"), noise_scale=1.0, fused=False)
     else:
         logw = dp_apply(params["dp"], cfg, x, x_mask, g)
-        l_length = ((logw - logw_) ** 2).sum(dim=(1, 2)) / x_mask.sum()
+        l_length = ((logw - logw_) ** 2).sum(dim=(1, 2)) / total(x_mask.sum(), dp)
 
     m_p = torch.bmm(attn, m_p)
     logs_p = torch.bmm(attn, logs_p)
     z_slice, ids_slice = rand_slice_segments(z, y_lengths, cfg.segment_size,
                                              generator=generator, ids=noise.get("ids_slice"))
-    o, o_mb = generator_apply(params["dec"], cfg, z_slice, g)
+    o, o_mb = generator_apply(params["dec"], cfg, z_slice, g, tp=tp)
     return {"x": x, "wav": o, "wav_mb": o_mb, "l_length": l_length, "attn": attn,
             "ids_slice": ids_slice, "x_mask": x_mask, "y_mask": y_mask, "z": z, "z_p": z_p,
             "m_p": m_p, "logs_p": logs_p, "m_q": m_q, "logs_q": logs_q, "logw": logw,

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_tensors, broadcast_tensors, gather_rows
+
 
 def state_init(codebook_size: int, dim: int) -> dict:
     """The buffers before the first batch, on the CPU: zero embed, ``inited``
@@ -82,10 +84,22 @@ def kmeans(samples, num_clusters: int, num_iters: int = 10, max_samples: int = 5
 
 @torch.no_grad()
 def kmeans_init(state: dict, x, *, kmeans_iters: int = 10, max_samples: int = 500,
-                generator=None, ids=None) -> dict:
+                generator=None, ids=None, dp=None) -> dict:
     """init_embed_ (core_vq.py:141-152) of a state that is not inited:
     k-means over the flattened batch features x (N, D) seeds embed,
-    embed_avg and the cluster sizes, and the state becomes inited."""
+    embed_avg and the cluster sizes, and the state becomes inited.
+
+    ``dp`` (the data axis of a data-parallel step, parallel/mesh.py): k-means
+    runs on every rank over every rank's rows gathered in rank order (the
+    global batch's flattened rows; the ranks' counts may differ), from the
+    initial means that ``ids`` pins or, without it, that the axis root
+    draws: every rank gets equal means."""
+    if dp is not None:
+        x = gather_rows(x, dp)
+        if ids is None:
+            ids = sample_ids(min(x.shape[0], max_samples), state["embed"].shape[0],
+                             generator=generator, device=x.device)
+            broadcast_tensors([ids], dp)
     embed, bins = kmeans(x, state["embed"].shape[0], kmeans_iters, max_samples,
                          generator=generator, ids=ids)
     return {"embed": embed, "embed_avg": embed.clone(), "cluster_size": bins.to(x.dtype),
@@ -108,7 +122,7 @@ def _laplace_smoothing(x, n_categories: int, epsilon: float):
 
 
 @torch.no_grad()
-def ema_step(state: dict, x, *, decay: float = 0.99, epsilon: float = 1e-5) -> dict:
+def ema_step(state: dict, x, *, decay: float = 0.99, epsilon: float = 1e-5, dp=None) -> dict:
     """One training step's transition of an inited state (core_vq.py:207-231)
     given the flattened batch features x (N, D): codes by the current embed,
     cluster_size and embed_avg moved by an EMA of the batch's counts and
@@ -119,11 +133,17 @@ def ema_step(state: dict, x, *, decay: float = 0.99, epsilon: float = 1e-5) -> d
     in ``embed`` only; the same call then overwrites ``embed`` with
     embed_avg / n, and the codes were taken before the replacement, so the
     replacement reaches nothing. This port leaves that draw out: its result
-    equals JAX's ``ema_step`` at any threshold."""
+    equals JAX's ``ema_step`` at any threshold.
+
+    ``dp`` (as in :func:`kmeans_init`): the batch's counts and sums are
+    summed over the axis before the decay, so every rank takes the global
+    batch's step."""
     k = state["embed"].shape[0]
     onehot, counts = _assign(state["embed"], x)
+    sums = torch.matmul(onehot.T, x)
+    all_reduce_tensors([counts, sums], dp)
     cluster_size = state["cluster_size"] * decay + counts * (1 - decay)
-    embed_avg = state["embed_avg"] * decay + torch.matmul(onehot.T, x) * (1 - decay)
+    embed_avg = state["embed_avg"] * decay + sums * (1 - decay)
     n = _laplace_smoothing(cluster_size, k, epsilon) * cluster_size.sum()
     return {"embed": embed_avg / n[:, None], "embed_avg": embed_avg,
             "cluster_size": cluster_size, "inited": state["inited"]}

@@ -39,28 +39,39 @@ def wn_apply(params, x, x_mask, g=None, *, kernel_size: int, dilation_rate: int)
     return output * x_mask
 
 
-def resblock1_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3, 5)):
+def _conv(tp, keys, x, p, **kw):
+    """conv1d, or with ``tp`` (parallel/tp.TensorParallel) the conv named
+    ``keys`` over its model axis."""
+    return conv1d(x, p["w"], p["b"], **kw) if tp is None else tp.conv(keys, x, p, **kw)
+
+
+def resblock1_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3, 5),
+                    tp=None):
     """HiFiGAN ResBlock1. ``x_mask`` (B, T, 1), where given, zeroes every
-    conv input and the output beyond each row's length (bucketed decodes)."""
-    for c1, c2, d in zip(params["convs1"], params["convs2"], dilation):
+    conv input and the output beyond each row's length (bucketed decodes).
+    ``tp``: the block's tensor-parallel scope (parallel/tp.py), x whole or
+    channel-sharded."""
+    for j, (c1, c2, d) in enumerate(zip(params["convs1"], params["convs2"], dilation)):
         xt = leaky_relu(x)
         if x_mask is not None:
             xt = xt * x_mask
-        xt = conv1d(xt, c1["w"], c1["b"], padding=(kernel_size * d - d) // 2, dilation=d)
+        xt = _conv(tp, ("convs1", j), xt, c1, padding=(kernel_size * d - d) // 2, dilation=d)
         xt = leaky_relu(xt)
         if x_mask is not None:
             xt = xt * x_mask
-        x = conv1d(xt, c2["w"], c2["b"], padding=(kernel_size - 1) // 2) + x
+        xt = _conv(tp, ("convs2", j), xt, c2, padding=(kernel_size - 1) // 2)
+        x = xt + x if tp is None else tp.add(xt, x)
     return x if x_mask is None else x * x_mask
 
 
-def resblock2_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3)):
-    """HiFiGAN ResBlock2; ``x_mask`` as in :func:`resblock1_apply`."""
-    for c, d in zip(params["convs"], dilation):
+def resblock2_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3), tp=None):
+    """HiFiGAN ResBlock2; ``x_mask`` and ``tp`` as in :func:`resblock1_apply`."""
+    for j, (c, d) in enumerate(zip(params["convs"], dilation)):
         xt = leaky_relu(x)
         if x_mask is not None:
             xt = xt * x_mask
-        x = conv1d(xt, c["w"], c["b"], padding=(kernel_size * d - d) // 2, dilation=d) + x
+        xt = _conv(tp, ("convs", j), xt, c, padding=(kernel_size * d - d) // 2, dilation=d)
+        x = xt + x if tp is None else tp.add(xt, x)
     return x if x_mask is None else x * x_mask
 
 

@@ -151,12 +151,18 @@ def _bucket_of(value: int, buckets: Sequence[int]) -> int:
 
 class BucketBatcher:
     """Length-bucketed, epoch-shuffled batches of numpy arrays padded to
-    shape classes, for one process (the JAX package's shards them across
-    hosts; multi-card training is ROADMAP A.5)."""
+    shape classes, sharded by host as the JAX package's: each bucket is
+    padded to a multiple of the global batch (``batch_size`` x
+    ``num_hosts``, the per-rank batch x the ranks), then host ``host_id``
+    takes every ``num_hosts``-th item of it; every host draws the same
+    permutations, so an epoch's batches are the same global batches on
+    every host."""
 
-    def __init__(self, dataset: TTSDataset, batch_size: int):
+    def __init__(self, dataset: TTSDataset, batch_size: int, *, host_id: int = 0,
+                 num_hosts: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
+        self.host_id, self.num_hosts = host_id, num_hosts
         self.buckets: dict = {}
         for i, ln in enumerate(dataset.lengths):
             for lo, hi in zip(BOUNDARIES[:-1], BOUNDARIES[1:]):
@@ -165,17 +171,18 @@ class BucketBatcher:
                     break
 
     def num_batches(self) -> int:
-        bs = self.batch_size
-        return sum((len(idxs) + (-len(idxs)) % bs) // bs for idxs in self.buckets.values())
+        gbs = self.batch_size * self.num_hosts
+        return sum((len(idxs) + (-len(idxs)) % gbs) // gbs for idxs in self.buckets.values())
 
     def epoch(self, epoch: int):
         rng = np.random.default_rng(1234 + epoch)
         batches = []
-        bs = self.batch_size
+        bs, gbs = self.batch_size, self.batch_size * self.num_hosts
         for _, idxs in sorted(self.buckets.items()):
             order = [idxs[i] for i in rng.permutation(len(idxs))]
-            rem = (bs - len(order) % bs) % bs  # pad to a multiple of the batch
+            rem = (gbs - len(order) % gbs) % gbs  # pad to a multiple of the global batch
             order = order + (order * (rem // max(len(order), 1)) + order[: rem % max(len(order), 1)])
+            order = order[self.host_id::self.num_hosts]
             for j in range(len(order) // bs):
                 batches.append(order[j * bs: (j + 1) * bs])
         for i in rng.permutation(len(batches)):

@@ -220,34 +220,36 @@ class S2Dataset:
 
 
 class ShuffleBatcher:
-    """Epoch-seeded batches for one process: the dataset's items sorted by
+    """Epoch-seeded, host-sharded batches: the dataset's items sorted by
     ``dataset.lengths`` (where it has them), padded to a multiple of the
-    batch by repeating the first items, cut into consecutive groups, the
-    groups shuffled by ``default_rng(SEED + epoch)``. ``dataset.collate(idxs,
-    rng)`` makes each batch from that epoch's generator, after the shuffle's
-    draw (the VC windows read it; the GPT-SoVITS datasets do not), so the
-    batches equal the JAX package's for the same seed (its host sharding
-    aside: multi-card training is not ported)."""
+    global batch (``batch_size`` x ``num_hosts``) by repeating the first
+    items, cut into consecutive global groups, the groups shuffled by
+    ``default_rng(SEED + epoch)``; host ``host_id`` takes every
+    ``num_hosts``-th item of each group. ``dataset.collate(idxs, rng)``
+    makes each batch from that epoch's generator, after the shuffle's draw
+    (the VC windows read it; the GPT-SoVITS datasets do not), so the batches
+    equal the JAX package's for the same seed and hosts."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, *, host_id: int = 0, num_hosts: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
+        self.host_id, self.num_hosts = host_id, num_hosts
         self.order = list(range(len(dataset)))
         lengths = getattr(dataset, "lengths", None)
         if lengths:
             self.order.sort(key=lambda i: lengths[i])
 
     def num_batches(self) -> int:
-        return max(len(self.order) // self.batch_size, 1) if self.order else 0
+        gbs = self.batch_size * self.num_hosts
+        return max(len(self.order) // gbs, 1) if self.order else 0
 
     def epoch(self, epoch: int):
         rng = np.random.default_rng(SEED + epoch)
-        bs = self.batch_size
-        order = self.order + self.order[: (bs - len(self.order) % bs) % bs]
-        groups = [order[j * bs: (j + 1) * bs] for j in range(len(order) // bs)]
+        gbs = self.batch_size * self.num_hosts
+        order = self.order + self.order[: (gbs - len(self.order) % gbs) % gbs]
+        groups = [order[j * gbs: (j + 1) * gbs] for j in range(len(order) // gbs)]
         for i in rng.permutation(len(groups)):
-            g = groups[i]
-            yield self.collate(g, rng)
+            yield self.collate(groups[i][self.host_id::self.num_hosts], rng)
 
     def collate(self, idxs, rng):
         return self.ds.collate(idxs, rng)

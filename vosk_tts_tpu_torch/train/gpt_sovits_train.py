@@ -23,6 +23,13 @@ optimizers the buffers take the EMA step with the same features. In JAX
 ``codebook`` is a leaf of the generator's tree that gets a zero gradient
 and is overwritten by the EMA after each step, so holding it out of the
 optimizer changes nothing.
+
+Both steps take ``dp=``, the data-parallel step of the VITS2 trainer (its
+module docstring): S1's loss is a sum, so a rank's share is its rows' sum
+(a rank collates its own rows, padded to its own length, as each host does
+in the JAX package); the gradient is summed over the axis before S1's clip;
+S2's k-means runs over every rank's rows and its EMA step over every rank's
+counts and sums (ops/rvq.py).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..ops import rvq
 from ..ops.commons import slice_segments
 from ..ops.conv import conv1d
 from ..ops.stft import mel_spectrogram
+from ..parallel.mesh import mean_share, reduce_grads, reduce_metrics
 from ..utils import params as P
 from . import losses as L
 from . import vits2_train as T
@@ -95,7 +103,7 @@ def init_s1_state(mcfg: G.ARConfig, tcfg: S1TrainConfig, *, seed: int = 0, devic
     return T.TrainState(tcfg, {"ar": tree}, device, make_opt=make_s1_optimizer)
 
 
-def make_s1_step(mcfg: G.ARConfig, tcfg: S1TrainConfig, compute_dtype=None):
+def make_s1_step(mcfg: G.ARConfig, tcfg: S1TrainConfig, compute_dtype=None, dp=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     {"loss", "acc"}`` (0-dim tensors, not synchronised). ``batch``: x (B,
     Tx), x_lengths, y (B, Ty) codes, y_lengths, bert (B, Tx, bert_dim) on
@@ -112,12 +120,14 @@ def make_s1_step(mcfg: G.ARConfig, tcfg: S1TrainConfig, compute_dtype=None):
                 batch["y"], batch["y_lengths"], T._cast(batch["bert"], compute_dtype))
         if tcfg.if_dpo:
             loss, acc = G.ar_forward_train_dpo(*args, generator=generator,
-                                               ids=(noise or {}).get("reject_ids"))
+                                               ids=(noise or {}).get("reject_ids"), dp=dp)
         else:
-            loss, acc = G.ar_forward_train(*args)
+            loss, acc = G.ar_forward_train(*args, dp=dp)
         loss.backward()
+        # ScaledAdam reads a missing gradient as 0 too
+        T.fill_missing_grads(opt)
+        reduce_grads(net.parameters(), dp)
         if tcfg.optimizer == "adamw":
-            T.fill_missing_grads(opt)
             grads = [p.grad for p in net.parameters()]
             norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
             # optax clip_by_global_norm: g / norm * max_norm where norm >= max_norm
@@ -127,7 +137,7 @@ def make_s1_step(mcfg: G.ARConfig, tcfg: S1TrainConfig, compute_dtype=None):
                 group["lr"] = adamw_lr(tcfg, state.step)
         opt.step()
         state.step += 1
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        return reduce_metrics({"loss": loss.detach(), "acc": acc.detach()}, dp)
 
     return step
 
@@ -196,7 +206,7 @@ def init_s2_state(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, *, seed: int = 0, d
     return S2TrainState(tcfg, trees, device, vq)
 
 
-def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None):
+def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None, dp=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     metrics`` (0-dim tensors, not synchronised). ``batch``: ssl (B, Tf,
     ssl_dim), spec (B, Tf, F), spec_lengths, text (B, Tt), text_lengths, wav
@@ -227,14 +237,14 @@ def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None):
             flat = flat.reshape(-1, flat.shape[-1])
         if not state.vq_inited:
             state.vq = rvq.kmeans_init(state.vq, flat, kmeans_iters=tcfg.vq_kmeans_iters,
-                                       generator=generator, ids=noise.get("kmeans_ids"))
+                                       generator=generator, ids=noise.get("kmeans_ids"), dp=dp)
             state.vq_inited = True
 
         opt_g.zero_grad(set_to_none=True)
         out = G.sovits_forward_train(
             {**params_g, "codebook": T._cast(state.vq["embed"], compute_dtype)}, mcfg, ssl,
             spec, batch["spec_lengths"], batch["text"], batch["text_lengths"],
-            generator=generator, noise=noise)
+            generator=generator, noise=noise, dp=dp)
         y_hat = out["wav"][..., 0][:, :seg_samples]
         y_real = slice_segments(wav[..., None], out["ids_slice"] * tcfg.hop_length,
                                 seg_samples)[..., 0]
@@ -242,33 +252,36 @@ def make_s2_step(mcfg: G.SoVITSConfig, tcfg: S2TrainConfig, compute_dtype=None):
         # the discriminator, on the detached generated segment
         opt_d.zero_grad(set_to_none=True)
         yr, yg, _, _ = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real, y_hat.detach())
-        loss_disc = L.discriminator_loss(yr, yg)[0]
+        loss_disc = L.discriminator_loss(yr, yg, dp)[0]
         loss_disc.backward()
         T.fill_missing_grads(opt_d)
+        reduce_grads(net_d.parameters(), dp)
         opt_d.step()
 
         # the generator, through the updated discriminator
         with T._frozen(net_d):
             _, yg, fmap_r, fmap_g = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real,
                                                 y_hat)
-            loss_gen = L.generator_loss(yg)[0]
-            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            loss_gen = L.generator_loss(yg, dp)[0]
+            loss_fm = L.feature_loss(fmap_r, fmap_g, dp)
             y_mel, yh_mel = mel_of(y_real), mel_of(y_hat)
             n = min(y_mel.shape[1], yh_mel.shape[1])
-            loss_mel = torch.mean(torch.abs(y_mel[:, :n] - yh_mel[:, :n])) * tcfg.c_mel
+            loss_mel = mean_share(torch.abs(y_mel[:, :n] - yh_mel[:, :n]), dp) * tcfg.c_mel
             loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                                out["y_mask"]) * tcfg.c_kl
+                                out["y_mask"], dp) * tcfg.c_kl
             commit = out["commit_loss"]
             total = loss_gen + loss_fm + loss_mel + loss_kl + commit * tcfg.c_commit
             total.backward()
         T.fill_missing_grads(opt_g)
+        reduce_grads(net_g.parameters(), dp)
         opt_g.step()
 
-        state.vq = rvq.ema_step(state.vq, flat, decay=tcfg.vq_decay, epsilon=tcfg.vq_epsilon)
+        state.vq = rvq.ema_step(state.vq, flat, decay=tcfg.vq_decay, epsilon=tcfg.vq_epsilon,
+                                dp=dp)
         state.step += 1
-        return {"loss_disc": loss_disc.detach(), "loss_gen_all": total.detach(),
-                "loss_gen": loss_gen.detach(), "loss_fm": loss_fm.detach(),
-                "loss_mel": loss_mel.detach(), "loss_kl": loss_kl.detach(),
-                "commit": commit.detach()}
+        return reduce_metrics({"loss_disc": loss_disc.detach(), "loss_gen_all": total.detach(),
+                               "loss_gen": loss_gen.detach(), "loss_fm": loss_fm.detach(),
+                               "loss_mel": loss_mel.detach(), "loss_kl": loss_kl.detach(),
+                               "commit": commit.detach()}, dp)
 
     return step

@@ -1,39 +1,48 @@
 """Training losses (vosk_tts_tpu/train/losses.py): LSGAN, feature matching,
-TPRLS, KL, duration MSE and the (subband) multi-resolution STFT loss."""
+TPRLS, KL, duration MSE and the (subband) multi-resolution STFT loss.
+
+Each takes an optional ``dp``, the data axis of a data-parallel step
+(parallel/mesh.py): with it a loss is this rank's share of the loss over
+the global batch (the shares sum to it over the axis), as the mesh module
+sets out: means over equal-shaped shards / the axis size, mask sums over
+the axis, the TPRLS median and the spectral convergence's norms over every
+rank's rows. Without it (None) a loss is the local batch's.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from ..ops.stft import stft as stft_fn
+from ..parallel.mesh import all_sum, gather_rows, mean_share, total
 
 
-def feature_loss(fmap_r, fmap_g):
+def feature_loss(fmap_r, fmap_g, dp=None):
     """2 x the sum over layers of mean |real - generated| (real detached)."""
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl.detach() - gl))
+            loss = loss + mean_share(torch.abs(rl.detach() - gl), dp)
     return loss * 2.0
 
 
-def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+def discriminator_loss(disc_real_outputs, disc_generated_outputs, dp=None):
     """LSGAN D loss: (loss, real losses, generated losses)."""
     loss, r_losses, g_losses = 0.0, [], []
     for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
-        r_loss = torch.mean((1.0 - dr) ** 2)
-        g_loss = torch.mean(dg**2)
+        r_loss = mean_share((1.0 - dr) ** 2, dp)
+        g_loss = mean_share(dg**2, dp)
         loss = loss + r_loss + g_loss
         r_losses.append(r_loss)
         g_losses.append(g_loss)
     return loss, r_losses, g_losses
 
 
-def generator_loss(disc_outputs):
+def generator_loss(disc_outputs, dp=None):
     """LSGAN G loss: (loss, per-discriminator losses)."""
     loss, gen_losses = 0.0, []
     for dg in disc_outputs:
-        l = torch.mean((1.0 - dg) ** 2)
+        l = mean_share((1.0 - dg) ** 2, dp)
         gen_losses.append(l)
         loss = loss + l
     return loss, gen_losses
@@ -49,37 +58,44 @@ def _median(x):
 TPRLS_TAU = 0.04
 
 
-def _tprls_one(dr, dg):
+def _tprls_one(dr, dg, dp=None):
     """StyleTTS2's relativistic least-squares term: the mean of
     (dr - dg - m)^2 over the elements where dr < dg + m, m the median of
-    dr - dg, capped at TPRLS_TAU."""
+    dr - dg, capped at TPRLS_TAU. With ``dp`` the term of every rank's
+    elements together (gathered, differentiably), / the axis size."""
+    if dp is not None:
+        both = gather_rows(torch.stack([dr.reshape(-1), dg.reshape(-1)], dim=-1), dp)
+        dr, dg = both[:, 0], both[:, 1]
     diff = dr - dg
     m = _median(diff)
     mask = dr < dg + m
     sq = (diff - m) ** 2
     l_rel = torch.where(mask, sq, torch.zeros_like(sq)).sum() / mask.sum().clamp(min=1)
-    return TPRLS_TAU - torch.relu(TPRLS_TAU - l_rel)
+    term = TPRLS_TAU - torch.relu(TPRLS_TAU - l_rel)
+    return term if dp is None else term / dp.size
 
 
-def discriminator_tprls_loss(disc_real_outputs, disc_generated_outputs):
-    return sum(_tprls_one(dr, dg) for dr, dg in zip(disc_real_outputs, disc_generated_outputs))
+def discriminator_tprls_loss(disc_real_outputs, disc_generated_outputs, dp=None):
+    return sum(_tprls_one(dr, dg, dp) for dr, dg in zip(disc_real_outputs,
+                                                         disc_generated_outputs))
 
 
-def generator_tprls_loss(disc_real_outputs, disc_generated_outputs):
+def generator_tprls_loss(disc_real_outputs, disc_generated_outputs, dp=None):
     """The same quantity as the discriminator's (the reference swaps only
     the iteration names)."""
-    return sum(_tprls_one(dr, dg) for dr, dg in zip(disc_real_outputs, disc_generated_outputs))
+    return sum(_tprls_one(dr, dg, dp) for dr, dg in zip(disc_real_outputs,
+                                                         disc_generated_outputs))
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, dp=None):
     """Channels-last: (B, T, C); z_mask (B, T, 1)."""
     kl = logs_p - logs_q - 0.5 + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / total(torch.sum(z_mask), dp)
 
 
-def duration_loss(logw, logw_, x_mask):
+def duration_loss(logw, logw_, x_mask, dp=None):
     """MSE of the deterministic duration predictor."""
-    return torch.sum((logw - logw_) ** 2) / torch.sum(x_mask)
+    return torch.sum((logw - logw_) ** 2) / total(torch.sum(x_mask), dp)
 
 
 def _stft_mag(x, n_fft, hop, win):
@@ -89,31 +105,37 @@ def _stft_mag(x, n_fft, hop, win):
     return torch.sqrt(torch.clamp(re * re + im * im, min=1e-7))
 
 
-def stft_loss(x, y, n_fft, hop, win):
-    """(spectral convergence, log-magnitude L1)."""
+def stft_loss(x, y, n_fft, hop, win, dp=None):
+    """(spectral convergence, log-magnitude L1); with ``dp`` the norms of
+    the spectral convergence are over every rank's rows."""
     x_mag = _stft_mag(x, n_fft, hop, win)
     y_mag = _stft_mag(y, n_fft, hop, win)
-    sc = torch.linalg.norm(y_mag - x_mag) / torch.linalg.norm(y_mag)
-    mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+    if dp is None:
+        sc = torch.linalg.norm(y_mag - x_mag) / torch.linalg.norm(y_mag)
+    else:
+        sums = all_sum(torch.stack([(y_mag - x_mag).square().sum(), y_mag.square().sum()]), dp)
+        sc = torch.sqrt(sums[0]) / torch.sqrt(sums[1]) / dp.size
+    mag = mean_share(torch.abs(torch.log(y_mag) - torch.log(x_mag)), dp)
     return sc, mag
 
 
-def multi_resolution_stft_loss(x, y, fft_sizes, hop_sizes, win_lengths):
+def multi_resolution_stft_loss(x, y, fft_sizes, hop_sizes, win_lengths, dp=None):
     """Both terms averaged over the resolutions."""
     sc_total, mag_total = 0.0, 0.0
     for n_fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
-        sc, mag = stft_loss(x, y, n_fft, hop, win)
+        sc, mag = stft_loss(x, y, n_fft, hop, win, dp)
         sc_total = sc_total + sc
         mag_total = mag_total + mag
     n = len(fft_sizes)
     return sc_total / n, mag_total / n
 
 
-def subband_stft_loss(y_mb, y_hat_mb, fft_sizes, hop_sizes, win_lengths):
+def subband_stft_loss(y_mb, y_hat_mb, fft_sizes, hop_sizes, win_lengths, dp=None):
     """Subbands folded into the batch: y_mb (B, T, sub), y_hat_mb
     (B, >= T, sub) -> sc + mag."""
     b, t, sub = y_mb.shape
     y_flat = y_mb.transpose(1, 2).reshape(b * sub, t)
     y_hat_flat = y_hat_mb.transpose(1, 2).reshape(b * sub, -1)[:, :t]
-    sc, mag = multi_resolution_stft_loss(y_hat_flat, y_flat, fft_sizes, hop_sizes, win_lengths)
+    sc, mag = multi_resolution_stft_loss(y_hat_flat, y_flat, fft_sizes, hop_sizes, win_lengths,
+                                         dp)
     return sc + mag

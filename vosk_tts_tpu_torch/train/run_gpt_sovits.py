@@ -22,7 +22,10 @@ codebook's EMA buffers) and the trained tree in the bundle layout,
 ``AR_{step}.npz`` (s1) or ``SOVITS_{step}.npz`` (s2, its codebook the
 EMA's); a later run with the same model directory resumes from the newest
 ``STATE``. It runs on the card unless ``--device cpu`` is given, and raises
-without CUDA.
+without CUDA. Under torchrun's environment (or with run_vits2's ``--dist-*``
+flags) every process joins the group and takes its rows of the global batch
+(the config's ``batch_size`` x the ranks), as run_vits2 does; each rank
+collates its own rows.
 """
 
 from __future__ import annotations
@@ -33,12 +36,13 @@ import logging
 
 import torch
 
-from ..api import resolve_device
 from ..models.gpt_sovits import ARConfig, SoVITSConfig
+from ..parallel import mesh as M
 from ..utils import checkpoint as ckpt
 from ..utils import params as P
 from . import gpt_sovits_train as T
-from .driver_common import log, resume_state, save_state, train_loop
+from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
+                            resume_state, save_state, train_loop)
 from .gpt_sovits_data import S1DataConfig, S1Dataset, S2DataConfig, S2Dataset, ShuffleBatcher
 
 
@@ -120,9 +124,10 @@ def main(argv=None):
     ap.add_argument("--log-interval", type=int, default=None)
     ap.add_argument("--save-interval-steps", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the card")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
+    device, dp, made_group = join(args)
 
     with open(args.config, encoding="utf-8") as f:
         cfg = json.load(f)
@@ -135,17 +140,17 @@ def main(argv=None):
             batch_size = max(batch_size // 2, 1)
         dataset = S1Dataset(dcfg)
         state = T.init_s1_state(mcfg, tcfg, seed=seed, device=device)
-        step_fn, save = T.make_s1_step(mcfg, tcfg), save_s1
+        step_fn, save = T.make_s1_step(mcfg, tcfg, dp=dp), save_s1
     else:
         dcfg, mcfg, tcfg = build_s2(cfg)
         dataset = S2Dataset(dcfg)
         state = T.init_s2_state(mcfg, tcfg, seed=seed, device=device)
-        step_fn, save = T.make_s2_step(mcfg, tcfg), save_s2
-    batcher = ShuffleBatcher(dataset, batch_size)
+        step_fn, save = T.make_s2_step(mcfg, tcfg, dp=dp), save_s2
+    batcher = ShuffleBatcher(dataset, batch_size, **host_shard(dp))
     log.info("stage %s: %d rows, %d batches an epoch", args.stage, len(dataset),
              batcher.num_batches())
 
-    start_epoch = resume_state(args.model_dir, state)
+    start_epoch = resume_state(args.model_dir, state, dp)
     metrics = train_loop(model_dir=args.model_dir, state=state, step_fn=step_fn, batcher=batcher,
                          epochs=args.epochs or train_cfg.get("epochs", 100), device=device,
                          start_epoch=start_epoch or 0,
@@ -153,7 +158,9 @@ def main(argv=None):
                          save_interval=(args.save_interval_steps
                                         or train_cfg.get("save_interval", 1000)),
                          max_steps=args.max_steps, save=save,
-                         generator=torch.Generator(device=device).manual_seed(seed))
+                         generator=torch.Generator(device=device).manual_seed(rank_seed(seed, dp)))
+    if made_group:
+        M.shutdown()
     return state, metrics
 
 

@@ -16,7 +16,10 @@ bundle directory (config.json, params.npz, vocab.txt) whose word rows feed
 the text encoder; without it the rows are zeros. Every ``save_interval``
 steps, and at the end, the driver writes ``STATE_{step}.pt``; a later run
 with the same model directory resumes from the newest. It runs on the card
-unless ``--device cpu`` is given, and raises without CUDA.
+unless ``--device cpu`` is given, and raises without CUDA. Under torchrun's
+environment (or with run_vits2's ``--dist-*`` flags) every process joins the
+group and takes its rows of the global micro-batch (the config's
+``batch_size`` x the ranks), as run_vits2 does.
 """
 
 from __future__ import annotations
@@ -30,14 +33,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..api import resolve_device
 from ..models.bert import BertEncoder
 from ..models.stabletts import StableTTSConfig
+from ..parallel import mesh as M
 from ..text import WordPieceTokenizer
 from ..utils.checkpoint import load_params
 from ..utils.params import to_port_layout
 from . import stabletts_train as T
-from .driver_common import log, resume_state, train_loop
+from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
+                            resume_state, train_loop)
 from .stabletts_data import StableBatcher, StableDataConfig, StableTTSDataset
 
 _PUNCT = re.compile('[-,.?!;:"]')
@@ -110,30 +114,34 @@ def main(argv=None):
     ap.add_argument("--log-interval", type=int, default=None)
     ap.add_argument("--save-interval-steps", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the card")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
+    device, dp, made_group = join(args)
 
     with open(args.config, encoding="utf-8") as f:
         cfg = json.load(f)
     dcfg, mcfg, tcfg = build_configs(cfg)
     train_cfg = cfg.get("train", {})
     bert_fn = make_bert_fn(args.bert_dir, device) if args.bert_dir else None
-    batcher = StableBatcher(StableTTSDataset(dcfg, bert_fn=bert_fn), train_cfg.get("batch_size", 6))
+    batcher = StableBatcher(StableTTSDataset(dcfg, bert_fn=bert_fn), train_cfg.get("batch_size", 6),
+                            **host_shard(dp))
     log.info("dataset: %d utterances, %d batches an epoch", len(batcher.ds), batcher.num_batches())
 
     seed = train_cfg.get("seed", 1234)
     state = T.init_train_state(mcfg, tcfg, seed=seed, device=device)
-    start_epoch = resume_state(args.model_dir, state)
+    start_epoch = resume_state(args.model_dir, state, dp)
     metrics = train_loop(model_dir=args.model_dir, state=state,
-                         step_fn=T.make_train_step(mcfg, tcfg), batcher=batcher,
+                         step_fn=T.make_train_step(mcfg, tcfg, dp=dp), batcher=batcher,
                          epochs=args.epochs or train_cfg.get("epochs", 1000), device=device,
                          start_epoch=start_epoch or 0,
                          log_interval=args.log_interval or train_cfg.get("log_interval", 100),
                          save_interval=(args.save_interval_steps
                                         or train_cfg.get("save_interval", 1000)),
                          max_steps=args.max_steps,
-                         generator=torch.Generator(device=device).manual_seed(seed))
+                         generator=torch.Generator(device=device).manual_seed(rank_seed(seed, dp)))
+    if made_group:
+        M.shutdown()
     return state, metrics
 
 

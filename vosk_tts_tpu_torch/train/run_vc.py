@@ -12,7 +12,9 @@ learning rate stays constant (the JAX driver sets no schedule). Every
 ``eval_interval`` steps, and at the end, the driver writes
 ``STATE_{step}.pt``; a later run with the same model directory resumes from
 the newest. It runs on the card unless ``--device cpu`` is given, and
-raises without CUDA.
+raises without CUDA. Under torchrun's environment (or with run_vits2's
+``--dist-*`` flags) every process joins the group and takes its rows of the
+global batch (the config's ``batch_size`` x the ranks), as run_vits2 does.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ import logging
 
 import torch
 
-from ..api import resolve_device
 from ..models.quickvc import QuickVCConfig
+from ..parallel import mesh as M
 from . import vc_train as T
-from .driver_common import log, resume_state, train_loop
+from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
+                            resume_state, train_loop)
 from .gpt_sovits_data import ShuffleBatcher
 from .vc_data import VCDataConfig, VCDataset
 
@@ -76,29 +79,32 @@ def main(argv=None):
     ap.add_argument("--log-interval", type=int, default=None)
     ap.add_argument("--save-interval-steps", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the card")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
+    device, dp, made_group = join(args)
 
     with open(args.config, encoding="utf-8") as f:
         cfg = json.load(f)
     dcfg, mcfg, tcfg = build_configs(cfg)
     train_cfg = cfg.get("train", {})
-    batcher = ShuffleBatcher(VCDataset(dcfg), train_cfg.get("batch_size", 64))
+    batcher = ShuffleBatcher(VCDataset(dcfg), train_cfg.get("batch_size", 64), **host_shard(dp))
     log.info("dataset: %d utterances, %d batches an epoch", len(batcher.ds), batcher.num_batches())
 
     seed = train_cfg.get("seed", 1234)
     state = T.init_train_state(mcfg, tcfg, seed=seed, device=device)
-    start_epoch = resume_state(args.model_dir, state)
+    start_epoch = resume_state(args.model_dir, state, dp)
     metrics = train_loop(model_dir=args.model_dir, state=state,
-                         step_fn=T.make_train_step(mcfg, tcfg), batcher=batcher,
+                         step_fn=T.make_train_step(mcfg, tcfg, dp=dp), batcher=batcher,
                          epochs=args.epochs or train_cfg.get("epochs", 10000), device=device,
                          start_epoch=start_epoch or 0,
                          log_interval=args.log_interval or train_cfg.get("log_interval", 100),
                          save_interval=(args.save_interval_steps
                                         or train_cfg.get("eval_interval", 1000)),
                          max_steps=args.max_steps,
-                         generator=torch.Generator(device=device).manual_seed(seed))
+                         generator=torch.Generator(device=device).manual_seed(rank_seed(seed, dp)))
+    if made_group:
+        M.shutdown()
     return state, metrics
 
 

@@ -4,6 +4,9 @@ Usage:
   python -m vosk_tts_tpu_torch.train.run_vits2 -c config.json -m MODEL_DIR \
       [--finetune PRETRAINED_DIR] [--wavlm-dir WAVLM_DIR] [--epochs N] \
       [--max-steps N] [--device cpu]
+  torchrun --nproc-per-node N -m vosk_tts_tpu_torch.train.run_vits2 -c config.json -m DIR
+  python -m vosk_tts_tpu_torch.train.run_vits2 ... --dist-coordinator HOST:PORT \
+      --dist-num-processes N --dist-process-id I
 
 ``config.json`` follows the reference schema the JAX package reads
 (training/vits2/configs/mb_istft_vits2_multi.json: train, data and model
@@ -26,6 +29,16 @@ layout), and a WavLM discriminator with its own AdamW over its
 ``num_hidden_layers + 1`` states (the train block's ``slm_initial``
 channels, default 64). It runs on the card unless ``--device cpu`` is given
 and raises without CUDA.
+
+Data-parallel training (the JAX driver's ``--distributed``,
+``--dist-coordinator``, ``--dist-num-processes``, ``--dist-process-id``;
+under torchrun's environment the driver joins by itself): one process a
+card (``cuda:LOCAL_RANK``, NCCL; ``--dist-backend gloo`` for ranks that
+share a card, CPU ranks over gloo with ``--device cpu``), each with its
+rows of the global batch, which is the config's ``batch_size`` x the
+ranks; each step is the global batch's step (train/vits2_train.py). Each
+rank draws its rows' noise from its own generator, seeded by the seed +
+its rank. Rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -38,15 +51,16 @@ import os
 
 import torch
 
-from ..api import resolve_device
 from ..models.vits2 import VITS2Config
 from ..models.wavlm import WavLM, WavLMConfig
+from ..parallel import mesh as M
 from ..utils import checkpoint as ckpt
 from ..utils.params import LINEARS, from_port_layout, to_port_layout
 from ..utils.repro import check_git_hash
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
-from .driver_common import log, resume_state, save_state, train_loop
+from .driver_common import (add_distributed_args, host_shard, is_main, join, log,
+                            rank_seed, resume_state, save_state, train_loop)
 
 
 def build_configs(cfg: dict):
@@ -116,10 +130,12 @@ def main(argv=None):
     ap.add_argument("--log-interval", type=int, default=None)
     ap.add_argument("--save-interval-steps", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: the card")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
-    check_git_hash(args.model_dir)
+    device, dp, made_group = join(args)
+    if is_main():
+        check_git_hash(args.model_dir)
 
     with open(args.config, encoding="utf-8") as f:
         cfg = json.load(f)
@@ -128,7 +144,8 @@ def main(argv=None):
     epochs = args.epochs or train_cfg.get("epochs", 20000)
     log_interval = args.log_interval or train_cfg.get("log_interval", 200)
     save_interval = args.save_interval_steps or train_cfg.get("eval_interval", 1000)
-    batcher = BucketBatcher(TTSDataset(dcfg), train_cfg.get("batch_size", 24))
+    # the config's batch is a rank's: the global batch is it x the ranks
+    batcher = BucketBatcher(TTSDataset(dcfg), train_cfg.get("batch_size", 24), **host_shard(dp))
     log.info("dataset: %d utterances, %d batches an epoch", len(batcher.ds), batcher.num_batches())
 
     slm, slm_dims = None, {}
@@ -142,7 +159,7 @@ def main(argv=None):
 
     seed = train_cfg.get("seed", 1234)
     state = T.init_train_state(mcfg, tcfg, seed=seed, device=device, **slm_dims)
-    start_epoch = resume_state(args.model_dir, state)
+    start_epoch = resume_state(args.model_dir, state, dp)
     if start_epoch is None and args.finetune:
         pre = ckpt.load_full_state(args.finetune, "STATE", map_location=device)
         if pre is None:
@@ -158,12 +175,15 @@ def main(argv=None):
         frozen = {k: v.detach().clone() for k, v in state.params["dur"].state_dict().items()}
         after_step = lambda st: st.params["dur"].load_state_dict(frozen)
     metrics = train_loop(model_dir=args.model_dir, state=state,
-                         step_fn=T.make_train_step(mcfg, tcfg, slm=slm), batcher=batcher,
+                         step_fn=T.make_train_step(mcfg, tcfg, slm=slm, dp=dp), batcher=batcher,
                          epochs=epochs, device=device, start_epoch=start_epoch or 0, log_interval=log_interval,
                          save_interval=save_interval, max_steps=args.max_steps,
-                         generator=torch.Generator(device=device).manual_seed(seed), save=save,
+                         generator=torch.Generator(device=device).manual_seed(rank_seed(seed, dp)),
+                         save=save,
                          set_lr=lambda st, epoch: T.set_lr(st, T.lr_at_epoch(tcfg, epoch)),
                          after_step=after_step)
+    if made_group:
+        M.shutdown()
     return state, metrics
 
 

@@ -11,6 +11,11 @@ a global norm of 5 and takes one AdamW step. The forward is
 ``stabletts.forward_train`` on the dense attention route (no hand-written
 kernel). The tree is in the port's serving layout (fused qkv), so a
 trained state serves through ``stabletts.synthesise`` as it is.
+
+A data-parallel step (``dp=``, parallel/mesh.py) takes each rank's share of
+the global micro-batch's losses; the running mean of the shares is summed
+over the axis once, on the ``accumulate``-th micro-step before the clip,
+so the update is the global batch's.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models import stabletts as S
+from ..parallel.mesh import all_reduce_tensors, reduce_metrics
 from ..utils import params as P
 from . import vits2_train as T
 
@@ -68,7 +74,8 @@ def init_train_state(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, *, seed: 
     return StableTrainState(tcfg, tree if tree is not None else init_tree(mcfg, seed), device)
 
 
-def make_train_step(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, compute_dtype=None):
+def make_train_step(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, compute_dtype=None,
+                    dp=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     metrics`` (0-dim tensors, not synchronised). ``batch``: x (B, 5, T)
     int, x_lengths (B,), mel (B, T_f, n_feats) normalised, mel_lengths (B,),
@@ -86,7 +93,8 @@ def make_train_step(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, compute_dt
                               batch["x_lengths"], T._cast(batch["mel"], compute_dtype),
                               batch["mel_lengths"], batch["sid"],
                               T._cast(batch["bert"], compute_dtype), batch["durations"],
-                              cfg_dropout=tcfg.cfg_dropout, generator=generator, noise=noise)
+                              cfg_dropout=tcfg.cfg_dropout, generator=generator, noise=noise,
+                              dp=dp)
         loss = out["diff_loss"] + out["dur_loss"]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         n = state.step % k
@@ -94,6 +102,7 @@ def make_train_step(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, compute_dt
             for a, g in zip(state.acc, grads):  # a tensor the loss does not read has gradient 0
                 a.add_(((g.to(a.dtype) if g is not None else 0.0) - a) / (n + 1))
             if n == k - 1:
+                all_reduce_tensors(state.acc, dp)
                 norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(a)
                                                              for a in state.acc]))
                 # optax clip_by_global_norm: g / norm * max_norm where norm >= max_norm
@@ -104,7 +113,7 @@ def make_train_step(mcfg: S.StableTTSConfig, tcfg: StableTrainConfig, compute_dt
                 for a in state.acc:
                     a.zero_()
         state.step += 1
-        return {"loss": loss.detach(), "diff_loss": out["diff_loss"].detach(),
-                "dur_loss": out["dur_loss"].detach()}
+        return reduce_metrics({"loss": loss.detach(), "diff_loss": out["diff_loss"].detach(),
+                               "dur_loss": out["dur_loss"].detach()}, dp)
 
     return step

@@ -12,7 +12,8 @@ One step runs the JAX package's order on the QuickVC graph:
 
 The generator and the discriminator each have an AdamW of the VITS2
 trainer's settings (train/vits2_train.py); the driver applies no
-learning-rate schedule, as the JAX driver does not.
+learning-rate schedule, as the JAX driver does not. ``dp`` takes the
+data-parallel step of the VITS2 trainer (its module docstring).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..models import discriminators as D
 from ..models import quickvc as Q
 from ..ops.commons import slice_segments
 from ..ops.stft import mel_spectrogram
+from ..parallel.mesh import mean_share, reduce_grads, reduce_metrics
 from ..utils import params as P
 from . import losses as L
 from . import vits2_train as T
@@ -51,7 +53,7 @@ def init_train_state(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, *, seed: int = 
     return T.TrainState(tcfg, trees if trees is not None else init_trees(mcfg, seed), device)
 
 
-def make_train_step(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, compute_dtype=None):
+def make_train_step(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, compute_dtype=None, dp=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     metrics`` (0-dim tensors, not synchronised). ``batch``: c (B, T,
     ssl_dim), spec (B, T, F), mel (B, T, n_mel), wav (B, T * hop), tensors
@@ -79,30 +81,32 @@ def make_train_step(mcfg: Q.QuickVCConfig, tcfg: VCTrainConfig, compute_dtype=No
         # the discriminator, on the detached generated segment
         opt_d.zero_grad(set_to_none=True)
         yr, yg, _, _ = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real, y_hat.detach())
-        loss_disc = L.discriminator_loss(yr, yg)[0] + L.discriminator_tprls_loss(yr, yg)
+        loss_disc = L.discriminator_loss(yr, yg, dp)[0] + L.discriminator_tprls_loss(yr, yg, dp)
         loss_disc.backward()
         T.fill_missing_grads(opt_d)
+        reduce_grads(net_d.parameters(), dp)
         opt_d.step()
 
         # the generator, through the updated discriminator
         with T._frozen(net_d):
             yr, yg, fmap_r, fmap_g = D.mpd_apply(T._cast(net_d.params, compute_dtype), y_real,
                                                  y_hat)
-            loss_gen = L.generator_loss(yg)[0]
-            loss_tprls = L.generator_tprls_loss(yr, yg)
-            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            loss_gen = L.generator_loss(yg, dp)[0]
+            loss_tprls = L.generator_tprls_loss(yr, yg, dp)
+            loss_fm = L.feature_loss(fmap_r, fmap_g, dp)
             y_mel, yh_mel = mel_of(y_real), mel_of(y_hat)
             n = min(y_mel.shape[1], yh_mel.shape[1])
-            loss_mel = torch.mean(torch.abs(y_mel[:, :n] - yh_mel[:, :n])) * tcfg.c_mel
+            loss_mel = mean_share(torch.abs(y_mel[:, :n] - yh_mel[:, :n]), dp) * tcfg.c_mel
             loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                                out["spec_mask"]) * tcfg.c_kl
+                                out["spec_mask"], dp) * tcfg.c_kl
             total = loss_gen + loss_tprls + loss_fm + loss_mel + loss_kl
             total.backward()
         T.fill_missing_grads(opt_g)
+        reduce_grads(net_g.parameters(), dp)
         opt_g.step()
         state.step += 1
-        return {"loss_disc": loss_disc.detach(), "loss_gen_all": total.detach(),
-                "loss_gen": loss_gen.detach(), "loss_fm": loss_fm.detach(),
-                "loss_mel": loss_mel.detach(), "loss_kl": loss_kl.detach()}
+        return reduce_metrics({"loss_disc": loss_disc.detach(), "loss_gen_all": total.detach(),
+                               "loss_gen": loss_gen.detach(), "loss_fm": loss_fm.detach(),
+                               "loss_mel": loss_mel.detach(), "loss_kl": loss_kl.detach()}, dp)
 
     return step

@@ -16,6 +16,17 @@ One step runs the JAX package's order:
     ``loss_lm``, the sum over the WavLM states of the mean |real - fake|,
     and ``loss_lm_gen``, LSGAN through the updated WavLM discriminator.
 
+A data-parallel step (``dp=``, the data axis of parallel/mesh.py) is the
+JAX package's global-batch step: each rank computes its share of every loss
+(train/losses.py), each network's gradients are summed over the axis after
+``fill_missing_grads`` and before its optimizer's step (one collective a
+bucket, ``mesh.reduce_grads``), and the metrics are summed over the axis
+for the log; the parameters after the step are equal on every rank. With
+``tp=`` the generator runs tensor-parallel over the model axis
+(parallel/tp.py; the state's generator tree then holds this rank's part).
+No ``DistributedDataParallel`` wrapper: the D runs twice a step and the
+networks are functional trees.
+
 The frozen WavLM's leaves are buffers: it takes no gradient, but the
 generator's gradient flows through it and through the resampler into the
 generated waveform. The JAX step runs WavLM on each segment twice (under
@@ -49,6 +60,7 @@ from ..ops.commons import slice_segments
 from ..ops.pqmf import pqmf_analysis
 from ..ops.resample import resample
 from ..ops.stft import mel_spectrogram
+from ..parallel.mesh import mean_share, reduce_grads, reduce_metrics
 from ..utils import params as P
 from . import losses as L
 
@@ -191,7 +203,8 @@ def _cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=None, slm=None):
+def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=None, slm=None,
+                    dp=None, tp=None):
     """Returns ``step(state, batch, *, generator=None, noise=None) ->
     metrics`` (0-dim tensors, not synchronised). ``batch``: x (B, Tx) int,
     x_lengths (B,), mel (B, Tf, n_mel), mel_lengths (B,), wav (B, Ts),
@@ -209,7 +222,11 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
     that type through a differentiable cast of the f32 master parameters
     (the frozen WavLM's too) and of mel and wav, with no loss scaling (bf16
     keeps f32's exponent range), as the JAX package's mixed-precision step;
-    the optimizers and their state stay f32."""
+    the optimizers and their state stay f32.
+
+    ``dp`` (a ``parallel.mesh.Axis``) takes the data-parallel step over its
+    ranks, each with its rows of the global batch; ``tp`` (a
+    ``parallel.tp.TensorParallel``) runs the generator tensor-parallel."""
     seg_frames = mcfg.segment_size
     seg_samples = seg_frames * tcfg.hop_length
     periods, spec_ffts = tuple(tcfg.disc_periods), tuple(tcfg.disc_spec_ffts)
@@ -235,7 +252,7 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
         opt_g.zero_grad(set_to_none=True)
         out = vits2.forward_train(_cast(net_g.params, compute_dtype), mcfg, batch["x"],
                                   batch["x_lengths"], mel, batch["mel_lengths"], batch["sid"],
-                                  generator=generator, noise=noise)
+                                  generator=generator, noise=noise, dp=dp, tp=tp)
         ids = out["ids_slice"]
         y_hat = out["wav"][..., 0]
         y_real = slice_segments(wav[..., None], ids * tcfg.hop_length, seg_samples)[..., 0]
@@ -246,9 +263,10 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
         opt_d.zero_grad(set_to_none=True)
         yr, yg, _, _ = D.mpmsd_apply(_cast(net_d.params, compute_dtype), y_real, y_hat.detach(),
                                      periods, spec_ffts)
-        loss_disc = L.discriminator_loss(yr, yg)[0] + L.discriminator_tprls_loss(yr, yg)
+        loss_disc = L.discriminator_loss(yr, yg, dp)[0] + L.discriminator_tprls_loss(yr, yg, dp)
         loss_disc.backward()
         fill_missing_grads(opt_d)
+        reduce_grads(net_d.parameters(), dp)
         opt_d.step()
         metrics["loss_disc"] = loss_disc.detach()
 
@@ -261,9 +279,10 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             wd = _cast(net_wd.params, compute_dtype)
             dr = D.wavlm_disc_apply(wd, stacked_hidden_states(hs_real))
             dg = D.wavlm_disc_apply(wd, stacked_hidden_states([h.detach() for h in hs_fake]))
-            loss_slm_disc = torch.mean((1 - dr) ** 2) + torch.mean(dg**2)
+            loss_slm_disc = mean_share((1 - dr) ** 2, dp) + mean_share(dg**2, dp)
             loss_slm_disc.backward()
             fill_missing_grads(opt_wd)
+            reduce_grads(net_wd.parameters(), dp)
             opt_wd.step()
             metrics["loss_slm_disc"] = loss_slm_disc.detach()
 
@@ -273,9 +292,10 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             pr, pg = D.duration_disc_apply(_cast(net_dur.params, compute_dtype),
                                            out["x"].detach(), out["x_mask"],
                                            out["logw_"].detach(), out["logw"].detach())
-            loss_dur_disc = L.discriminator_loss([pr], [pg])[0]
+            loss_dur_disc = L.discriminator_loss([pr], [pg], dp)[0]
             loss_dur_disc.backward()
             fill_missing_grads(opt_dur)
+            reduce_grads(net_dur.parameters(), dp)
             opt_dur.step()
             metrics["loss_dur_disc"] = loss_dur_disc.detach()
 
@@ -284,18 +304,18 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             yh_mel = mel_of(y_hat)
             yr_, yg_, fmap_r, fmap_g = D.mpmsd_apply(_cast(net_d.params, compute_dtype), y_real,
                                                      y_hat, periods, spec_ffts)
-            loss_gen = L.generator_loss(yg_)[0]
-            loss_gen_tprls = L.generator_tprls_loss(yr_, yg_)
-            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            loss_gen = L.generator_loss(yg_, dp)[0]
+            loss_gen_tprls = L.generator_tprls_loss(yr_, yg_, dp)
+            loss_fm = L.feature_loss(fmap_r, fmap_g, dp)
             n = min(y_mel.shape[1], yh_mel.shape[1])
-            loss_mel = torch.mean(torch.abs(y_mel[:, :n] - yh_mel[:, :n])) * tcfg.c_mel
+            loss_mel = mean_share(torch.abs(y_mel[:, :n] - yh_mel[:, :n]), dp) * tcfg.c_mel
             loss_dur = torch.sum(out["l_length"])
             loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                                out["y_mask"]) * tcfg.c_kl
+                                out["y_mask"], dp) * tcfg.c_kl
             if mcfg.decoder_type == "mb_istft":
                 y_mb = pqmf_analysis(y_real[..., None], subbands=mcfg.subbands)
                 loss_subband = L.subband_stft_loss(y_mb, out["wav_mb"], tcfg.fft_sizes,
-                                                   tcfg.hop_sizes, tcfg.win_lengths)
+                                                   tcfg.hop_sizes, tcfg.win_lengths, dp)
             else:
                 loss_subband = loss_mel.new_zeros(())
             total = (loss_gen + loss_gen_tprls + loss_fm + loss_mel + loss_dur + loss_kl
@@ -303,22 +323,24 @@ def make_train_step(mcfg: vits2.VITS2Config, tcfg: TrainConfig, compute_dtype=No
             if net_dur is not None:
                 _, pg = D.duration_disc_apply(_cast(net_dur.params, compute_dtype), out["x"],
                                               out["x_mask"], out["logw_"], out["logw"])
-                total = total + L.generator_loss([pg])[0]
+                total = total + L.generator_loss([pg], dp)[0]
             if use_slm:
-                loss_lm = sum(torch.mean(torch.abs(hr - hf)) for hr, hf in zip(hs_real, hs_fake))
+                loss_lm = sum(mean_share(torch.abs(hr - hf), dp)
+                              for hr, hf in zip(hs_real, hs_fake))
                 dg = D.wavlm_disc_apply(_cast(net_wd.params, compute_dtype),
                                         stacked_hidden_states(hs_fake))
-                loss_lm_gen = torch.mean((1 - dg) ** 2)
+                loss_lm_gen = mean_share((1 - dg) ** 2, dp)
                 total = total + loss_lm + loss_lm_gen
                 metrics.update({"loss_lm": loss_lm.detach(), "loss_lm_gen": loss_lm_gen.detach()})
             total.backward()
         fill_missing_grads(opt_g)
+        reduce_grads(net_g.parameters(), dp)
         opt_g.step()
         state.step += 1
         metrics.update({"loss_gen_all": total.detach(), "loss_gen": loss_gen.detach(),
                         "loss_fm": loss_fm.detach(), "loss_mel": loss_mel.detach(),
                         "loss_dur": loss_dur.detach(), "loss_kl": loss_kl.detach(),
                         "loss_subband": loss_subband.detach()})
-        return metrics
+        return reduce_metrics(metrics, dp)
 
     return step
