@@ -243,7 +243,8 @@ result line is printed):
 19. data- and tensor-parallel training and ``synth_batch`` over replicas
    (``[dist]``, vosk_tts_tpu_torch/parallel/): (a) a data-parallel VITS2
    step of two ranks (this script with ``--dist-rank``, both on cuda:0
-   over gloo: NCCL refuses two ranks on one card) at VITS2Config() and
+   with LOCAL_WORLD_SIZE 2, so ``mesh.initialize`` joins them over gloo:
+   NCCL refuses two ranks on one card) at VITS2Config() and
    TrainConfig(), global B24 = 2 x 12 of ``[train]``'s corpus, draws
    pinned per row, against the 1-rank B24 step, both in deterministic
    algorithms: every loss 1e-3 relative, each network's gradients 1e-2
@@ -570,6 +571,8 @@ def main_path(model, tag="main", with_batch=True):
     check(len(batch) == len(TEXTS) and all(
         a.dtype == np.int16 and len(a) > 0 and np.any(a != 0) and len(a) % up == 0
         for a in batch), f"[{tag}] bad batch audio")
+    check(torch.cuda.device_count() > 1 or not synth._replicas,
+          f"[{tag}] synth_batch on one card ran on a copy of the model's synthesizer")
     return calls, audios
 
 
@@ -3395,9 +3398,13 @@ def dist_rank(rank: int, root: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    os.environ["LOCAL_RANK"] = "0"
-    dev = pmesh.initialize(f"file://{root}/store", 2, rank, device="cuda", backend="gloo",
+    # two ranks on one card, as torchrun --nproc-per-node 2 names them:
+    # initialize picks gloo, since NCCL refuses them
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
+    dev = pmesh.initialize(f"file://{root}/store", 2, rank, device="cuda",
                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    check(torch.distributed.get_backend() == "gloo",
+          f"[dist] two ranks on one card joined over {torch.distributed.get_backend()}")
     inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
     mcfg, tcfg = inputs["mcfg"], inputs["tcfg"]
     out = {}
@@ -3446,10 +3453,9 @@ def run_ranks(root, n):
     """``n`` ranks of this script (``--dist-rank``), each waited for at most
     DIST_TIMEOUT s; every one is stopped before this returns. Fails unless
     every rank exits 0."""
-    env = dict(os.environ, LOCAL_RANK="0")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
                                "--dist-root", root], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env) for r in range(n)]
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
     logs = []
     try:
         deadline = time.monotonic() + DIST_TIMEOUT

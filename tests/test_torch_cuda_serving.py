@@ -148,3 +148,21 @@ def test_batcher_on_the_card(dev, bundles, monkeypatch, kind):
         peak = int(np.abs(w.astype(np.int32)).max())
         assert peak > 0
         assert int(np.abs(g.astype(np.int32) - w.astype(np.int32)).max()) <= 1e-3 * peak + 1
+
+
+@pytest.mark.cuda
+def test_synth_batch_runs_the_models_own_synthesizer(dev, bundles):
+    """``synth_batch`` with its default devices runs shard 0 on the model's
+    own synthesizer and generator (``Model()``'s ``cuda`` is resolved to
+    ``cuda:N``, so it equals the visible card's device); a copy is made
+    only for the other cards."""
+    model = api.Model(bundles["vits2"])
+    assert model.device == torch.device("cuda", torch.cuda.current_device())
+    synth = api.Synth(model)
+    syn, gen = synth._replica(0, "cuda")
+    assert syn is model.synthesizer and gen is synth.generator
+    out = synth.synth_batch([t for t, _, _ in REQUESTS[:3]], noise_level=0.0,
+                            duration_noise_level=0.0)
+    assert len(out) == 3 and all(len(a) > 0 for a in out)
+    assert set(synth._replicas) == {(i, torch.device("cuda", i))
+                                    for i in range(1, torch.cuda.device_count())}

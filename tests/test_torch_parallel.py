@@ -10,7 +10,7 @@ cycle) and VC steps and the codebook's buffers; one job of 4 ranks runs the
 2 x 2 data x tensor-parallel VITS2 step (one period and one FFT size in its
 discriminators). Each is held to the same function run with no axis in a
 process of its own (the 1-process step on the global batch); the JAX step
-runs in another, beside it, and the jobs one after another, so that the
+runs in another before it, and the jobs one after another, so that the
 file's memory peak is about one job's:
 
 * every data-parallel step: each loss within 1e-5 relative, each network's
@@ -215,15 +215,15 @@ class Runs:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX step (in a process of its own, while the 1-process
-    reference runs), then the 2-rank job, then the 4-rank job: one at a
-    time, so that the file's memory peak is one job's."""
+    """The JAX step (in a process of its own, so that its compile's memory
+    goes with it), then the 1-process reference, then the 2-rank job, then
+    the 4-rank job: one at a time, so that the file's memory peak is one
+    job's."""
     root = tmp_path_factory.mktemp("parallel")
     noise = _jax_noise(jax.random.PRNGKey(1), jv.VITS2Config(**W.VITS2))
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        jax_step = pool.submit(_jax_step, 1)
-        _join(_start(root / "ref", None, (*TWO_RANKS, "dptp"), noise))
-        jax_step = jax_step.result(timeout=JOB_TIMEOUT)
+        jax_step = pool.submit(_jax_step, 1).result(timeout=JOB_TIMEOUT)
+    _join(_start(root / "ref", None, (*TWO_RANKS, "dptp"), noise))
     _join(_start(root / "two", 2, TWO_RANKS, noise))
     _join(_start(root / "four", 4, ("dptp",), noise))
     return Runs(root, jax_step)
@@ -440,3 +440,36 @@ def test_ranks_import_no_jax():
                        cwd=WORKER.parent.parent, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]", r.stdout
+
+
+@pytest.mark.parametrize("cards, local_rank, local_world, backend, index", [
+    (1, "0", None, "nccl", 0),  # one rank a card
+    (2, "1", "2", "nccl", 1),
+    (1, "1", "2", "gloo", 0),  # two ranks on one card: NCCL refuses them
+])
+def test_initialize_picks_the_backend(monkeypatch, cards, local_rank, local_world, backend,
+                                      index):
+    """CUDA ranks join over NCCL on ``cuda:(LOCAL_RANK mod the cards)``,
+    over gloo where LOCAL_WORLD_SIZE exceeds the cards (the group itself is
+    stubbed: this checks the choice only)."""
+    from vosk_tts_tpu_torch.parallel import mesh as M
+
+    seen = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: seen.update(set_device=d))
+    monkeypatch.setattr(M.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(M.dist, "init_process_group",
+                        lambda b, **kw: seen.update(backend=b, **kw))
+    monkeypatch.setenv("LOCAL_RANK", local_rank)
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    dev = M.initialize("file:///unused", 2, int(local_rank), device="cuda")
+    assert dev == seen["set_device"] == torch.device("cuda", index)
+    assert seen["backend"] == backend and seen["world_size"] == 2
+    assert ("device_id" in seen) == (backend == "nccl")
+    seen.clear()
+    assert M.initialize("file:///unused", 2, 0, device="cpu") == torch.device("cpu")
+    assert seen["backend"] == "gloo" and "device_id" not in seen and "set_device" not in seen

@@ -134,10 +134,15 @@ def list_languages():
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Raises instead of falling back to the CPU."""
+    """``None`` means the card. A card without an index gets the current
+    one (``cuda`` -> ``cuda:0``), so that devices compare equal. Raises
+    instead of falling back to the CPU."""
     device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -390,7 +395,7 @@ class Synth:
         own for shard 0 on the model's device, else a copy kept for the
         shard (one a card; two shards named on one card hold two), its
         generator seeded by the seed + ``i``."""
-        device = torch.device(device)
+        device = resolve_device(device)
         if i == 0 and device == self.model.device:
             return self.model.synthesizer, self.generator
         if (i, device) not in self._replicas:
@@ -434,7 +439,7 @@ class Synth:
         largest ``pred_frames`` of every shard's real rows (a row's tail
         depends on the frames after it, so every shard decodes at the same
         geometry), then each shard's decode, the rows back in order."""
-        devices = [self.model.device] if devices is None else [torch.device(d) for d in devices]
+        devices = [self.model.device] if devices is None else [resolve_device(d) for d in devices]
         bucket = next((b for b in TEXT_BUCKETS if b >= max(len(i) for i in all_ids)),
                       TEXT_BUCKETS[-1])
         n, k = len(all_ids), len(devices)

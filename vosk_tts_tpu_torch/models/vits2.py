@@ -39,11 +39,12 @@ from ..ops import attention as att
 from ..ops import flows as fl
 from ..ops import wn as wnops
 from ..ops.commons import generate_path, rand_slice_segments, sequence_mask
-from ..ops.conv import conv1d, conv_transpose1d
+from ..ops.conv import conv1d
 from ..ops.mas import maximum_path
 from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
 from ..ops.norm import layer_norm
 from ..ops.stft import istft, istft_multiband, mb_decoder_tail_fused
+from ..parallel import tp as ptp
 from ..parallel.mesh import total
 from .tree import TreeModule
 
@@ -410,15 +411,6 @@ def flow_block_apply(params, cfg: VITS2Config, x, x_mask, g=None, *, reverse: bo
 # ---------------------------------------------------------------------------
 
 
-def _tp_conv(tp, keys, x, p, **kw):
-    """conv1d (conv_transpose1d with ``transpose=True``), or with ``tp`` the
-    tensor-parallel conv named ``keys`` (parallel/tp.py)."""
-    if tp is not None:
-        return tp.conv(keys, x, p, **kw)
-    fn = conv_transpose1d if kw.pop("transpose", False) else conv1d
-    return fn(x, p["w"], p["b"], **kw)
-
-
 def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None, tp=None):
     """``x_lengths`` (B,), where given, re-zeroes every conv input beyond
     each row's length (scaled by each upsample), so that the samples below
@@ -426,9 +418,9 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None, tp=
     the activations between its convs may be channel-sharded."""
     lengths = x_lengths
     mask = None if lengths is None else sequence_mask(lengths, x.shape[1]).to(x.dtype)[..., None]
-    x = _tp_conv(tp, ("conv_pre",), x, params["conv_pre"], padding=3)
+    x = ptp.conv(tp, ("conv_pre",), x, params["conv_pre"], padding=3)
     if g is not None and "cond" in params:
-        c = _tp_conv(tp, ("cond",), g, params["cond"])
+        c = ptp.conv(tp, ("cond",), g, params["cond"])
         x = x + c if tp is None else tp.add(x, c)
     if mask is not None:
         x = x * mask
@@ -438,7 +430,7 @@ def _generator_trunk(params, cfg: VITS2Config, x, g=None, *, x_lengths=None, tp=
         x = wnops.leaky_relu(x)
         pad = cfg.upsample_paddings[i] if cfg.upsample_paddings else (k - u) // 2
         opad = cfg.upsample_output_paddings[i] if cfg.upsample_output_paddings else 0
-        x = _tp_conv(tp, ("ups", i), x, params["ups"][i], transpose=True, stride=u, padding=pad,
+        x = ptp.conv(tp, ("ups", i), x, params["ups"][i], transpose=True, stride=u, padding=pad,
                      output_padding=opad)
         if lengths is not None:
             lengths = lengths * u
@@ -480,9 +472,9 @@ def generator_apply(params, cfg: VITS2Config, x, g=None, *, x_lengths=None,
     check_decoder(cfg)
     x = _generator_trunk(params, cfg, x, g, x_lengths=x_lengths, tp=tp)
     if cfg.decoder_type == "hifigan":
-        return torch.tanh(_tp_conv(tp, ("conv_post",), x, params["conv_post"], padding=3)), None
+        return torch.tanh(ptp.conv(tp, ("conv_post",), x, params["conv_post"], padding=3)), None
     x = F.pad(x.transpose(1, 2), (1, 0), mode="reflect").transpose(1, 2)  # ReflectionPad1d((1, 0))
-    x = _tp_conv(tp, ("conv_post",), x, params["conv_post"], padding=3)
+    x = ptp.conv(tp, ("conv_post",), x, params["conv_post"], padding=3)
     n_fft, hop, sub, mode = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size, cfg.subbands, cfg.istft_mode
     cutoff = n_fft // 2 + 1
     if cfg.decoder_type == "istft":

@@ -8,6 +8,7 @@ import torch
 
 from . import ddsconv_fused as ddf
 from .commons import fused_gate
+from ..parallel import tp as ptp
 from .conv import conv1d
 
 LRELU_SLOPE = 0.1
@@ -39,12 +40,6 @@ def wn_apply(params, x, x_mask, g=None, *, kernel_size: int, dilation_rate: int)
     return output * x_mask
 
 
-def _conv(tp, keys, x, p, **kw):
-    """conv1d, or with ``tp`` (parallel/tp.TensorParallel) the conv named
-    ``keys`` over its model axis."""
-    return conv1d(x, p["w"], p["b"], **kw) if tp is None else tp.conv(keys, x, p, **kw)
-
-
 def resblock1_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1, 3, 5),
                     tp=None):
     """HiFiGAN ResBlock1. ``x_mask`` (B, T, 1), where given, zeroes every
@@ -55,11 +50,11 @@ def resblock1_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1
         xt = leaky_relu(x)
         if x_mask is not None:
             xt = xt * x_mask
-        xt = _conv(tp, ("convs1", j), xt, c1, padding=(kernel_size * d - d) // 2, dilation=d)
+        xt = ptp.conv(tp, ("convs1", j), xt, c1, padding=(kernel_size * d - d) // 2, dilation=d)
         xt = leaky_relu(xt)
         if x_mask is not None:
             xt = xt * x_mask
-        xt = _conv(tp, ("convs2", j), xt, c2, padding=(kernel_size - 1) // 2)
+        xt = ptp.conv(tp, ("convs2", j), xt, c2, padding=(kernel_size - 1) // 2)
         x = xt + x if tp is None else tp.add(xt, x)
     return x if x_mask is None else x * x_mask
 
@@ -70,7 +65,7 @@ def resblock2_apply(params, x, x_mask=None, *, kernel_size: int = 3, dilation=(1
         xt = leaky_relu(x)
         if x_mask is not None:
             xt = xt * x_mask
-        xt = _conv(tp, ("convs", j), xt, c, padding=(kernel_size * d - d) // 2, dilation=d)
+        xt = ptp.conv(tp, ("convs", j), xt, c, padding=(kernel_size * d - d) // 2, dilation=d)
         x = xt + x if tp is None else tp.add(xt, x)
     return x if x_mask is None else x * x_mask
 

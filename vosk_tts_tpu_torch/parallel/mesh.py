@@ -45,7 +45,7 @@ def launched_by_torchrun() -> bool:
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None, *, device: str = "cuda", backend: str | None = None,
+               process_id: int | None = None, *, device: str = "cuda",
                timeout: datetime.timedelta = TIMEOUT) -> torch.device:
     """Join the process group (the counterpart of ``jax.distributed.
     initialize``) and return this rank's device: ``cuda:LOCAL_RANK``, or the
@@ -55,13 +55,13 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK). Else
     ``coordinator`` is ``host:port`` (rank 0 serves the store there) or an
     ``init_method`` URL (``file://PATH``, a store on a shared file), with
-    ``num_processes`` and ``process_id``. ``backend`` defaults to NCCL for
-    CUDA ranks and gloo for CPU ranks; ranks that share a card pass
-    ``"gloo"``. The CUDA device is set before NCCL starts. A group that is
-    already up is kept."""
+    ``num_processes`` and ``process_id``. CUDA ranks use NCCL on
+    ``cuda:(LOCAL_RANK mod the cards)``, set before NCCL starts; CPU ranks,
+    and ranks that share a card (LOCAL_WORLD_SIZE larger than the visible
+    cards: NCCL refuses them), use gloo. A group that is already up is
+    kept."""
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    backend = backend or ("nccl" if device == "cuda" else "gloo")
     if coordinator is None:
         if not launched_by_torchrun():
             raise RuntimeError("no coordinator given and no torchrun environment (RANK, "
@@ -72,11 +72,13 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
         rank, world = int(process_id), int(num_processes)
         init_method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     if device == "cuda":
-        lr = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
-        dev = torch.device("cuda", lr)
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)) % cards)
         torch.cuda.set_device(dev)
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", 1)) > cards
+        backend = "gloo" if shared else "nccl"
     else:
-        dev = torch.device("cpu")
+        dev, backend = torch.device("cpu"), "gloo"
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
                                 timeout=timeout,
@@ -214,11 +216,11 @@ def reduce_metrics(metrics: dict, axis: Axis | None) -> dict:
     return dict(zip(metrics, flat.unbind()))
 
 
-def _buckets(tensors, bucket_bytes: int):
+def _buckets(tensors):
     bucket, nbytes = [], 0
     for t in tensors:
         if bucket and (t.dtype != bucket[0].dtype or t.device != bucket[0].device
-                       or nbytes + t.numel() * t.element_size() > bucket_bytes):
+                       or nbytes + t.numel() * t.element_size() > BUCKET_BYTES):
             yield bucket
             bucket, nbytes = [], 0
         bucket.append(t)
@@ -228,19 +230,19 @@ def _buckets(tensors, bucket_bytes: int):
 
 
 @torch.no_grad()
-def all_reduce_tensors(tensors, axis: Axis | None, bucket_bytes: int = BUCKET_BYTES) -> None:
+def all_reduce_tensors(tensors, axis: Axis | None) -> None:
     """Sum each tensor over the axis in place, flattened into buckets (a few
     large collectives, not one a tensor)."""
     if axis is None:
         return
-    for bucket in _buckets(list(tensors), bucket_bytes):
+    for bucket in _buckets(list(tensors)):
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat, group=axis.group)
         torch._foreach_copy_(bucket, [f.view_as(t) for f, t in
                                       zip(flat.split([t.numel() for t in bucket]), bucket)])
 
 
-def reduce_grads(params, axis: Axis | None, bucket_bytes: int = BUCKET_BYTES) -> None:
+def reduce_grads(params, axis: Axis | None) -> None:
     """Sum the parameters' gradients over the axis in place: every rank's
     share of the global loss's gradient, whole on every rank. Every
     parameter must hold a gradient (``vits2_train.fill_missing_grads``
@@ -251,15 +253,15 @@ def reduce_grads(params, axis: Axis | None, bucket_bytes: int = BUCKET_BYTES) ->
     missing = sum(p.grad is None for p in params)
     if missing:
         raise ValueError(f"{missing} parameters hold no gradient; fill them before the reduction")
-    all_reduce_tensors([p.grad for p in params], axis, bucket_bytes)
+    all_reduce_tensors([p.grad for p in params], axis)
 
 
 @torch.no_grad()
-def broadcast_tensors(tensors, axis: Axis | None, bucket_bytes: int = BUCKET_BYTES) -> None:
+def broadcast_tensors(tensors, axis: Axis | None) -> None:
     """Copy the axis root's tensors into every rank's, in place, bucketed."""
     if axis is None:
         return
-    for bucket in _buckets(list(tensors), bucket_bytes):
+    for bucket in _buckets(list(tensors)):
         flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.broadcast(flat, src=axis.root, group=axis.group)
         torch._foreach_copy_(bucket, [f.view_as(t) for f, t in

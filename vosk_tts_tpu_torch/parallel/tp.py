@@ -41,6 +41,15 @@ from .mesh import Axis, summed
 COL, ROW = "col", "row"
 
 
+def conv(tp, keys, x, p, *, transpose: bool = False, **kw):
+    """The conv ``p`` (a ConvTranspose1d with ``transpose``): plain where
+    ``tp`` is None, else the tensor-parallel conv named ``keys``
+    (:meth:`TensorParallel.conv`)."""
+    if tp is not None:
+        return tp.conv(keys, x, p, transpose=transpose, **kw)
+    return (conv_transpose1d if transpose else conv1d)(x, p["w"], p["b"], **kw)
+
+
 def _spec(w_shape, dim: int, n: int, kind: str):
     """``kind`` where the axis size divides the dimension, else None
     (replicated)."""

@@ -42,7 +42,7 @@ def is_main() -> bool:
 
 
 def add_distributed_args(ap: argparse.ArgumentParser) -> None:
-    """The JAX driver's flags of a multi-host run, and the backend."""
+    """The JAX driver's flags of a multi-host run."""
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group from torchrun's environment (RANK, "
                          "WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK)")
@@ -50,9 +50,6 @@ def add_distributed_args(ap: argparse.ArgumentParser) -> None:
                     help="host:port of rank 0's store (or an init_method URL, file://PATH)")
     ap.add_argument("--dist-num-processes", type=int, default=None)
     ap.add_argument("--dist-process-id", type=int, default=None)
-    ap.add_argument("--dist-backend", default=None,
-                    help="default: nccl on the card, gloo on the CPU; gloo for ranks that "
-                         "share a card")
 
 
 def join(args) -> tuple:
@@ -68,8 +65,7 @@ def join(args) -> tuple:
         return resolve_device(args.device), None, False
     made = not dist.is_initialized()
     device = M.initialize(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
-                          device="cpu" if args.device == "cpu" else "cuda",
-                          backend=args.dist_backend)
+                          device="cpu" if args.device == "cpu" else "cuda")
     grid = M.make_grid()
     log.info("rank %d of %d on %s", dist.get_rank(), dist.get_world_size(), device)
     return device, grid.data, made

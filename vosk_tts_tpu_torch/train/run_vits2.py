@@ -33,8 +33,8 @@ and raises without CUDA.
 Data-parallel training (the JAX driver's ``--distributed``,
 ``--dist-coordinator``, ``--dist-num-processes``, ``--dist-process-id``;
 under torchrun's environment the driver joins by itself): one process a
-card (``cuda:LOCAL_RANK``, NCCL; ``--dist-backend gloo`` for ranks that
-share a card, CPU ranks over gloo with ``--device cpu``), each with its
+card (``cuda:LOCAL_RANK``, NCCL; gloo where torchrun's LOCAL_WORLD_SIZE
+exceeds the cards, and for CPU ranks with ``--device cpu``), each with its
 rows of the global batch, which is the config's ``batch_size`` x the
 ranks; each step is the global batch's step (train/vits2_train.py). Each
 rank draws its rows' noise from its own generator, seeded by the seed +
