@@ -257,7 +257,31 @@ result line is printed):
    replicas on cuda:0 against one, noise 0: equal lengths, 1e-3 x peak,
    20 launches of kernel 1 and 8 of kernel 2. Any rank that fails, exits
    non-zero or outlives DIST_TIMEOUT (its group times out too) fails the
-   phase. Each phase prints its wall time.
+   phase;
+20. the checkpoint converters and data tools (``[tools]``,
+   vosk_tts_tpu_torch/tools/, each run as a user runs it where it is a
+   command): (a) ``make_demo_bundle --full`` served by ``Model`` (no device
+   argument) for 3 requests, 10 + 4 launches of kernels 1-2 a call,
+   ``parity`` against the CPU; (b) a VITS2Config() tree (pre_conv2 flows)
+   written as a reference ``G_7.pth`` with weight-norm pairs split
+   (tests/torch_ref_layout.py), ``convert_checkpoint`` back to the tree
+   (folded leaves 1e-6 relative, every other leaf equal), served with
+   (a)'s launches, its int16 waveform within 1 step of the source
+   bundle's on the source's durations at noise 0; (c) an HF HuBERT
+   directory at HubertConfig() width as ``pytorch_model.bin`` and as
+   ``model.safetensors`` through ``convert_hubert`` (equal bundles), then
+   ``vc_encode_dataset`` and ``gpt_sovits_prepare`` (a SoVITSConfig() npz)
+   over 2, 5 and 10 s wavs on the card against the CPU: features 1e-3 x
+   peak, semantic codes equal but for ties (both candidates' distances
+   within 1e-5 relative, at most 1% of codes); (d) ``stabletts_bootstrap``:
+   the mel statistics of 8 wavs card vs CPU 1e-5 relative, and durations
+   from a StableTTSConfig() ``STATE_0.pt`` with BertConfig() rows: every
+   row's durations sum to its frames, kernel 3 2 x 4 and MAS once a batch,
+   the card's paths scored under the CPU's log-prior within 1e-5 of the
+   CPU's best paths; (e) ``train_g2p.train`` at its default widths on a
+   synthetic 4096-word lexicon, B256, 208 steps on the card: the loss
+   halves, step 0 within 1e-4 of the CPU's, the exported artifact loads
+   in ``NeuralG2P`` and predicts. Each phase prints its wall time.
 
 The lines before the last: the kernels' JSON record, then the
 ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
@@ -306,7 +330,9 @@ from vosk_tts_tpu_torch.text import convert  # noqa: E402
 from vosk_tts_tpu_torch.train import (gpt_sovits_data, gpt_sovits_train,  # noqa: E402
                                       run_gpt_sovits, run_stabletts, run_vc, run_vits2,
                                       stabletts_data, stabletts_train, vc_data, vc_train)
-from vosk_tts_tpu_torch.tools import build_examples  # noqa: E402
+from vosk_tts_tpu_torch.text import neural_g2p  # noqa: E402
+from vosk_tts_tpu_torch.tools import build_examples, convert_hubert, gpt_sovits_prepare  # noqa: E402
+from vosk_tts_tpu_torch.tools import stabletts_bootstrap, train_g2p, vc_encode_dataset  # noqa: E402
 from vosk_tts_tpu_torch.train import vits2_train as tt  # noqa: E402
 from vosk_tts_tpu_torch.train.data import (BucketBatcher, TTSDataset, load_wav,  # noqa: E402
                                            text_to_ids_aligned)
@@ -315,6 +341,7 @@ from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # no
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build, profiling  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import load_params, save_params  # noqa: E402
+from vosk_tts_tpu_torch.utils.torch_params import read_state_dict  # noqa: E402
 from vosk_tts_tpu_torch.models.tree import TreeModule  # noqa: E402
 from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  # noqa: E402
                                              hifigan_init, hubert_init, matcha_init,
@@ -3678,6 +3705,380 @@ def dist_phase(kernels, smi, dev=torch.device("cuda")):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20. The checkpoint converters and the data tools
+# ---------------------------------------------------------------------------
+
+TOOLS_SEED = SEED + 110
+TOOLS_WAV_SECONDS = (2.0, 5.0, 10.0)
+BOOTSTRAP_UTTERANCES, BOOTSTRAP_BATCH = 8, 4
+G2P_WORDS, G2P_BATCH, G2P_EPOCHS = 4096, 256, 13  # 16 steps an epoch: 208 steps
+
+
+def tool(name, *args):
+    """``python -m vosk_tts_tpu_torch.tools.<name> args`` (on the card
+    unless ``--device cpu`` is among them): (its stdout's lines, wall s)."""
+    return module_json([f"vosk_tts_tpu_torch.tools.{name}", *map(str, args)])
+
+
+def match_folded(got, want, n_folded):
+    """``got`` against the source tree ``want``: equal structure and shapes,
+    every leaf exact but at most ``n_folded`` (the folded weight-norm
+    pairs), each within 1e-6 of its largest magnitude. Returns (leaves,
+    inexact leaves, the largest of their errors over that magnitude)."""
+    g, w = flat_paths(got), flat_paths(want)
+    check(g.keys() == w.keys(), f"converted tree paths differ: {sorted(set(g) ^ set(w))[:4]}")
+    inexact, worst = 0, 0.0
+    for p, b in w.items():
+        a = g[p]
+        check((a is None) == (b is None) and (a is None or a.shape == b.shape), f"leaf {p} differs")
+        if a is not None and not np.array_equal(a, b):
+            inexact += 1
+            worst = max(worst, float(np.abs(a - b).max()) / float(np.abs(b).max()))
+    check(inexact <= n_folded and worst <= 1e-6,
+          f"{inexact} leaves differ (of {n_folded} folded), the worst by {worst:.3e} of its max")
+    return len(w), inexact, worst
+
+
+def flat_paths(tree, path=""):
+    if tree is None:
+        return {path: None}
+    if isinstance(tree, dict):
+        return {p: a for k, v in tree.items() for p, a in flat_paths(v, f"{path}/{k}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: a for i, v in enumerate(tree) for p, a in flat_paths(v, f"{path}/{i}").items()}
+    return {path: np.asarray(tree)}
+
+
+def served(tag, bundle, kernels, smi):
+    """``Model(bundle)`` (no device: the card) answering main_path's 3
+    requests; the launches over them must be ``per_synthesis_call``'s a
+    call (VITS2Config(): 10 of kernel 1, 4 of kernel 2). Returns (the
+    model, the audio, the launches)."""
+    model = api.Model(bundle)
+    check(model.device.type == "cuda", f"[{tag}] Model() did not default to the card")
+    zeroed(kernels)
+    calls, audios = main_path(model, tag=tag, with_batch=False)
+    got = launches_now(kernels)
+    want = {n: 0 for n in kernels} | {n: c * calls for n, c in
+                                      per_synthesis_call(model.model_config).items()}
+    print(f"[{tag}] launches over {calls} synthesis calls: {got} (expected {want}); {smi}")
+    check(got == want, f"[{tag}] kernel launches {got} != {want}")
+    return model, audios, got
+
+
+def fed_int16(models, text, sid=3):
+    """``text`` through each model's encode_for_infer and
+    decode_from_durations at noise 0, every model fed the first one's
+    durations: the int16 waveforms (as parity() runs them)."""
+    ids = api.encode_plain(models[0], text)
+    bucket = next(b for b in api.TEXT_BUCKETS if b >= len(ids))
+    x = np.zeros((1, bucket), np.int64)
+    x[0, :len(ids)] = ids
+    out, w_ceil = [], None
+    for m in models:
+        dev = m.device
+        with torch.inference_mode():
+            enc = m.synthesizer.encode_for_infer(
+                torch.as_tensor(x, device=dev), torch.tensor([len(ids)], dtype=torch.int32,
+                                                             device=dev),
+                torch.tensor([sid], device=dev), noise_scale_w=0.0)
+            if w_ceil is None:
+                w_ceil = enc["w_ceil"].cpu()
+            enc["w_ceil"] = w_ceil.to(dev)
+            pred = int(w_ceil.sum())
+            fb = api.pick_frame_bucket(pred, bucket)
+            dec = m.synthesizer.decode_from_durations(enc, torch.tensor([sid], device=dev),
+                                                      max_frames=fb, noise_scale=0.0,
+                                                      gen_frames=api.pick_gen_frames(pred, fb))
+        n = int(dec["wav_lengths"][0])
+        out.append(api.audio_float_to_int16(dec["wav"][0, :n, 0].cpu().numpy()))
+    return out
+
+
+def hubert_hf_config(cfg):
+    """An HF ``config.json`` dict for ``HubertConfig`` ``cfg`` (the keys
+    ``HubertConfig.from_hf`` reads, the base layout's flags)."""
+    d = {f.name: (list(v) if isinstance(v, tuple) else v)
+         for f in dataclasses.fields(cfg) for v in [getattr(cfg, f.name)]}
+    return {"model_type": "hubert", "feat_extract_norm": "group", "do_stable_layer_norm": False,
+            **d}
+
+
+def tools_phase(kernels, smi, dev=torch.device("cuda")):
+    """``[tools]``: (a) ``make_demo_bundle --full`` served on the card (3
+    requests, 10 + 4 launches a call, ``parity`` against the CPU); (b) a
+    VITS2Config() tree written as a reference ``G_7.pth`` (weight-norm pairs
+    split) converted by ``convert_checkpoint`` back to the tree (folded
+    weights 1e-6 relative, the rest exact) and served as the source bundle
+    is, within 1 int16 step of it, with (a)'s launches; (c) an HF HuBERT
+    directory at HubertConfig() width as ``pytorch_model.bin`` and
+    ``model.safetensors`` through ``convert_hubert`` (equal bundles), then
+    ``vc_encode_dataset`` and ``gpt_sovits_prepare`` (SoVITSConfig()) on the
+    card against the CPU over 2, 5 and 10 s wavs; (d)
+    ``stabletts_bootstrap``'s ``compute_stats`` card vs CPU and
+    ``run_durations`` from a StableTTSConfig() STATE_0.pt with BertConfig()
+    features, 8 launches of kernel 3 and one of MAS a batch; (e)
+    ``train_g2p.train`` at its default widths on a synthetic lexicon. Each
+    stage prints its wall. Returns the launches of (a), (b) and (d)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_ref_layout as R  # numpy only: reference-named state dicts, a synthetic lexicon
+
+    t_phase = time.perf_counter()
+    all_kernels = {**kernels, "mas": mas.KERNEL}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tools-") as root:
+        # (a) the demo bundle
+        t0 = time.perf_counter()
+        demo = os.path.join(root, "demo")
+        _, wall = tool("make_demo_bundle", demo, "--full", "--seed", TOOLS_SEED)
+        with open(os.path.join(demo, "config.json"), encoding="utf-8") as f:
+            check(vits2.VITS2Config.from_dict(json.load(f)["model"]) == vits2.VITS2Config(),
+                  "[tools demo] the bundle is not VITS2Config()")
+        model, _, out["demo"] = served("tools demo", demo, all_kernels, smi)
+        parity(model, api.Model(demo, device="cpu"), tag="tools demo parity")
+        del model
+        print(f"[tools demo] make_demo_bundle --full ({wall:.1f} s) served and held to the CPU "
+              f"in {time.perf_counter() - t0:.1f} s; {smi}")
+
+        # (b) a reference VITS2 checkpoint through convert_checkpoint
+        t0 = time.perf_counter()
+        cfg = vits2.VITS2Config()
+        tree = perturb_zero_init(synthesizer_init(cfg, seed=TOOLS_SEED + 1), seed=TOOLS_SEED + 2)
+        sd = R.vits2_state_dict(tree, cfg)
+        n_folded = sum(k.endswith(".weight_v") for k in sd)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}, "iteration": 7},
+                   os.path.join(root, "G_7.pth"))
+        with open(os.path.join(root, "ref.json"), "w", encoding="utf-8") as f:
+            json.dump(R.vits2_reference_config(cfg), f)
+        converted, source = os.path.join(root, "converted"), os.path.join(root, "source")
+        _, wall = tool("convert_checkpoint", os.path.join(root, "G_7.pth"),
+                       os.path.join(root, "ref.json"), converted)
+        n, inexact, worst = match_folded(load_params(os.path.join(converted, "params.npz")), tree,
+                                         n_folded)
+        with open(os.path.join(converted, "config.json"), encoding="utf-8") as f:
+            check(vits2.VITS2Config.from_dict(json.load(f)["model"]) == cfg,
+                  "[tools convert] the converted config is not the source's")
+        print(f"[tools convert] G_7.pth ({len(sd)} tensors, {n_folded} weight-norm pairs) "
+              f"converted in {wall:.1f} s: {n} leaves, {inexact} folded ones not bit-equal, the "
+              f"largest by {worst:.3e} of its max (tol 1e-6), every other leaf equal")
+        os.makedirs(source)
+        write_bundle(source, cfg, tree)
+        del tree, sd
+        conv_model, _, out["convert"] = served("tools convert", converted, all_kernels, smi)
+        src_model = api.Model(source)
+        steps = []
+        for text in TEXTS[:3]:
+            a, b = fed_int16([src_model, conv_model], text)
+            steps.append(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()))
+        print(f"[tools convert] converted vs source bundle on the card, 3 texts at noise 0 on "
+              f"the source's durations: max |diff| {steps} int16 steps (tol 1); "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(max(steps) <= 1, f"[tools convert] the converted bundle's audio differs: {steps}")
+        del src_model, conv_model
+
+        # (c) HuBERT: convert_hubert, vc_encode_dataset, gpt_sovits_prepare
+        t0 = time.perf_counter()
+        hcfg = hubert.HubertConfig()
+        htree = hubert_init(hcfg, seed=TOOLS_SEED + 3)
+        hsd = R.hubert_state_dict(htree, "parametrizations")
+        for name in ("bin", "st"):
+            os.makedirs(os.path.join(root, name))
+            with open(os.path.join(root, name, "config.json"), "w", encoding="utf-8") as f:
+                json.dump(hubert_hf_config(hcfg), f)
+        torch.save({k: torch.from_numpy(v) for k, v in hsd.items()},
+                   os.path.join(root, "bin", "pytorch_model.bin"))
+        R.write_safetensors(os.path.join(root, "st", "model.safetensors"), hsd)
+        check(all(np.array_equal(a, hsd[k]) for k, a in read_state_dict(
+            os.path.join(root, "st", "model.safetensors")).items()),
+            "[tools hubert] the safetensors reader does not give the written tensors")
+        _, w_bin = tool("convert_hubert", os.path.join(root, "bin"), os.path.join(root, "hubert"))
+        w_st = time.perf_counter()
+        convert_hubert.main([os.path.join(root, "st"), os.path.join(root, "hubert_st")])
+        w_st = time.perf_counter() - w_st
+        a, b = (load_params(os.path.join(root, d, "params.npz")) for d in ("hubert", "hubert_st"))
+        check(all(np.array_equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+              and flat_paths(a).keys() == flat_paths(b).keys(),
+              "[tools hubert] the .bin and .safetensors bundles differ")
+        pos = np.abs(a["pos_conv"]["w"] - htree["pos_conv"]["w"]).max() / np.abs(
+            htree["pos_conv"]["w"]).max()
+        a["pos_conv"] = htree["pos_conv"]
+        match_folded(a, htree, 0)
+        # the fold's norm sums 768 x 48 squares in f32 (as the JAX package's does)
+        print(f"[tools hubert] convert_hubert of pytorch_model.bin ({w_bin:.1f} s, a process) and "
+              f"model.safetensors ({w_st:.1f} s, in process): equal bundles, every leaf equal to the source's "
+              f"but the folded positional conv, within {pos:.3e} of its max (tol 1e-5)")
+        check(pos <= 1e-5, f"[tools hubert] the positional conv folds {pos:.3e} off")
+        del htree, hsd, a, b
+        rng = np.random.default_rng(TOOLS_SEED + 4)
+        sides = {}
+        for side in ("card", "cpu"):
+            os.makedirs(os.path.join(root, f"wavs_{side}"))
+        for i, seconds in enumerate(TOOLS_WAV_SECONDS):
+            write_voice(os.path.join(root, "wavs_card", f"w{i}.wav"), rng, int(seconds * 16000),
+                        16000)
+            shutil.copy(os.path.join(root, "wavs_card", f"w{i}.wav"),
+                        os.path.join(root, "wavs_cpu", f"w{i}.wav"))
+        scfg = gpt_sovits.SoVITSConfig()
+        save_params(os.path.join(root, "sovits.npz"), sovits_init(scfg, seed=TOOLS_SEED + 5))
+        # in process, with this script's f32 settings (TF32 off: a fresh process would
+        # take torch's default, TF32 in cuDNN's convolutions)
+        hub, walls = os.path.join(root, "hubert"), {}
+        for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            t1 = time.perf_counter()
+            vc_encode_dataset.main([hub, os.path.join(root, f"wavs_{side}"), *extra])
+            gpt_sovits_prepare.main([hub, os.path.join(root, "sovits.npz"),
+                                     os.path.join(root, f"wavs_{side}"),
+                                     os.path.join(root, f"{side}.tsv"), *extra])
+            walls[side] = time.perf_counter() - t1
+        codes = {}
+        for side in ("card", "cpu"):
+            with open(os.path.join(root, f"{side}.tsv"), encoding="utf-8") as f:
+                codes[side] = [np.asarray(line.split("\t")[1].split(), np.int64)
+                               for line in f.read().splitlines()]
+        errs = []
+        for i in range(len(TOOLS_WAV_SECONDS)):
+            for ext in (".cv.npy", ".ssl.npy"):
+                g, c = (np.load(os.path.join(root, f"wavs_{s}", f"w{i}{ext}")) for s in ("card",
+                                                                                          "cpu"))
+                check(g.shape == c.shape == (hcfg.n_frames(int(TOOLS_WAV_SECONDS[i] * 16000)),
+                                             hcfg.hidden_size), f"[tools hubert] {ext} shape")
+                errs.append(float(np.abs(g - c).max()) / float(np.abs(c).max()))
+        print(f"[tools hubert] vc_encode_dataset and gpt_sovits_prepare over "
+              f"{sum(TOOLS_WAV_SECONDS):.0f} s of audio, on the card {walls['card']:.1f} s, on "
+              f"the CPU {walls['cpu']:.1f} s: .cv.npy and .ssl.npy card vs CPU {max(errs):.3e} x "
+              f"peak (tol 1e-3)")
+        check(max(errs) <= 1e-3, f"[tools hubert] features card vs CPU {max(errs):.3e} x peak")
+        sovits = to_port_layout({k: load_params(os.path.join(root, "sovits.npz"))[k]
+                                 for k in ("ssl_proj", "codebook")})
+        differ, total = [], 0
+        for i, (g, c) in enumerate(zip(codes["card"], codes["cpu"])):
+            check(len(g) == len(c), "[tools hubert] code counts differ")
+            total += len(g)
+            for j in np.flatnonzero(g != c):
+                # the two candidates' squared distances from the CPU's latent, in f64
+                ssl = torch.from_numpy(np.load(os.path.join(root, "wavs_cpu",
+                                                            f"w{i}.ssl.npy"))).double()[None]
+                x = torch.nn.functional.conv1d(
+                    ssl.transpose(1, 2), torch.from_numpy(sovits["ssl_proj"]["w"]).double(),
+                    torch.from_numpy(sovits["ssl_proj"]["b"]).double(), stride=2)[0, :, j]
+                book = torch.from_numpy(sovits["codebook"]).double()
+                d = [float((x - book[k]).square().sum()) for k in (g[j], c[j])]
+                differ.append((i, int(j), int(g[j]), int(c[j]), d))
+        print(f"[tools hubert] semantic codes card vs CPU: {total - len(differ)} of {total} "
+              f"equal; differing (wav, frame, card, CPU, distances): {differ}")
+        check(len(differ) <= 0.01 * total and all(abs(d[0] - d[1]) <= 1e-5 * max(d)
+                                                  for *_, d in differ),
+              f"[tools hubert] codes differ beyond ties: {differ}")
+        print(f"[tools hubert] {time.perf_counter() - t0:.1f} s; {smi}")
+
+        # (d) stabletts_bootstrap: the mel statistics, MAS durations
+        t0 = time.perf_counter()
+        corpus = os.path.join(root, "stabletts")
+        os.makedirs(corpus)
+        meta = write_stabletts_corpus(corpus, n=BOOTSTRAP_UTTERANCES)
+        bert_dir = os.path.join(root, "bert")
+        write_bert(bert_dir, bert.BertConfig())
+        full = stabletts.StableTTSConfig()
+        cfg_json = {"data": {"training_files": meta, "n_spks": full.n_spks,
+                             "mel_mean": full.mel_mean, "mel_std": full.mel_std},
+                    "train": {"batch_size": BOOTSTRAP_BATCH}}
+        stats = {d: stabletts_bootstrap.compute_stats(cfg_json, d) for d in (dev, "cpu")}
+        rel = max(abs(stats[dev][k] - stats["cpu"][k]) / abs(stats["cpu"][k])
+                  for k in ("mel_mean", "mel_std"))
+        print(f"[tools bootstrap] stats over {BOOTSTRAP_UTTERANCES} wavs: card {stats[dev]}, "
+              f"CPU {stats['cpu']}, {rel:.3e} relative (tol 1e-5)")
+        check(rel <= 1e-5, f"[tools bootstrap] stats card vs CPU {rel:.3e}")
+        _, mcfg, tcfg = run_stabletts.build_configs(cfg_json)
+        check(mcfg == full, "[tools bootstrap] not StableTTSConfig()")
+        model_dir = os.path.join(root, "stabletts_model")
+        state = stabletts_train.init_train_state(mcfg, tcfg, seed=TOOLS_SEED + 6, device=dev)
+        ckpt.save_full_state(model_dir, "STATE", 0, {**state.state_dict(), "epoch": 0})
+        del state
+        bert_fns = {d: run_stabletts.make_bert_fn(bert_dir, d) for d in (dev, "cpu")}
+        expected = zeroed(all_kernels)
+        t1 = time.perf_counter()
+        written = stabletts_bootstrap.run_durations(cfg_json, model_dir, BOOTSTRAP_BATCH,
+                                                    bert_fns[dev], device=dev)
+        wall = time.perf_counter() - t1
+        batches = -(-BOOTSTRAP_UTTERANCES // BOOTSTRAP_BATCH)
+        out["durations"] = launches_now(all_kernels)
+        expected |= {"global_attention_rope": 2 * mcfg.n_layers * batches, "mas": batches}
+        print(f"[tools bootstrap] run_durations on the card ({wall:.1f} s, BERT rows included): "
+              f"{written} .lab files; launches {out['durations']} (expected {expected})")
+        check(written == BOOTSTRAP_UTTERANCES and out["durations"] == expected,
+              "[tools bootstrap] durations: files or launches")
+        # the card's paths scored under the CPU's log-prior against the CPU's own best paths
+        dcfg = dataclasses.replace(run_stabletts.build_configs(cfg_json)[0], load_durations=False)
+        ds = stabletts_data.StableTTSDataset(dcfg, bert_fn=bert_fns["cpu"])
+        batcher = stabletts_data.StableBatcher(ds, BOOTSTRAP_BATCH)
+        params = stabletts_bootstrap.load_tree(model_dir, mcfg, "cpu")
+        worst, flipped = 0.0, 0
+        for j in range(0, len(batcher.order), BOOTSTRAP_BATCH):
+            idxs = batcher.order[j: j + BOOTSTRAP_BATCH]
+            batch = to_device({k: v for k, v in batcher.collate(idxs).items() if k != "durations"},
+                              "cpu")
+            with torch.inference_mode():
+                prior, mask = stabletts_bootstrap.mel_log_prior(params, mcfg, batch)
+                best = mas.maximum_path(prior, mask)
+            for row, i in enumerate(idxs):
+                lab = stabletts_data.parse_lab(ds.items[i][0][:-4] + ".lab")
+                nf, t = int(batch["mel_lengths"][row]), int(batch["x_lengths"][row])
+                check(sum(lab) == nf and len(lab) == t, "[tools bootstrap] a .lab misses frames")
+                frames = np.repeat(np.arange(t), lab)
+                p = prior[row, :nf, :t].double().numpy()
+                card = p[np.arange(nf), frames].sum()
+                cpu = float((best[row, :nf, :t].double().numpy() * p).sum())
+                flipped += int(not np.array_equal(best[row, :nf, :t].sum(0).int().numpy(), lab))
+                worst = max(worst, abs(card - cpu) / abs(cpu))
+        print(f"[tools bootstrap] the card's paths under the CPU's log-prior vs the CPU's best "
+              f"paths: {worst:.3e} relative (tol 1e-5); {flipped} of {written} rows take another "
+              f"path on the CPU; phase part {time.perf_counter() - t0:.1f} s; {smi}")
+        check(worst <= 1e-5, f"[tools bootstrap] path scores differ by {worst:.3e}")
+        del params, bert_fns
+
+    # (e) the English G2P
+    t0 = time.perf_counter()
+    rows = list(R.synthetic_lexicon(G2P_WORDS, TOOLS_SEED + 7).items())
+    phones = neural_g2p.phone_vocab()
+    zeroed(all_kernels)
+    losses, params = [], None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _, params, epoch_losses in train_g2p.train(
+            rows, phones, epochs=G2P_EPOCHS, batch=G2P_BATCH, lr=2e-3, device=dev,
+            generator=torch.Generator().manual_seed(TOOLS_SEED)):
+        losses += epoch_losses
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / len(losses)
+    gen = torch.Generator().manual_seed(TOOLS_SEED)
+    init = neural_g2p.init_params(gen, n_phones=len(phones))
+    idx = torch.randperm(len(rows), generator=gen)[:G2P_BATCH].numpy()
+    wid, pin, tgt = (torch.from_numpy(a[idx]) for a in train_g2p.pack(rows, phones))
+    with torch.no_grad():
+        cpu0 = float(train_g2p.loss_fn(init, wid, pin, tgt))
+    first, last = losses[0], float(np.mean(losses[-16:]))
+    print(f"[tools g2p] train at emb 128, encoder 128, decoder 256, batch {G2P_BATCH}: "
+          f"{len(losses)} steps on {G2P_WORDS} words, {ms:.3f} ms a step (CUDA events, with "
+          f"the host's epoch loop); loss {first:.4f} -> {last:.4f} (the last epoch's mean; must "
+          f"halve); step 0 card {first:.6f} vs CPU {cpu0:.6f} ({abs(first - cpu0) / cpu0:.2e} "
+          f"relative, tol 1e-4); launches {launches_now(all_kernels)}; {smi}")
+    check(last <= 0.5 * first, f"[tools g2p] the loss fell {first} -> {last}, not by half")
+    check(abs(first - cpu0) <= 1e-4 * cpu0, f"[tools g2p] step 0 card {first} vs CPU {cpu0}")
+    with tempfile.TemporaryDirectory(prefix="g2p-") as d:
+        np.savez(os.path.join(d, "g2p.npz"), **neural_g2p.flatten_for_npz(params, phones))
+        g2p = neural_g2p.NeuralG2P(os.path.join(d, "g2p.npz"))
+        words = [w for w, _ in rows[:200]]
+        hits = sum(g2p.predict(w) == list(ph) for w, ph in rows[:200])
+        check(all(p in phones for w in words for p in g2p.predict(w)),
+              "[tools g2p] the artifact predicts phones outside the alphabet")
+    print(f"[tools g2p] the exported artifact loads in NeuralG2P: {hits} of 200 training words "
+          f"exact; {time.perf_counter() - t0:.1f} s")
+    print(f"[tools] phase wall {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the card",
@@ -3920,6 +4321,10 @@ def main() -> int:
     dist_launches = dist_phase(kernels, smi)
     torch.cuda.empty_cache()
 
+    # 20. the checkpoint converters and the data tools
+    tools_launches = tools_phase(kernels, smi)
+    torch.cuda.empty_cache()
+
     # the record: each kernel's largest batched shape, launches from its main path
     replaces = {"banded_attention": "vosk_tts_tpu/ops/flash_attention.py:56",
                 "ddsconv": "vosk_tts_tpu/ops/ddsconv_fused.py:63",
@@ -3939,6 +4344,9 @@ def main() -> int:
                "train_variants_serve_launches": variant_serve[name],
                "eval_launches": eval_launches[name],
                "dist_synth_launches": dist_launches.get(name, 0),
+               "tools_demo_launches": tools_launches["demo"][name],
+               "tools_convert_launches": tools_launches["convert"][name],
+               "tools_durations_launches": tools_launches["durations"][name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
@@ -3958,6 +4366,7 @@ def main() -> int:
                    "replaces": "vosk_tts_tpu/ops/mas.py:24", "launches": train_launches,
                    "train_variants_launches": variant_mas, "train_slm_launches": slm_mas,
                    "dist_launches": dist_launches["mas"],
+                   "tools_durations_launches": tools_launches["durations"]["mas"],
                    "max_abs_err": max(c["max_abs_err"] for c in mas_cases),
                    **{key: mas_cases[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
                    "library_ms": None, "shape": mas_cases[0]["shape"], "path": "train",

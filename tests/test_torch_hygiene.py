@@ -148,3 +148,62 @@ def test_wrapper_takes_plain_only_for_cpu(wrapper, plain):
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     assert any(isinstance(n, ast.AugAssign) and getattr(n.target, "attr", None) == "launches"
                for n in ast.walk(fn))
+
+
+_IMPORT_TOOLS = textwrap.dedent("""
+    import importlib, sys
+    for name in ("utils.torch_params", "models.hubert", "models.vocoder", "models.bigvgan",
+                 "models.gpt_sovits", "text.neural_g2p", "tools.convert_checkpoint",
+                 "tools.convert_hubert", "tools.make_demo_bundle", "tools.vc_encode_dataset",
+                 "tools.gpt_sovits_prepare", "tools.stabletts_bootstrap", "tools.train_g2p",
+                 "tools.lts_error_analysis"):
+        importlib.import_module("vosk_tts_tpu_torch." + name)
+    print(sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "jaxlib", "vosk_tts_tpu", "transformers", "safetensors")))
+""")
+
+
+def test_converters_and_tools_import_no_jax_transformers_or_safetensors():
+    """The state-dict readers and the converter and data tools in a fresh
+    process: neither JAX nor ``transformers`` nor ``safetensors`` (the card's
+    machine has neither of the last two; the port reads safetensors itself)."""
+    r = subprocess.run([sys.executable, "-c", _IMPORT_TOOLS], capture_output=True, text=True,
+                       cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+def test_port_sources_name_no_transformers_or_safetensors():
+    """No source of the port, and not chip_smoke.py, imports ``transformers``
+    or ``safetensors`` (also inside a function)."""
+    files = sorted((ROOT / "vosk_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in ("transformers", "safetensors"), (path, n)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("vc_encode_dataset", ["hubert", "wavs"]),
+    ("gpt_sovits_prepare", ["hubert", "sovits.npz", "wavs", "out.tsv"]),
+    ("stabletts_bootstrap", ["stats", "-c", "config.json"]),
+    ("stabletts_bootstrap", ["durations", "-c", "config.json", "-m", "model"]),
+    ("train_g2p", ["--dict-dir", "dict"]),
+])
+def test_tools_default_to_the_card(tool, argv, tmp_path):
+    """A tool that runs a model resolves its device first: without
+    ``--device`` it asks for the card, and raises without one."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    main = importlib.import_module(f"vosk_tts_tpu_torch.tools.{tool}").main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(tmp_path / a) if "." in a or a in ("hubert", "wavs", "model", "dict") else a
+              for a in argv])

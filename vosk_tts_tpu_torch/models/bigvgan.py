@@ -137,3 +137,29 @@ def bigvgan_apply(params, cfg: BigVGANConfig, mel: torch.Tensor) -> torch.Tensor
     x = conv1d(x, params["conv_post"]["w"], params["conv_post"].get("b"), padding=3)
     x = torch.tanh(x) if cfg.use_tanh_at_final else torch.clamp(x, -1.0, 1.0)
     return x[..., 0]
+
+
+def bigvgan_from_state_dict(sd: dict, cfg: BigVGANConfig) -> dict:
+    """Official BigVGAN checkpoint (weight norm folded) -> the bundle-layout
+    tree (vosk_tts_tpu/models/bigvgan.py:195)."""
+    from ..utils.torch_params import _np, conv, convT, fold_weight_norm
+
+    sd = fold_weight_norm(sd)
+    n_res = len(cfg.resblock_kernel_sizes)
+    snake = lambda p: {"alpha": _np(sd[p + ".alpha"]),
+                       **({"beta": _np(sd[p + ".beta"])} if cfg.activation == "snakebeta" else {})}
+    p = {"conv_pre": conv(sd, "conv_pre"), "ups": [], "resblocks": []}
+    for i in range(len(cfg.upsample_rates)):
+        p["ups"].append(convT(sd, f"ups.{i}.0"))
+        for j in range(n_res):
+            r = f"resblocks.{i * n_res + j}"
+            n_d = len(cfg.resblock_dilation_sizes[j])
+            p["resblocks"].append({
+                "convs1": [conv(sd, f"{r}.convs1.{d}") for d in range(n_d)],
+                "convs2": [conv(sd, f"{r}.convs2.{d}") for d in range(n_d)],
+                "acts1": [snake(f"{r}.activations.{2 * d}.act") for d in range(n_d)],
+                "acts2": [snake(f"{r}.activations.{2 * d + 1}.act") for d in range(n_d)],
+            })
+    p["act_post"] = snake("activation_post.act")
+    p["conv_post"] = conv(sd, "conv_post")
+    return p

@@ -633,3 +633,34 @@ def sovits_forward_train(params, cfg: SoVITSConfig, ssl, spec, spec_lengths, tex
     o, _ = vits2.generator_apply(params["dec"], v, z_slice, g)
     return {"wav": o, "commit_loss": commit_loss, "ids_slice": ids, "y_mask": y_mask, "z": z,
             "z_p": z_p, "m_p": m_p, "logs_p": logs_p, "m_q": m_q, "logs_q": logs_q}
+
+
+def ar_from_state_dict(sd: dict, cfg: ARConfig) -> dict:
+    """Reference Text2SemanticDecoder state dict (``model.*`` prefixes
+    stripped) -> the bundle-layout AR tree (vosk_tts_tpu/models/
+    gpt_sovits.py:826); ``utils/params.to_port_layout`` gives the port's."""
+    from ..utils.torch_params import _np, linear
+
+    p = {
+        "text_emb": _np(sd["ar_text_embedding.word_embeddings.weight"]),
+        "audio_emb": _np(sd["ar_audio_embedding.word_embeddings.weight"]),
+        "bert_proj": linear(sd, "bert_proj"),
+        "text_alpha": _np(sd["ar_text_position.alpha"]).reshape(()),
+        "audio_alpha": _np(sd["ar_audio_position.alpha"]).reshape(()),
+        "predict": {"w": _np(sd["ar_predict_layer.weight"]).T},
+        "layers": [],
+    }
+    i = 0
+    while f"h.layers.{i}.self_attn.in_proj_weight" in sd:
+        b = f"h.layers.{i}"
+        p["layers"].append({
+            "qkv": {"w": _np(sd[f"{b}.self_attn.in_proj_weight"]).T,
+                    "b": _np(sd[f"{b}.self_attn.in_proj_bias"])},
+            "out": linear(sd, f"{b}.self_attn.out_proj"),
+            "ln1": {"gamma": _np(sd[f"{b}.norm1.weight"]), "beta": _np(sd[f"{b}.norm1.bias"])},
+            "ff1": linear(sd, f"{b}.linear1"),
+            "ff2": linear(sd, f"{b}.linear2"),
+            "ln2": {"gamma": _np(sd[f"{b}.norm2.weight"]), "beta": _np(sd[f"{b}.norm2.bias"])},
+        })
+        i += 1
+    return p

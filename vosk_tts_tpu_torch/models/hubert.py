@@ -37,6 +37,28 @@ class HubertConfig:
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
 
+    @classmethod
+    def from_hf(cls, d: dict) -> "HubertConfig":
+        """An HF ``HubertConfig`` dict (a ``config.json``) -> the config.
+        Refuses the layouts :func:`hubert_apply` does not compute (layer
+        norm in every feature conv, pre-LN "stable" layer norm); the JAX
+        package reads them and computes the base layout regardless."""
+        if d.get("feat_extract_norm", "group") != "group" or d.get("do_stable_layer_norm", False):
+            raise ValueError("only the base HuBERT layout is ported (feat_extract_norm 'group', "
+                             "do_stable_layer_norm false)")
+        return cls(
+            conv_dim=tuple(d["conv_dim"]),
+            conv_kernel=tuple(d["conv_kernel"]),
+            conv_stride=tuple(d["conv_stride"]),
+            hidden_size=d["hidden_size"],
+            num_hidden_layers=d["num_hidden_layers"],
+            num_attention_heads=d["num_attention_heads"],
+            intermediate_size=d["intermediate_size"],
+            num_conv_pos_embeddings=d.get("num_conv_pos_embeddings", 128),
+            num_conv_pos_embedding_groups=d.get("num_conv_pos_embedding_groups", 16),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+        )
+
     def n_frames(self, n_samples: int) -> int:
         """Output frames for ``n_samples`` input samples (the strided convs,
         no padding): 499 for 10 s at 16 kHz with the base extractor."""
@@ -110,3 +132,60 @@ class Hubert(TreeModule):
 
     def forward(self, wav):
         return hubert_apply(self.params, self.cfg, wav)
+
+
+def hubert_from_state_dict(sd: dict, cfg: HubertConfig) -> dict:
+    """HF ``HubertModel`` state dict (numpy arrays) -> the bundle-layout tree
+    (vosk_tts_tpu/models/hubert.py:156), for ``utils/params.to_port_layout``.
+    The positional conv's weight comes folded, or as
+    ``parametrizations.weight.original0``/``original1`` or
+    ``weight_g``/``weight_v``; both pairs fold over the axes where g has
+    size 1 (HF's weight norm is over dim 2: the output and input channels;
+    the JAX package folds ``weight_g``/``weight_v`` over dim 0 instead)."""
+    from ..utils.torch_params import _np, fold_weight_norm, linear
+
+    sd = fold_weight_norm(sd)
+    conv_layers = []
+    for i in range(len(cfg.conv_kernel)):
+        base = f"feature_extractor.conv_layers.{i}"
+        c = {"w": _np(sd[f"{base}.conv.weight"]).transpose(2, 1, 0)}
+        if f"{base}.conv.bias" in sd:
+            c["b"] = _np(sd[f"{base}.conv.bias"])
+        if i == 0 and f"{base}.layer_norm.weight" in sd:
+            c["gn_gamma"] = _np(sd[f"{base}.layer_norm.weight"])
+            c["gn_beta"] = _np(sd[f"{base}.layer_norm.bias"])
+        conv_layers.append(c)
+    ln = lambda p: {"gamma": _np(sd[p + ".weight"]), "beta": _np(sd[p + ".bias"])}
+    return {
+        "conv_layers": conv_layers,
+        "fp_ln": ln("feature_projection.layer_norm"),
+        "fp": linear(sd, "feature_projection.projection"),
+        "pos_conv": {"w": _np(sd["encoder.pos_conv_embed.conv.weight"]).transpose(2, 1, 0),
+                     "b": _np(sd["encoder.pos_conv_embed.conv.bias"])},
+        "enc_ln": ln("encoder.layer_norm"),
+        "layers": [{
+            "q": linear(sd, f"encoder.layers.{i}.attention.q_proj"),
+            "k": linear(sd, f"encoder.layers.{i}.attention.k_proj"),
+            "v": linear(sd, f"encoder.layers.{i}.attention.v_proj"),
+            "attn_out": linear(sd, f"encoder.layers.{i}.attention.out_proj"),
+            "attn_ln": ln(f"encoder.layers.{i}.layer_norm"),
+            "ffn_in": linear(sd, f"encoder.layers.{i}.feed_forward.intermediate_dense"),
+            "ffn_out": linear(sd, f"encoder.layers.{i}.feed_forward.output_dense"),
+            "ffn_ln": ln(f"encoder.layers.{i}.final_layer_norm"),
+        } for i in range(cfg.num_hidden_layers)],
+    }
+
+
+def load_bundle(path, device) -> Hubert:
+    """A HuBERT bundle directory (``tools/convert_hubert``'s: the HF
+    ``config.json``, ``params.npz`` in the bundle layout) as a module on
+    ``device``."""
+    import json
+    import os
+
+    from ..utils.checkpoint import load_params
+    from ..utils.params import to_port_layout
+
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        cfg = HubertConfig.from_hf(json.load(f))
+    return Hubert(cfg, to_port_layout(load_params(os.path.join(path, "params.npz")))).to(device)

@@ -94,3 +94,30 @@ def vocos_apply(params, cfg: VocosConfig, mel: torch.Tensor) -> torch.Tensor:
     mag = torch.exp(torch.clamp(h[..., :half], max=1e2))
     wav = istft(mag, h[..., half:], cfg.n_fft, cfg.hop_length, cfg.n_fft)
     return torch.clamp(wav, -1.0, 1.0)
+
+
+def vocos_from_state_dict(sd: dict, cfg: VocosConfig) -> dict:
+    """Official Vocos checkpoint (``backbone.*``, ``head.*``) -> the
+    bundle-layout tree (vosk_tts_tpu/models/vocoder.py:139)."""
+    from ..utils.torch_params import _np, conv, linear
+
+    p = {
+        "embed": conv(sd, "backbone.embed"),
+        "norm": {"gamma": _np(sd["backbone.norm.weight"]), "beta": _np(sd["backbone.norm.bias"])},
+        "blocks": [],
+        "final_norm": {"gamma": _np(sd["backbone.final_layer_norm.weight"]),
+                       "beta": _np(sd["backbone.final_layer_norm.bias"])},
+        "head": linear(sd, "head.out"),
+    }
+    i = 0
+    while f"backbone.convnext.{i}.dwconv.weight" in sd:
+        b = f"backbone.convnext.{i}"
+        p["blocks"].append({
+            "dwconv": conv(sd, b + ".dwconv"),
+            "norm": {"gamma": _np(sd[b + ".norm.weight"]), "beta": _np(sd[b + ".norm.bias"])},
+            "pw1": linear(sd, b + ".pwconv1"),
+            "pw2": linear(sd, b + ".pwconv2"),
+            "gamma": _np(sd[b + ".gamma"]),
+        })
+        i += 1
+    return p

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import constant
 from ..ops.norm import layer_norm
+from ..utils.torch_params import _np, fold_weight_norm, linear
 from .hubert import encoder_input
 from .tree import TreeModule
 
@@ -140,34 +141,6 @@ def stacked_hidden_states(hidden_states) -> torch.Tensor:
     return torch.cat(list(hidden_states), dim=-1)
 
 
-# the few converters of vosk_tts_tpu/utils/torch_params.py this reader needs
-
-
-def fold_weight_norm(sd: dict) -> dict:
-    """Replace ``*.weight_g``/``*.weight_v`` pairs by the effective weight
-    g * v / ||v||, the norm over the axes where g has size 1: every axis but
-    the output channels for torch's ``weight_norm(dim=0)``, the output and
-    input channels for the positional conv's ``dim=2``."""
-    out = dict(sd)
-    for k in list(sd):
-        if k.endswith(".weight_v"):
-            base = k[: -len(".weight_v")]
-            v = np.asarray(sd[k], dtype=np.float32)
-            g = np.asarray(sd[base + ".weight_g"], dtype=np.float32)  # keepdims, as torch keeps it
-            axes = tuple(i for i in range(v.ndim) if g.shape[i] == 1)
-            out[base + ".weight"] = g * v / np.sqrt((v**2).sum(axis=axes, keepdims=True))
-            del out[k], out[base + ".weight_g"]
-    return out
-
-
-def _np(x):
-    return np.asarray(x, dtype=np.float32)
-
-
-def linear(sd, p):
-    return {"w": _np(sd[p + ".weight"]).T, "b": _np(sd[p + ".bias"])}
-
-
 def wavlm_from_state_dict(sd: dict, cfg: WavLMConfig) -> dict:
     """HF ``WavLMModel`` state dict (numpy arrays) -> the bundle-layout tree
     (the JAX package's), for ``utils/params.to_port_layout``. The positional
@@ -187,10 +160,6 @@ def wavlm_from_state_dict(sd: dict, cfg: WavLMConfig) -> dict:
             c["gn_beta"] = _np(sd[f"{base}.layer_norm.bias"])
         conv_layers.append(c)
     pw_key = "encoder.pos_conv_embed.conv.weight"
-    if pw_key not in sd and "encoder.pos_conv_embed.conv.parametrizations.weight.original0" in sd:
-        g = _np(sd["encoder.pos_conv_embed.conv.parametrizations.weight.original0"])
-        v = _np(sd["encoder.pos_conv_embed.conv.parametrizations.weight.original1"])
-        sd[pw_key] = g * v / np.sqrt((v**2).sum(axis=(0, 1), keepdims=True))
     p = {
         "conv_layers": conv_layers,
         "fp_ln": {"gamma": _np(sd["feature_projection.layer_norm.weight"]),
