@@ -7,7 +7,9 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line is printed):
 
 1. device: requires CUDA (no CPU run), prints the card's name and power
-   limit, turns TF32 off for matmuls and cuDNN convolutions (f32 parity);
+   limit, turns TF32 off for matmuls and cuDNN convolutions
+   (``utils/precision.full_float32``, which every entry point of the port
+   calls: f32 parity);
 2. build: compiles every CUDA kernel of the serving and training paths
    from vosk_tts_tpu_torch/csrc/ with nvcc for sm_90a, one nvcc per
    source, all started together;
@@ -29,6 +31,27 @@ result line is printed):
    over 16 SMs or more; kernel 5 (global attention over separate q, k, v)
    also at the windowless flow attention's shapes (C 96 = 2 heads x 48, B16
    T2048 and B1 T397 with valid lengths below T);
+   3b. bf16 (``[bf16]``): the bf16 entry point of each of the five
+   kernels (``*_bf16`` symbols: one bf16 ``mma.sync`` m16n8k16 a fragment
+   in the attention kernels, bf16 ``wgmma`` m64n32k16 in DDSConv; the
+   ``[build]`` line counts the BF16 HMMA/HGMMA in the bf16 functions,
+   which must not be 0) against its plain bf16 version within BF16_TOL
+   x max |out| at the f32 cases' batched shape, a B1/B2 shape and a ragged
+   T=37, timed beside it, its bound (BF16_BOUND_FORMULA: 989 TFLOP/s, the
+   dense bf16 tensor-core peak) and, for kernels 3-5, SDPA in bf16 with a
+   boolean key mask; then bench.py's VITS2 workload (B16 at text buckets
+   64/128/256 with 56/120/250 real tokens) at VITS2Config() from a bf16
+   tree (``to_torch(..., dtype=torch.bfloat16)``) and from the f32 one
+   through encode_for_infer and decode_from_durations, noise 0: every
+   row's frames within max(2, 6%) of f32's, a bf16 waveform of the f32
+   lengths on the f32 durations with SNR > 12 dB every row, exactly 6 + 4
+   launches of the bf16 banded attention and 4 of the bf16 DDSConv a batch
+   and none of another kernel, bf16 and f32 ms a bucket (CUDA events) and
+   the peak memory; the same at a ``pre_conv`` VITS2Config() (kernel 5's
+   bf16 path: 8 launches a decode; each batch's frames within 6%) and a
+   StableTTSConfig() B2 synthesis from a bf16 tree (68 launches of kernel
+   3's bf16 wrapper). Every launch check of the phases below also holds
+   the bf16 wrappers at 0;
 4. VITS2 main path: a full-width MB-iSTFT-VITS2 bundle (VITS2Config(),
    random weights from a seed, zero-initialised projections perturbed)
    answers 3 requests through Model/Synth.synth_audio and one synth_batch of
@@ -283,8 +306,9 @@ result line is printed):
    halves, step 0 within 1e-4 of the CPU's, the exported artifact loads
    in ``NeuralG2P`` and predicts. Each phase prints its wall time.
 
-The lines before the last: the kernels' JSON record, then the
-``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
+The lines before the last: the kernels' JSON record (the five f32
+wrappers, kernel 1 at the clone shapes, the five bf16 wrappers, MAS),
+then the ``nvidia-smi --query-gpu=name,power.limit`` line. The last line:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -341,6 +365,7 @@ from vosk_tts_tpu_torch.train.driver_common import resume_state, to_device  # no
 from vosk_tts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from vosk_tts_tpu_torch.utils import cuda_build, profiling  # noqa: E402
 from vosk_tts_tpu_torch.utils.checkpoint import load_params, save_params  # noqa: E402
+from vosk_tts_tpu_torch.utils.precision import full_float32  # noqa: E402
 from vosk_tts_tpu_torch.utils.torch_params import read_state_dict  # noqa: E402
 from vosk_tts_tpu_torch.models.tree import TreeModule  # noqa: E402
 from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  # noqa: E402
@@ -355,6 +380,10 @@ from vosk_tts_tpu_torch.utils.params import (ar_init, bert_init, bigvgan_init,  
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 BOUND_FORMULA = "max(operations / (495e12/3 FLOP/s, 3xTF32), bytes / 3.35e12 B/s)"
+# the bf16 kernels: one bf16 product a fragment on the dense bf16 tensor cores
+PEAK_BF16_FLOPS = 989e12
+BF16_BOUND_FORMULA = "max(operations / (989e12 FLOP/s, bf16), bytes / 3.35e12 B/s)"
+BF16 = torch.bfloat16
 SEED = 0
 
 TEXTS = [
@@ -425,14 +454,26 @@ def graph_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    """The least time in ms for ``flops`` f32-accurate operations and
-    ``nbytes`` moved, and which of the two bounds it (BOUND_FORMULA)."""
-    t_ops, t_bytes = flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, dtype=torch.float32):
+    """The least time in ms for ``flops`` operations (f32-accurate, or bf16
+    products) and ``nbytes`` moved, and which of the two bounds it
+    (BOUND_FORMULA, BF16_BOUND_FORMULA)."""
+    peak = PEAK_BF16_FLOPS if dtype == BF16 else PEAK_3XTF32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_case(b, t, lengths, iters, plain_iters, seed):
+def errors(got, want, dtype):
+    """max |got - want| and, for bf16, that over max |want| (the bf16
+    cases' tolerance is relative: a few bf16 ulps of the output's peak)."""
+    err = float((got.float() - want.float()).abs().max())
+    out = {"max_abs_err": err}
+    if dtype == BF16:
+        out["rel_err"] = err / float(want.float().abs().max())
+    return out
+
+
+def attention_case(b, t, lengths, iters, plain_iters, seed, dtype=torch.float32):
     h, d, w = 2, 96, 4
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -441,24 +482,24 @@ def attention_case(b, t, lengths, iters, plain_iters, seed):
     rel_k, rel_v = (torch.randn(1, 2 * w + 1, d, generator=g, device=dev) * d**-0.5
                     for _ in range(2))
     kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    args = (q, k, v, rel_k, rel_v, kv_len)
+    args = tuple(a.to(dtype) for a in (q, k, v, rel_k, rel_v)) + (kv_len,)
     got = fa.banded_flash_attention(*args, window=w)
     want = fa.banded_attention_plain(*args, window=w)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    out = {"shape": f"B{b} H{h} T{t} D{d}", "max_abs_err": err}
+    check(got.dtype == dtype, f"banded attention returned {got.dtype} for {dtype}")
+    out = {"shape": f"B{b} H{h} T{t} D{d}", "dtype": str(dtype)[6:], **errors(got, want, dtype)}
     if iters:
         out["ms"] = cuda_ms(lambda: fa.banded_flash_attention(*args, window=w), iters)
         out["plain_ms"] = cuda_ms(lambda: fa.banded_attention_plain(*args, window=w),
                                   plain_iters)
         valid_keys = sum(lengths)  # masked keys contribute exactly 0: not needed work
         flops = 4 * h * d * t * valid_keys + 4 * b * h * t * (2 * w + 1) * d
-        nbytes = 4 * (4 * b * h * t * d + 2 * (2 * w + 1) * d + b)
-        out["bound_ms"], out["bound_by"] = bound(flops, nbytes)
+        nbytes = args[0].element_size() * (4 * b * h * t * d + 2 * (2 * w + 1) * d) + 4 * b
+        out["bound_ms"], out["bound_by"] = bound(flops, nbytes, dtype)
     return out
 
 
-def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
+def ddsconv_case(b, t, lengths, iters, plain_iters, seed, dtype=torch.float32):
     """The DDSConv kernel at one shape against its plain version, with the
     launch geometry its plan gives; timed (``iters`` calls in a CUDA graph,
     graph_ms) beside the plain version."""
@@ -470,14 +511,17 @@ def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
               "pw_w": rnd(n_layers, c, c, scale=c**-0.5), "pw_b": rnd(n_layers, c, scale=0.1),
               "norm1_g": 1 + rnd(n_layers, c, scale=0.1), "norm1_b": rnd(n_layers, c, scale=0.1),
               "norm2_g": 1 + rnd(n_layers, c, scale=0.1), "norm2_b": rnd(n_layers, c, scale=0.1)}
-    x = rnd(b, t, c)
+    x = rnd(b, t, c).to(dtype)
+    params = {n: a.to(dtype) for n, a in params.items()}
     mask = (torch.arange(t, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None])
-    mask = mask.to(torch.float32)[..., None]
+    mask = mask.to(dtype)[..., None]
     got = ddf.ddsconv_fused(x, mask, params)
     want = ddf.ddsconv_plain(x, mask, params)
     torch.cuda.synchronize()
-    out = {"shape": f"B{b} T{t} C{c} L{n_layers}", "max_abs_err": float((got - want).abs().max())}
-    plan = ddf.kernel_plan(b, t, c, n_layers, k)
+    check(got.dtype == dtype, f"ddsconv returned {got.dtype} for {dtype}")
+    out = {"shape": f"B{b} T{t} C{c} L{n_layers}", "dtype": str(dtype)[6:],
+           **errors(got, want, dtype)}
+    plan = ddf.kernel_plan(b, t, c, n_layers, k, dtype)
     clusters = plan["grid"][0] * plan["grid"][1] // plan["cluster"]
     out |= {"grid": list(plan["grid"]), "cluster": plan["cluster"],
             "ctas": plan["grid"][0] * plan["grid"][1], "row_tile": plan["row_tile"],
@@ -491,12 +535,12 @@ def ddsconv_case(b, t, lengths, iters, plain_iters, seed):
         out["plain_ms"] = graph_ms(lambda: ddf.ddsconv_plain(x, mask, params), plain_iters)
         rows = sum(lengths)  # masked rows are zero in the output: not needed work
         flops = 2 * rows * c * c * n_layers + rows * c * n_layers * (2 * k + 20)
-        nbytes = 4 * (2 * b * t * c + b * t + n_layers * (c * c + c * k + 6 * c))
-        out["bound_ms"], out["bound_by"] = bound(flops, nbytes)
+        nbytes = x.element_size() * (2 * b * t * c + b * t + n_layers * (c * c + c * k + 6 * c))
+        out["bound_ms"], out["bound_by"] = bound(flops, nbytes, dtype)
     return out
 
 
-def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
+def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=torch.float32):
     """The global attention kernel in one of its forms ("rope": the DiT's
     fused projection with RoPE on d_rope = (d//2)//2*2 features; "packed";
     "separate") against its plain version, timed beside it and beside
@@ -508,7 +552,7 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
     c, sm = h * d, d**-0.5
     d_rope = stabletts.d_rope_of(d) if form == "rope" else 0
     kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    qkv = torch.randn(b, t, 3 * c, generator=g, device=dev)
+    qkv = torch.randn(b, t, 3 * c, generator=g, device=dev).to(dtype)
     q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
     if form == "separate":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -522,22 +566,23 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
                                               d_rope=d_rope)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    out = {"shape": f"B{b} H{h} T{t} D{d} d_rope{d_rope}",
-           "max_abs_err": float((got - want).abs().max())}
+    check(got.dtype == dtype, f"global attention returned {got.dtype} for {dtype}")
+    out = {"shape": f"B{b} H{h} T{t} D{d} d_rope{d_rope}", "dtype": str(dtype)[6:],
+           **errors(got, want, dtype)}
     if iters:
         out["ms"] = cuda_ms(run, iters)
         out["plain_ms"] = cuda_ms(plain, plain_iters)
         flops = 4 * h * d * t * sum(lengths)  # keys past kv_len add exactly 0: not needed work
-        out["bound_ms"], out["bound_by"] = bound(flops, 4 * (4 * b * t * c))
+        out["bound_ms"], out["bound_by"] = bound(flops, qkv.element_size() * (4 * b * t * c), dtype)
         heads = lambda a: a.reshape(b, t, h, d).transpose(1, 2).contiguous()
         lq, lk, lv = heads(q), heads(k), heads(v)
         if d_rope:
             cos, sin = fa.rope_tables(t, d_rope, dev)
-            lq, lk = fa.apply_rope(lq, cos, sin), fa.apply_rope(lk, cos, sin)
+            lq, lk = (fa.apply_rope(a, cos, sin).to(dtype) for a in (lq, lk))
         mask = (torch.arange(t, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
         lib = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=sm)
         lib_out = lib().transpose(1, 2).reshape(b, t, c)
-        out["library_err"] = float((lib_out - want).abs().max())
+        out["library_err"] = float((lib_out.float() - want.float()).abs().max())
         out["library_ms"] = cuda_ms(lib, iters)
         del lib_out
     return out
@@ -545,13 +590,21 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4):
 
 def tensor_core_instructions(library):
     """Counts of HMMA and HGMMA instructions in a built library's SASS
-    (cuobjdump), or None where the toolkit has no cuobjdump."""
+    (cuobjdump), in all its functions and, as "bf16", in the bf16
+    instantiations (function names with bf16 or bfloat16) those whose
+    operands are BF16; None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    return {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
+    counts = {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
+    # SASS lists each function under "Function : <mangled name>"
+    bf16_sass = "".join(part for part in re.split(r"\n\s*Function : ", sass)[1:]
+                        if re.match(r"\S*(bf16|bfloat16)", part))
+    counts["bf16"] = {name: len(re.findall(rf"\b{name}\.\S*BF16", bf16_sass))
+                      for name in ("HMMA", "HGMMA")}
+    return counts
 
 
 def write_bundle(path, cfg, tree):
@@ -1207,6 +1260,217 @@ def per_synthesis_call(cfg):
     return {"banded_attention": cfg.n_layers + (cfg.n_flows if ftype == "pre_conv2" else 0),
             "ddsconv": 4 if cfg.use_sdp else 0,
             "global_attention": 2 * cfg.n_flows if windowless else 0}
+
+
+BF16_TOL = 2e-2  # bf16 kernel vs its plain bf16 version: max |diff| / max |out|, ~5 bf16 ulps
+# bench.py's VITS2 workload (WORKLOAD, BATCH): (text bucket, real tokens) at B16
+BF16_WORKLOAD = ((64, 56), (128, 120), (256, 250))
+BF16_BATCH = 16
+
+
+def snr_db(ref, got):
+    ref, got = ref.double(), got.double()
+    err = float(((ref - got) ** 2).sum())
+    return float("inf") if err == 0 else 10.0 * np.log10(float((ref ** 2).sum()) / err)
+
+
+def bf16_kernel_cases():
+    """Each bf16 kernel against its plain bf16 version on the card: the f32
+    cases' batched shape, a B1 or B2 shape, and a ragged T=37."""
+    return {
+        "banded_attention_bf16": [
+            attention_case(16, 256, [256 - 9 * i for i in range(16)], 50, 20, 41, dtype=BF16),
+            attention_case(1, 512, [437], 50, 20, 42, dtype=BF16),
+            attention_case(1, 37, [37], 0, 0, 43, dtype=BF16)],
+        "ddsconv_bf16": [
+            ddsconv_case(16, 256, [256 - 13 * i for i in range(16)], 50, 20, 44, dtype=BF16),
+            ddsconv_case(1, 128, [120], 50, 20, 45, dtype=BF16),
+            ddsconv_case(1, 37, [30], 0, 0, 46, dtype=BF16)],
+        "global_attention_rope_bf16": [
+            global_case("rope", 16, 256, 64, [256 - 11 * i for i in range(16)], 50, 20, 47,
+                        dtype=BF16),
+            global_case("rope", 2, 512, 96, [437, 437], 50, 20, 48, dtype=BF16),
+            global_case("rope", 2, 37, 96, [37, 20], 0, 0, 49, dtype=BF16)],
+        "global_attention_packed_bf16": [
+            global_case("packed", 16, 1024, 96, [1024 - 41 * i for i in range(16)], 20, 5, 50,
+                        dtype=BF16),
+            global_case("packed", 1, 37, 96, [30], 0, 0, 51, dtype=BF16)],
+        "global_attention_bf16": [
+            global_case("separate", 16, 2048, 48, [2048 - 97 * i for i in range(16)], 10, 3, 52,
+                        h=2, dtype=BF16),
+            global_case("separate", 1, 397, 48, [355], 50, 20, 53, h=2, dtype=BF16)]}
+
+
+def vits2_bf16_inputs(rng, text_bucket, n_real, cfg, dev):
+    x = rng.integers(1, cfg.n_vocab, (BF16_BATCH, text_bucket))
+    x[:, n_real:] = 0
+    return (torch.as_tensor(x, device=dev),
+            torch.full((BF16_BATCH,), n_real, dtype=torch.int32, device=dev),
+            torch.arange(BF16_BATCH, device=dev) % cfg.n_speakers)
+
+
+def bf16_cast(enc):
+    """An f32 encode's outputs for a bf16 decode: the means and the mask in
+    bf16, the durations (f32 frame counts) as they are."""
+    return {k: v.to(BF16) if v.is_floating_point() and k != "w_ceil" else v
+            for k, v in enc.items()}
+
+
+def vits2_bf16_workload(tag, cfg, kernels, smi, per_encode, per_decode, seed, rows_gated=True,
+                        dev=torch.device("cuda")):
+    """bench.py's VITS2 workload through the serving functions from a bf16
+    tree and from the f32 one, noise scales 0: durations within max(2, 6%)
+    of f32's (tests/test_bf16_serving.py:83) every row (``rows_gated``),
+    else each batch's total within 6% and the rows outside the per-row
+    gate printed; a bf16 waveform of the f32 run's lengths on the f32
+    durations with SNR > 12 dB (:94) every row; launches a batch exactly
+    ``per_encode`` + ``per_decode`` of the bf16 kernels and nothing else.
+    Prints each bucket's bf16 and f32 ms (CUDA events) and the peak memory;
+    returns the launches."""
+    t0 = time.perf_counter()
+    tree = to_port_layout(perturb_zero_init(synthesizer_init(cfg, seed=seed), seed=seed + 1))
+    p32, p16 = to_torch(tree, dev), to_torch(tree, dev, BF16)
+    del tree
+    print(f"[{tag}] {cfg.transformer_flow_type} + {cfg.decoder_type} trees (f32, bf16) made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    total = {n: 0 for n in kernels}
+    torch.cuda.reset_peak_memory_stats()
+    for text_bucket, n_real in BF16_WORKLOAD:
+        x, xl, sid = vits2_bf16_inputs(rng, text_bucket, n_real, cfg, dev)
+        with torch.inference_mode():
+            enc = lambda p: vits2.encode_for_infer(p, cfg, x, xl, sid, noise_scale_w=0.0)
+            enc32 = enc(p32)
+            pred32 = enc32["pred_frames"].cpu()
+            fb = api.pick_frame_bucket(int(pred32.max()), text_bucket)
+            gen = api.pick_gen_frames(int(pred32.max()), fb)
+            dec = lambda p, e: vits2.decode_from_durations(p, cfg, e, sid, max_frames=fb,
+                                                           noise_scale=0.0, gen_frames=gen)
+            enc16_in = bf16_cast(enc32)
+            zeroed(kernels)
+            enc16 = enc(p16)
+            out16 = dec(p16, enc16_in)
+            torch.cuda.synchronize()
+            got = launches_now(kernels)
+            out32 = dec(p32, enc32)
+            want = {n: 0 for n in kernels} | {n: per_encode.get(n, 0) + per_decode.get(n, 0)
+                                              for n in set(per_encode) | set(per_decode)}
+            check(got == want, f"[{tag}] t{text_bucket}: launches {got} != {want}")
+            total = {n: total[n] + got[n] for n in kernels}
+            pred16 = enc16["pred_frames"].cpu()
+            outside = [(int(a), int(b)) for a, b in zip(pred16, pred32)
+                       if abs(int(a) - int(b)) > max(2, int(0.06 * int(b)))]
+            check(enc16["m_p"].dtype == BF16 and out16["wav"].dtype == BF16,
+                  f"[{tag}] t{text_bucket}: a bf16 run returned {enc16['m_p'].dtype}, "
+                  f"{out16['wav'].dtype}")
+            frames_ok = (not outside if rows_gated else
+                         abs(int(pred16.sum()) - int(pred32.sum())) <= 0.06 * int(pred32.sum()))
+            check(frames_ok, f"[{tag}] t{text_bucket}: bf16 frames {pred16.tolist()} vs f32 "
+                  f"{pred32.tolist()}")
+            check(torch.equal(out16["wav_lengths"], out32["wav_lengths"]),
+                  f"[{tag}] t{text_bucket}: lengths differ")
+            n = out32["wav_lengths"].tolist()
+            snr = [snr_db(out32["wav"][i, :n[i], 0], out16["wav"][i, :n[i], 0])
+                   for i in range(BF16_BATCH)]
+            check(all(np.isfinite(out16["wav"].float().cpu().numpy()).ravel()),
+                  f"[{tag}] t{text_bucket}: bf16 waveform not finite")
+            check(min(snr) > 12.0, f"[{tag}] t{text_bucket}: bf16 decode SNR {min(snr):.2f} dB "
+                  f"(gate 12)")
+            ms = {"enc16": cuda_ms(lambda: enc(p16), 3, 1),
+                  "dec16": cuda_ms(lambda: dec(p16, enc16_in), 3, 1),
+                  "enc32": cuda_ms(lambda: enc(p32), 3, 1),
+                  "dec32": cuda_ms(lambda: dec(p32, enc32), 3, 1)}
+        frames = int(pred32.clamp(max=fb).sum())
+        print(f"[{tag}] t{text_bucket} ({n_real} tokens) B{BF16_BATCH}: frame bucket {fb}, "
+              f"gen {gen}; frames bf16 {pred16.tolist()} f32 {pred32.tolist()} (rows outside "
+              f"max(2, 6%): {outside}); SNR on f32 "
+              f"durations min {min(snr):.2f} mean {np.mean(snr):.2f} dB; launches {got}; "
+              f"encode ms bf16 {ms['enc16']:.4f} f32 {ms['enc32']:.4f}, decode ms bf16 "
+              f"{ms['dec16']:.4f} f32 {ms['dec32']:.4f} ({frames * 256 / 22050:.2f} s audio); "
+              f"{smi}")
+    print(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (both trees)")
+    del p32, p16
+    torch.cuda.empty_cache()
+    return total
+
+
+def stabletts_bf16(tag, kernels, smi, cfg=None, dev=torch.device("cuda")):
+    """StableTTSConfig() from a bf16 tree, B2, 10 Euler steps, temperature
+    0, on the f32 run's durations: a bf16 mel, launches of kernel 3's bf16
+    wrapper exactly 2 x 4 + 10 x 6, nothing else (the gates are the `cuda`
+    test file's)."""
+    cfg = cfg or stabletts.StableTTSConfig()
+    tree = stabletts.port_layout(perturb_matcha_zero_init(matcha_init(cfg, seed=SEED),
+                                                          seed=SEED + 1))
+    p32, p16 = to_torch(tree, dev), to_torch(tree, dev, BF16)
+    del tree
+    rng = np.random.default_rng(SEED)
+    b, t = 2, 128
+    x = rng.integers(0, p32["text_encoder"]["punc_emb"].shape[0], (b, 5, t))
+    x[:, 0] = rng.integers(1, cfg.n_vocab, (b, t))
+    x = torch.as_tensor(x, device=dev)
+    xl = torch.tensor([t, 97], dtype=torch.int32, device=dev)
+    sid = torch.tensor([0, 3], device=dev)
+    bert = torch.randn(b, t, cfg.bert_dim, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    with torch.inference_mode():
+        enc32 = stabletts.encode_for_synth(p32, cfg, x, xl, sid, bert)
+        fb = api.pick_ms_frame_bucket(int(enc32["pred_frames"].max()), t)
+        zeroed(kernels)
+        enc16 = stabletts.encode_for_synth(p16, cfg, x, xl, sid, bert.to(BF16))
+        out16 = stabletts.decode_from_durations(p16, cfg, bf16_cast(enc32), sid, max_frames=fb,
+                                                n_timesteps=10, temperature=0.0)
+        torch.cuda.synchronize()
+        got = launches_now(kernels)
+        out32 = stabletts.decode_from_durations(p32, cfg, enc32, sid, max_frames=fb,
+                                                n_timesteps=10, temperature=0.0)
+    want = {n: 0 for n in kernels} | {"global_attention_rope_bf16":
+                                      2 * cfg.n_layers + 10 * cfg.dec_layers}
+    check(got == want, f"[{tag}] launches {got} != {want}")
+    nf = int(out32["mel_lengths"][0])
+    mel32, mel16 = out32["mel"][0, :nf].float(), out16["mel"][0, :nf].float()
+    rel = float((mel32 - mel16).abs().mean() / (mel32.std() + 1e-8))
+    check(out16["mel"].dtype == BF16 and torch.isfinite(mel16).all(), f"[{tag}] bad bf16 mel")
+    print(f"[{tag}] StableTTSConfig() B2 T{t}, 10 Euler steps, temperature 0, frame bucket {fb}: "
+          f"bf16 frames {enc16['pred_frames'].tolist()} vs f32 {enc32['pred_frames'].tolist()}; "
+          f"on f32 durations row 0 mel error {rel:.4f} (the cuda tests gate 0.12); launches {got}; "
+          f"{smi}")
+    return got
+
+
+def bf16_phase(kernels, smi):
+    """[bf16]: (a) each bf16 kernel against its plain bf16 version at the
+    main paths' shapes, timed beside it, its bound and, for the global
+    kernels, SDPA in bf16; (b) bench.py's VITS2 workload at VITS2Config()
+    from a bf16 tree (vits2_bf16_workload), then a pre_conv variant (kernel
+    5's path) and StableTTSConfig() (kernel 3's path). Returns (the cases,
+    the launches of each bf16 wrapper on its path, the launches of the
+    checks)."""
+    t0 = time.perf_counter()
+    bf = {n: k for n, k in kernels.items() if n.endswith("_bf16")}
+    zeroed(kernels)
+    cases = bf16_kernel_cases()
+    check_launches = launches_now(bf)
+    for name, shapes in cases.items():
+        for c in shapes:
+            print(f"[bf16] kernel {name} {json.dumps(c)} tol {BF16_TOL} x max|out|; {smi}")
+            check(np.isfinite(c["rel_err"]) and c["rel_err"] <= BF16_TOL,
+                  f"{name} at {c['shape']} disagrees with its plain version: {c['rel_err']}")
+    print(f"[bf16] kernel checks in {time.perf_counter() - t0:.1f} s; launches {check_launches}")
+    main = vits2_bf16_workload("bf16", vits2.VITS2Config(), kernels, smi,
+                               {"banded_attention_bf16": 6, "ddsconv_bf16": 4},
+                               {"banded_attention_bf16": 4}, SEED)
+    # kernel 5's path; its encode is [bf16]'s above on another tree: the batch's
+    # frames are gated, its rows printed
+    pre_conv = vits2_bf16_workload("bf16 pre_conv",
+                                   vits2.VITS2Config(transformer_flow_type="pre_conv"), kernels,
+                                   smi, {"banded_attention_bf16": 6, "ddsconv_bf16": 4},
+                                   {"global_attention_bf16": 8}, SEED + 2, rows_gated=False)
+    ms = stabletts_bf16("bf16 stabletts", kernels, smi)
+    launches = {n: main[n] + pre_conv[n] + ms[n] for n in bf}
+    print(f"[bf16] launches on the bf16 paths: VITS2 {main}, pre_conv {pre_conv}, StableTTS {ms}")
+    print(f"[bf16] wall {time.perf_counter() - t0:.1f} s")
+    return cases, launches, check_launches
 
 
 def variants_phase(kernels):
@@ -3423,8 +3687,7 @@ def dist_rank(rank: int, root: str) -> int:
     from vosk_tts_tpu_torch.parallel import tp as ptp
     import datetime
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_float32()
     # two ranks on one card, as torchrun --nproc-per-node 2 names them:
     # initialize picks gloo, since NCCL refuses them
     os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2")
@@ -4089,16 +4352,21 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_float32()
     print(f"[device] {kind} x{count}; {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print("[device] TF32 off for matmul and cuDNN convolutions (f32 parity with the plain versions)")
+    print("[device] TF32 off for matmul and cuDNN convolutions (utils/precision.full_float32, "
+          "as every entry point of the port sets it)")
 
-    # 2. build
-    kernels = {"banded_attention": fa.KERNEL, "ddsconv": ddf.KERNEL,
-               "global_attention_rope": fa.GLOBAL_ROPE_KERNEL,
-               "global_attention_packed": fa.GLOBAL_PACKED_KERNEL,
-               "global_attention": fa.GLOBAL_KERNEL}
+    # 2. build; the f32 and the bf16 wrappers: every launch check below holds all ten
+    f32_kernels = {"banded_attention": fa.KERNEL, "ddsconv": ddf.KERNEL,
+                   "global_attention_rope": fa.GLOBAL_ROPE_KERNEL,
+                   "global_attention_packed": fa.GLOBAL_PACKED_KERNEL,
+                   "global_attention": fa.GLOBAL_KERNEL}
+    bf16_kernels = {"banded_attention_bf16": fa.KERNEL_BF16, "ddsconv_bf16": ddf.KERNEL_BF16,
+                    "global_attention_rope_bf16": fa.GLOBAL_ROPE_KERNEL_BF16,
+                    "global_attention_packed_bf16": fa.GLOBAL_PACKED_KERNEL_BF16,
+                    "global_attention_bf16": fa.GLOBAL_KERNEL_BF16}
+    kernels = {**f32_kernels, **bf16_kernels}
     t0 = time.perf_counter()
     cuda_build.build(list(kernels.values()) + [mas.KERNEL])
     print(f"[build] {len({k.source for k in kernels.values()}) + 1} sources for "
@@ -4115,8 +4383,11 @@ def main() -> int:
         if counts is None:
             print(f"[build] {source.name}: no cuobjdump; tensor-core instructions not counted")
             continue
-        print(f"[build] {source.name}: SASS tensor-core instructions {counts}")
+        print(f"[build] {source.name}: SASS tensor-core instructions {counts} (bf16: those with "
+              f"BF16 operands in the bf16 instantiations)")
         check(counts["HMMA"] + counts["HGMMA"] > 0, f"{source.name} has no tensor-core instruction")
+        check(counts["bf16"]["HMMA"] + counts["bf16"]["HGMMA"] > 0,
+              f"{source.name}'s bf16 symbols have no bf16 tensor-core instruction")
 
     # 3. kernels vs plain on the card
     att_tol, dds_tol = 1e-4, 1e-4
@@ -4164,6 +4435,10 @@ def main() -> int:
             print(f"[kernel] {name} {json.dumps(c)} tol {tol}")
             check(np.isfinite(c["max_abs_err"]) and c["max_abs_err"] <= tol,
                   f"{name} at {c['shape']} disagrees with its plain version: {c['max_abs_err']}")
+
+    # 3b. the bf16 kernels and bf16 serving (the JAX package's bench.py precision)
+    bf16_cases, bf16_launches, bf16_check_launches = bf16_phase(kernels, smi)
+    torch.cuda.empty_cache()
 
     # 4. the VITS2 main path at full width, then one request on the card and on the CPU
     cfg = vits2.VITS2Config()
@@ -4336,6 +4611,7 @@ def main() -> int:
     notes = {"global_attention_rope": "library_ms: SDPA on q, k rotated beforehand (rotation "
                                       "not in its time)"}
     record = [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
+               "dtype": "float32",
                "replaces": replaces[name], "launches": launches[name],
                "serve_launches": serve_launches[name], "vc_launches": vc_launches[name],
                "variants_launches": var_launches[name],
@@ -4352,7 +4628,26 @@ def main() -> int:
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
                "bound_formula": BOUND_FORMULA,
                **({"note": notes[name]} if name in notes else {})}
-              for name, k in kernels.items()]
+              for name, k in f32_kernels.items()]
+    # the bf16 wrappers: launches over the [bf16] phase's serving paths (kernel 4 has
+    # none, as in f32: check_launches are its check's), numbers at the batched shape
+    path = {"banded_attention_bf16": "VITS2Config() and pre_conv encode + decode, B16 x 3 buckets",
+            "ddsconv_bf16": "VITS2Config() and pre_conv encode, B16 x 3 buckets",
+            "global_attention_rope_bf16": "StableTTSConfig() encode + 10-step decode, B2",
+            "global_attention_packed_bf16": "none (as kernel 4 in f32)",
+            "global_attention_bf16": "pre_conv VITS2Config() decode, B16 x 3 buckets"}
+    record += [{"name": name, "route": "cuda", "source": os.path.relpath(k.source, ROOT),
+                "dtype": "bfloat16", "replaces": replaces[name[:-5]],
+                "launches": bf16_launches[name], "check_launches": bf16_check_launches[name],
+                "path": path[name],
+                "max_abs_err": max(c["max_abs_err"] for c in bf16_cases[name]),
+                "rel_err": max(c["rel_err"] for c in bf16_cases[name]),
+                **{key: bf16_cases[name][0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by")},
+                "library_ms": bf16_cases[name][0].get("library_ms"),
+                "shape": bf16_cases[name][0]["shape"], "bound_formula": BF16_BOUND_FORMULA,
+                **({"note": notes[name[:-5]]} if name[:-5] in notes else {})}
+               for name, k in bf16_kernels.items()]
     # kernel 1 at the clone shapes (the SSL encoders' 2 x 512 codes, a 128-phone text)
     record += [{"name": "banded_attention", "route": "cuda", "source": record[0]["source"],
                 "replaces": replaces["banded_attention"], "launches": clone_launches,

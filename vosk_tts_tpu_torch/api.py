@@ -47,6 +47,7 @@ from .models.tree import TreeModule
 from .text import WordPieceTokenizer, g2p_multistream, g2p_plain, load_dictionary
 from .utils.checkpoint import load_params
 from .utils.params import to_port_layout
+from .utils.precision import full_float32
 
 MULTISTREAM_TYPES = ("multistream_v1", "multistream_v2", "multistream_v3")
 
@@ -152,6 +153,7 @@ class Model:
     registry (registry.resolve)."""
 
     def __init__(self, model_path=None, model_name=None, lang=None, *, device=None):
+        full_float32()
         self.device = resolve_device(device)
         if model_path is None:
             model_path = self._find(model_name, lang)

@@ -7,6 +7,8 @@ import argparse
 import logging
 import sys
 
+from .utils.precision import full_float32
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="Synthesize input (PyTorch/CUDA vosk-tts)")
@@ -24,6 +26,7 @@ def build_parser():
 
 
 def main(argv=None):
+    full_float32()
     args = build_parser().parse_args(argv)
     logging.getLogger().setLevel(args.log_level.upper())
 

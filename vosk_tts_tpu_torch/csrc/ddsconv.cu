@@ -62,8 +62,23 @@
 // 512 threads a CTA (16 warps), one CTA an SM (184-221 KB of shared memory
 // at C 256, L 3, 16-96 rows). C % 32 == 0, C <= 256, odd K, any L whose
 // window fits; x at any 4-byte alignment.
+//
+// ddsconv_bf16 (the JAX kernel in bf16): the same cluster walk over bf16 x,
+// mask and weights, with the JAX kernel's roundings. x, the mask and the
+// per-channel parameters are read as bf16 and widened to f32 in shared
+// memory (the parameters always staged there); the depthwise taps read the
+// bf16 x * mask and sum in f32; LayerNorm statistics and GELU (a true erf)
+// run in f32; the GELU(LN1) rows are rounded to bf16 as the A operand of
+// the pointwise product, one bf16 wgmma m64n32k16 a 16-channel k-step
+// (where f32 takes three TF32 m64n32k8 products a k8 step) on bf16 weights
+// in shared memory (half the bytes of the f32 stages, no low halves), f32
+// accumulation, the bias added before the product is rounded to bf16 for
+// LN2; the GELU(LN2) rows are rounded to bf16 and the residual x + y rounds
+// to bf16 after each layer (x + y in bf16, as JAX adds them); the output is
+// bf16.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,6 +90,8 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
@@ -137,15 +154,23 @@ __device__ __forceinline__ void load_weights(float* dst, const float* src, int C
 }
 
 struct Plan {
-  int nc, halo, row_tile, w0, tiles, stages, wg, staged;
+  int nc, halo, row_tile, w0, tiles, stages, wg, staged, bf;
   size_t smem;
   int clusters;  // clusters of this geometry the card runs at once
 };
 
+// Bytes of one stage of a CTA's 32 x C weights: f32, or bf16 in 64-channel
+// blocks (a 128-byte swizzled row holds 64 of them; C % 64 == 32 leaves the
+// last block half full).
+__host__ __device__ constexpr size_t stage_bytes(int C, bool bf) {
+  return bf ? (size_t)2 * CS * ((C + 63) / 64 * 64) : (size_t)4 * CS * C;
+}
+
 // Row tile bt: the window, the tiles, the product (wgmma where its buffer of
-// the weights' low halves fits, else mma.sync), as many weight stages as fit
-// and, where they fit too, the per-channel parameters of every layer
-// (sep_w, sep_b, n1g, n1b, pw_b, n2g, n2b of the CTA's 32 channels).
+// the weights' low halves fits, else mma.sync; bf16 takes wgmma, without low
+// halves), as many weight stages as fit and, where they fit too, the
+// per-channel parameters of every layer (sep_w, sep_b, n1g, n1b, pw_b, n2g,
+// n2b of the CTA's 32 channels; bf16 needs them there).
 bool fill(Plan& p, int bt, int T, int C, int L, int K) {
   p.row_tile = bt;
   p.w0 = bt + 2 * p.halo;
@@ -155,13 +180,15 @@ bool fill(Plan& p, int bt, int T, int C, int L, int K) {
   const size_t stats = p.nc > 1 ? (size_t)4 * p.w0 * p.nc : 0;
   const size_t base = (size_t)p.w0 * C + (size_t)p.w0 * CS + stats + p.w0;
   const size_t params = (size_t)L * CS * (K + 6);
-  for (int wg = 1; wg >= 0; --wg)
+  for (int wg = 1; wg >= (p.bf ? 1 : 0); --wg)
     for (int s = L < MAX_STAGES ? L : MAX_STAGES; s >= 1; --s) {
       p.stages = s;
       p.wg = wg;
-      p.smem = sizeof(float) * ((size_t)(s + wg) * CS * C + base);
+      p.smem = (size_t)s * stage_bytes(C, p.bf) + (wg && !p.bf ? stage_bytes(C, false) : 0) +
+               sizeof(float) * base;
       if (p.smem > SMEM_LIMIT) continue;
       p.staged = p.smem + sizeof(float) * params <= SMEM_LIMIT;
+      if (p.bf && !p.staged) continue;
       if (p.staged) p.smem += sizeof(float) * params;
       return true;
     }
@@ -323,7 +350,7 @@ __device__ __forceinline__ void split_weights(float* w, float* wlo, int C, int t
 
 // wgmma shared-memory descriptor of a K-major operand in 128-byte-swizzled
 // 8-row atoms 1024 bytes apart.
-__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
@@ -425,15 +452,144 @@ __device__ __forceinline__ void product_wgmma(float* yb, const float* whi, const
   }
 }
 
-template <int S, bool WG>
+// ---- bf16: the weights in shared memory and the product on bf16 wgmma ----
+
+// Element (n, k) of a 32 x C bf16 weight slice: K-major blocks of 64
+// channels, each 32 rows of 128 bytes with the 16-byte chunks (8 channels)
+// XORed with the row mod 8 (the 128-byte swizzle a wgmma descriptor names),
+// 8-row atoms at 1024 bytes, 4096 bytes a block: the f32 layout's bytes.
+__device__ __forceinline__ int w_at_h(int n, int k) {
+  return ((k >> 6) << 11) + (n << 6) + ((((k >> 3) & 7) ^ (n & 7)) << 3) + (k & 7);
+}
+
+// The CTA's 32 x C bf16 weight slice (rows of pw_w, stride C) into dst:
+// 16-byte cp.async copies of 8 channels, or 2-byte loads where pw_w is not
+// 16-byte aligned.
+__device__ __forceinline__ void load_weights_h(bf16* dst, const bf16* src, int C, bool vec,
+                                               int tid) {
+  const int per_row = vec ? C >> 3 : C;  // copies a row
+  const int dn = THREADS / per_row, n0 = tid / per_row;
+  if (n0 >= dn) return;
+  const int k = (tid - n0 * per_row) * (vec ? 8 : 1);
+#pragma unroll 1
+  for (int n = n0; n < CS; n += dn) {
+    if (vec) {
+      const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst + w_at_h(n, k));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src + (size_t)n * C + k));
+    } else {
+      dst[w_at_h(n, k)] = src[(size_t)n * C + k];
+    }
+  }
+}
+
+// d (64 x 32, f32) += a (64 x 16, bf16 fragments in registers) . b (16 x 32,
+// bf16 in shared memory, K-major)
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The pointwise product on bf16 wgmma: a warpgroup takes one 64-row m-tile
+// (from lo; its warps 16 rows each, A the yb rows rounded to bf16 in
+// registers: k-step kk's indices 2t, 2t+1, 2t+8, 2t+9 are channels 16kk +
+// the same, as the descriptor's layout has them) and a share of the
+// 16-channel k-steps, four k-steps (one 64-channel block) a commit group,
+// one accumulator. The shares meet in this CTA's slice of yb with the bias.
+__device__ __forceinline__ void product_wgmma_h(float* yb, const bf16* w, const float* pb, int C,
+                                                int c0, int lo, int hi, int W0, int warp,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp >> 2, wq = warp & 3;
+  const int mt_n = (hi - lo + 63) >> 6;
+  const int ms_log = mt_n >= 3 ? 2 : mt_n - 1;  // m slots: 1, 2 or 4
+  const int ms_n = 1 << ms_log, ks_log = ms_log == 2 ? 0 : 1, ks_n = 1 << ks_log;
+  const int slot = grp & (ms_n - 1), ks = grp >> ms_log;
+  const int steps = C >> 4;  // 16-channel k-steps
+  const int s0 = (ks * steps) >> ks_log, s1 = ((ks + 1) * steps) >> ks_log;
+  const uint64_t desc = wg_desc(w);
+  for (int j = 0; j * ms_n < mt_n; ++j) {
+    const int mt = slot + j * ms_n;
+    const int r0 = lo + 64 * mt + 16 * wq;
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+    if (mt < mt_n && ks < ks_n) {  // the same for the whole warpgroup
+      const int ra = min(r0 + g, W0 - 1), rb = min(r0 + g + 8, W0 - 1);
+      const float* ya = yb + (size_t)ra * C;
+      const float* y8 = yb + (size_t)rb * C;
+      for (int s = s0; s < s1; s += 4) {
+        const int n = min(4, s1 - s);  // the same for the whole warpgroup
+        uint32_t a[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= n) continue;
+          const int k = 16 * (s + q) + 2 * t;  // even: k, k + 1 share a swizzled 4-group
+          const float2 x0 = *reinterpret_cast<const float2*>(ya + swz(ra, k));
+          const float2 x1 = *reinterpret_cast<const float2*>(y8 + swz(rb, k));
+          const float2 x2 = *reinterpret_cast<const float2*>(ya + swz(ra, k + 8));
+          const float2 x3 = *reinterpret_cast<const float2*>(y8 + swz(rb, k + 8));
+          a[q][0] = attn::pack_bf16(x0.x, x0.y);
+          a[q][1] = attn::pack_bf16(x1.x, x1.y);
+          a[q][2] = attn::pack_bf16(x2.x, x2.y);
+          a[q][3] = attn::pack_bf16(x3.x, x3.y);
+        }
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= n) continue;
+          // k-step s + q: block (s + q) / 4 at 4096 bytes, step (s + q) % 4 at 32 (16-byte units)
+          const int kk = s + q;
+          wgmma_bf16(acc, a[q], desc + (uint64_t)(((kk >> 2) << 8) + ((kk & 3) << 1)));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(acc);
+      }
+    }
+    __syncthreads();  // every warp has read these rows of yb
+    for (int sh = 0; sh < ks_n; ++sh) {
+      if (ks == sh && mt < mt_n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + g + 8 * h;
+          if (r >= hi) continue;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int n = 8 * u + 2 * t;
+            put_pair(yb, C, r, c0 + n, make_float2(acc[4 * u + 2 * h], acc[4 * u + 2 * h + 1]),
+                     pb, n, sh == 0);
+          }
+        }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16(x)); }
+__device__ __forceinline__ float4 rnd4(const float4& v) {
+  return make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
+}
+
+// E: float (ddsconv_f32) or bf16 (ddsconv_bf16, which always takes wgmma
+// and staged parameters).
+template <int S, bool WG, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
-ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-               const float* __restrict__ sep_w, const float* __restrict__ sep_b,
-               const float* __restrict__ pw_w, const float* __restrict__ pw_b,
-               const float* __restrict__ n1g, const float* __restrict__ n1b,
-               const float* __restrict__ n2g, const float* __restrict__ n2b,
-               float* __restrict__ out, int T, int C, int L, int K, int halo, int bt, int staged,
-               int vec_x, int vec_w, int vec_out) {
+ddsconv_kernel(const E* __restrict__ x, const E* __restrict__ mask, const E* __restrict__ sep_w,
+               const E* __restrict__ sep_b, const E* __restrict__ pw_w, const E* __restrict__ pw_b,
+               const E* __restrict__ n1g, const E* __restrict__ n1b, const E* __restrict__ n2g,
+               const E* __restrict__ n2b, E* __restrict__ out, int T, int C, int L, int K, int halo,
+               int bt, int staged, int vec_x, int vec_w, int vec_out) {
+  constexpr bool BF = sizeof(E) == 2;
   extern __shared__ __align__(1024) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nc = C / CS;
@@ -441,8 +597,12 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   const int b = blockIdx.x / nc;
   const int t0 = blockIdx.y * bt;
   const int W0 = bt + 2 * halo;
-  float* ws = smem;  // S stages of 32 x C weights (and for wgmma their low halves)
-  float* yb = ws + (S + WG) * CS * C;                  // W0 x C   the branch, all channels
+  // S stages of 32 x C weights (and for f32 wgmma their low halves), then the rest
+  float* ws = smem;
+  bf16* wsh = reinterpret_cast<bf16*>(smem);  // the bf16 stages, stage_bytes(C, true) each
+  // W0 x C   the branch, all channels
+  float* yb = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + S * stage_bytes(C, BF) +
+                                       (WG && !BF ? stage_bytes(C, false) : 0));
   float* xs = yb + (size_t)W0 * C;                     // W0 x 32  this CTA's residual slice
   float2* st1 = reinterpret_cast<float2*>(xs + (size_t)W0 * CS);  // W0 x nc  LN1 partials
   float2* st2 = st1 + (nc > 1 ? W0 * nc : 0);          // W0 x nc  LN2 partials
@@ -454,9 +614,30 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   const int c0 = rank * CS, cl = 4 * q, c = c0 + cl;
   const int g0 = t0 - halo;
 
-  // group 0: the x slice and the mask window (rows outside [0, T) are zero)
-  const float* xb = x + (size_t)b * T * C + c0;
-  if (vec_x) {
+  // group 0: the x slice and the mask window (rows outside [0, T) are zero);
+  // bf16 x and mask widened to f32 by loads (visible after the first barrier)
+  const E* xb = x + (size_t)b * T * C + c0;
+  if constexpr (BF) {
+    for (int e = tid; e < W0 * (CS / 4); e += THREADS) {
+      const int r = e >> 3, k = (e & 7) << 2, gr = g0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr >= 0 && gr < T) {
+        const E* src = xb + (size_t)gr * C + k;
+        if (vec_x) {
+          const uint2 w = *reinterpret_cast<const uint2*>(src);
+          v = make_float4(attn::bf16_lo(w.x), attn::bf16_hi(w.x), attn::bf16_lo(w.y),
+                          attn::bf16_hi(w.y));
+        } else {
+          v = make_float4(ldf(src), ldf(src + 1), ldf(src + 2), ldf(src + 3));
+        }
+      }
+      at4(xs + r * CS + k) = v;
+    }
+    for (int r = tid; r < W0; r += THREADS) {
+      const int gr = g0 + r;
+      mw[r] = gr >= 0 && gr < T ? ldf(mask + (size_t)b * T + gr) : 0.f;
+    }
+  } else if (vec_x) {
     for (int e = tid; e < W0 * (CS / 4); e += THREADS) {
       const int r = e >> 3, k = (e & 7) << 2, gr = g0 + r;
       const bool ok = gr >= 0 && gr < T;
@@ -469,16 +650,30 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
       attn::cp_async<4>(xs + r * CS + k, ok ? xb + (size_t)gr * C + k : xb, ok);
     }
   }
-  for (int r = tid; r < W0; r += THREADS) {
-    const int gr = g0 + r;
-    const bool ok = gr >= 0 && gr < T;
-    attn::cp_async<4>(mw + r, ok ? mask + (size_t)b * T + gr : mask, ok);
-  }
+  if constexpr (!BF)
+    for (int r = tid; r < W0; r += THREADS) {
+      const int gr = g0 + r;
+      const bool ok = gr >= 0 && gr < T;
+      attn::cp_async<4>(mw + r, ok ? mask + (size_t)b * T + gr : mask, ok);
+    }
   // the per-channel parameters: staged in shared memory with x where the
   // plan found room (layer l: 32 x K taps at ps + 32 K l, vector j at
-  // pv + 32 (6 l + j)), else read in place (generic loads either way)
+  // pv + 32 (6 l + j)), else read in place (generic loads either way);
+  // bf16 ones always staged, widened to f32 by loads
   float* pv = ps + (size_t)L * CS * K;
-  if (staged) {
+  if constexpr (BF) {
+#pragma unroll 1
+    for (int l = 0; l < L; ++l) {
+      for (int e = tid; e < CS * K; e += THREADS)
+        ps[l * CS * K + e] = ldf(sep_w + ((size_t)l * C + c0) * K + e);
+      if (tid < 6 * CS) {
+        const int j = tid >> 5;
+        const E* src = j == 0 ? sep_b : j == 1 ? n1g : j == 2 ? n1b : j == 3 ? pw_b
+                     : j == 4 ? n2g : n2b;
+        pv[(6 * l + j) * CS + (tid & 31)] = ldf(src + (size_t)l * C + c0 + (tid & 31));
+      }
+    }
+  } else if (staged) {
 #pragma unroll 1
     for (int l = 0; l < L; ++l) {
       for (int e = tid; e < CS * K; e += THREADS)
@@ -496,7 +691,11 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   // groups 1..S: the weight slices of layers 0..S-1 (S <= L)
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    load_weights<WG>(ws + s * CS * C, pw_w + ((size_t)s * C + c0) * C, C, vec_w, tid);
+    if constexpr (BF)
+      load_weights_h(wsh + s * stage_bytes(C, true) / 2, pw_w + ((size_t)s * C + c0) * C, C, vec_w,
+                     tid);
+    else
+      load_weights<WG>(ws + s * CS * C, pw_w + ((size_t)s * C + c0) * C, C, vec_w, tid);
     attn::cp_async_commit();
   }
   attn::cp_async_wait<S>();
@@ -510,13 +709,20 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
     lo += pad;
     const int hi = W0 - lo;
     // vector j (0 sep_b, 1 n1g, 2 n1b, 3 pw_b, 4 n2g, 5 n2b) of layer i, this slice
-    const auto vec = [&](int j, const float* src) -> const float* {
-      return staged ? pv + (6 * i + j) * CS : src + (size_t)i * C + c0;
+    const auto vec = [&](int j, const E* src) -> const float* {
+      if constexpr (BF)
+        return pv + (6 * i + j) * CS;
+      else
+        return staged ? pv + (6 * i + j) * CS : src + (size_t)i * C + c0;
     };
 
     // depthwise conv of x * mask plus bias into this CTA's slice of yb; LN1 partials
     {
-      const float* wi = staged ? ps + (i * CS + cl) * K : sep_w + ((size_t)i * C + c) * K;
+      const float* wi;
+      if constexpr (BF)
+        wi = ps + (i * CS + cl) * K;
+      else
+        wi = staged ? ps + (i * CS + cl) * K : sep_w + ((size_t)i * C + c) * K;
       const float* bi = vec(0, sep_b) + cl;
 #pragma unroll 1
       for (int r0 = lo + 4 * warp; r0 < hi; r0 += ROWS_PER_PASS) {
@@ -544,7 +750,7 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
     }
     attn::cp_async_wait<S - 1>();  // layer i's weights (group 1 + i), seen by all after the barrier
     cluster.sync();
-    if constexpr (WG)  // hi (rounded) in place, lo beside it: beside the gather's latency
+    if constexpr (WG && !BF)  // hi (rounded) in place, lo beside it: beside the gather's latency
       split_weights(ws + (i % S) * CS * C, ws + S * CS * C, C, tid);
 
     // GELU(LN1), all-gathered into every CTA's yb
@@ -565,14 +771,22 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 
     // pointwise product into this CTA's slice of yb, then the ring: the
     // stage of layer i takes layer i + S (an empty group past L)
-    if constexpr (WG)
+    if constexpr (BF)
+      product_wgmma_h(yb, wsh + (i % S) * stage_bytes(C, true) / 2, vec(3, pw_b), C, c0, lo, hi,
+                      W0, warp, lane);
+    else if constexpr (WG)
       product_wgmma(yb, ws + (i % S) * CS * C, ws + S * CS * C, vec(3, pw_b), C, c0, lo, hi, W0,
                     warp, lane);
     else
       product_mma(yb, ws + (i % S) * CS * C, vec(3, pw_b), C, c0, lo, hi, W0, warp, lane);
-    if (i + S < L)
-      load_weights<WG>(ws + (i % S) * CS * C, pw_w + ((size_t)(i + S) * C + c0) * C, C, vec_w,
-                       tid);
+    if (i + S < L) {
+      if constexpr (BF)
+        load_weights_h(wsh + (i % S) * stage_bytes(C, true) / 2,
+                       pw_w + ((size_t)(i + S) * C + c0) * C, C, vec_w, tid);
+      else
+        load_weights<WG>(ws + (i % S) * CS * C, pw_w + ((size_t)(i + S) * C + c0) * C, C, vec_w,
+                         tid);
+    }
     attn::cp_async_commit();
 
     // LN2 partials
@@ -581,7 +795,8 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
       for (int r0 = lo + 4 * warp; r0 < hi; r0 += ROWS_PER_PASS) {
         const int r = r0 + sub;
         const bool ok = r < hi;
-        const float4 v = ok ? at4(yb + (size_t)r * C + swz(r, c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 v = ok ? at4(yb + (size_t)r * C + swz(r, c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (BF) v = rnd4(v);  // the product plus bias, rounded to bf16
         push_stats(cluster, st2, r, ok, v, rank, nc, q);
       }
     cluster.sync();
@@ -591,32 +806,43 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
     for (int r0 = lo + 4 * warp; r0 < hi; r0 += ROWS_PER_PASS) {
       const int r = r0 + sub;
       const bool ok = r < hi;
-      const float4 v = ok ? at4(yb + (size_t)r * C + swz(r, c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = ok ? at4(yb + (size_t)r * C + swz(r, c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (BF) v = rnd4(v);
       const float2 ms = row_stats(st2, r, ok, v, nc);
       if (ok) {
-        const float4 y = norm_gelu(v, ms, vec(4, n2g) + cl, vec(5, n2b) + cl);
+        float4 y = norm_gelu(v, ms, vec(4, n2g) + cl, vec(5, n2b) + cl);
         float4& xr = at4(xs + r * CS + cl);
+        if constexpr (BF) y = rnd4(y);
         xr.x += y.x;
         xr.y += y.y;
         xr.z += y.z;
         xr.w += y.w;
+        if constexpr (BF) xr = rnd4(xr);  // x + y in bf16
       }
     }
     __syncthreads();
   }
 
   // no remote access after the last cluster barrier: a CTA may exit
-  float* ob = out + (size_t)b * T * C + c;
+  E* ob = out + (size_t)b * T * C + c;
   for (int r0 = halo + 4 * warp; r0 < halo + bt; r0 += ROWS_PER_PASS) {
     const int r = r0 + sub, gr = g0 + r;
     if (r >= halo + bt || gr >= T) continue;
     const float4 xv = at4(xs + r * CS + cl);
     const float mk = mw[r];
     const float4 o = make_float4(xv.x * mk, xv.y * mk, xv.z * mk, xv.w * mk);
-    float* dst = ob + (size_t)gr * C;
-    if (vec_out) {
-      at4(dst) = o;
-    } else {
+    E* dst = ob + (size_t)gr * C;
+    if constexpr (BF) {
+      const uint32_t lo = attn::pack_bf16(o.x, o.y), hi = attn::pack_bf16(o.z, o.w);
+      if (vec_out) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+      } else {
+        reinterpret_cast<uint16_t*>(dst)[0] = (uint16_t)lo;
+        reinterpret_cast<uint16_t*>(dst)[1] = (uint16_t)(lo >> 16);
+        reinterpret_cast<uint16_t*>(dst)[2] = (uint16_t)hi;
+        reinterpret_cast<uint16_t*>(dst)[3] = (uint16_t)(hi >> 16);
+      }
+    } else if (vec_out) {
       dst[0] = o.x;
       dst[1] = o.y;
       dst[2] = o.z;
@@ -625,16 +851,17 @@ ddsconv_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+// The pointers are float (ddsconv_f32) or bf16 (ddsconv_bf16) as the plan's bf says.
 struct Args {
-  const float *x, *mask, *sep_w, *sep_b, *pw_w, *pw_b, *n1g, *n1b, *n2g, *n2b;
-  float* out;
+  const void *x, *mask, *sep_w, *sep_b, *pw_w, *pw_b, *n1g, *n1b, *n2g, *n2b;
+  void* out;
   int B, T, C, L, K;
 };
 
 // Launch (or, with max_clusters, ask how many of these clusters fit at once).
-template <int S, bool WG>
+template <int S, bool WG, typename E>
 cudaError_t launch(const Plan& p, const Args& a, cudaStream_t stream, int* max_clusters) {
-  auto kern = ddsconv_kernel<S, WG>;
+  auto kern = ddsconv_kernel<S, WG, E>;
   // the shared-memory allowance, raised once per instantiation and device
   static int allowed[64] = {};
   int dev = 0;
@@ -658,28 +885,40 @@ cudaError_t launch(const Plan& p, const Args& a, cudaStream_t stream, int* max_c
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg);
-  err = cudaLaunchKernelEx(&cfg, kern, a.x, a.mask, a.sep_w, a.sep_b, a.pw_w, a.pw_b, a.n1g, a.n1b,
-                           a.n2g, a.n2b, a.out, a.T, a.C, a.L, a.K, p.halo, p.row_tile, p.staged,
-                           (int)attn::aligned16(a.x), (int)attn::aligned16(a.pw_w),
+  const auto e = [](const void* ptr) { return static_cast<const E*>(ptr); };
+  err = cudaLaunchKernelEx(&cfg, kern, e(a.x), e(a.mask), e(a.sep_w), e(a.sep_b), e(a.pw_w),
+                           e(a.pw_b), e(a.n1g), e(a.n1b), e(a.n2g), e(a.n2b),
+                           static_cast<E*>(a.out), a.T, a.C, a.L, a.K, p.halo, p.row_tile,
+                           p.staged, (int)attn::aligned16(a.x), (int)attn::aligned16(a.pw_w),
                            (int)attn::aligned16(a.out));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const Plan& p, const Args& a, cudaStream_t stream, int* max_clusters) {
+  if (p.bf) {  // always wgmma
+    switch (p.stages) {
+      case 1:
+        return launch<1, true, bf16>(p, a, stream, max_clusters);
+      case 2:
+        return launch<2, true, bf16>(p, a, stream, max_clusters);
+      default:
+        return launch<MAX_STAGES, true, bf16>(p, a, stream, max_clusters);
+    }
+  }
   switch (p.stages * 2 + p.wg) {
     case 2:
-      return launch<1, false>(p, a, stream, max_clusters);
+      return launch<1, false, float>(p, a, stream, max_clusters);
     case 3:
-      return launch<1, true>(p, a, stream, max_clusters);
+      return launch<1, true, float>(p, a, stream, max_clusters);
     case 4:
-      return launch<2, false>(p, a, stream, max_clusters);
+      return launch<2, false, float>(p, a, stream, max_clusters);
     case 5:
-      return launch<2, true>(p, a, stream, max_clusters);
+      return launch<2, true, float>(p, a, stream, max_clusters);
     case 6:
-      return launch<MAX_STAGES, false>(p, a, stream, max_clusters);
+      return launch<MAX_STAGES, false, float>(p, a, stream, max_clusters);
     default:
-      return launch<MAX_STAGES, true>(p, a, stream, max_clusters);
+      return launch<MAX_STAGES, true, float>(p, a, stream, max_clusters);
   }
 }
 
@@ -692,7 +931,7 @@ cudaError_t dispatch(const Plan& p, const Args& a, cudaStream_t stream, int* max
 // cluster's time is mostly latency and grows slowly with its rows, so while
 // the clusters fit one wave a smaller tile (less halo) finishes sooner, and
 // past one wave the count of waves decides.
-int make_plan(int B, int T, int C, int L, int K, Plan& p) {
+int make_plan(int B, int T, int C, int L, int K, int bf, Plan& p) {
   if (B <= 0 || T <= 0 || C <= 0 || C > CS * 8 || C % CS != 0 || K < 1 || K % 2 == 0 || L < 1 ||
       (long long)B * (C / CS) > 0x7fffffffLL)
     return -1;
@@ -704,6 +943,7 @@ int make_plan(int B, int T, int C, int L, int K, Plan& p) {
   Plan ref = {};
   ref.nc = C / CS;
   ref.halo = (int)halo;
+  ref.bf = bf;
   const Plan base = ref;
   if (!fill(ref, 32, T, C, L, K)) return -1;
   const Args none = {nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -727,9 +967,9 @@ int make_plan(int B, int T, int C, int L, int K, Plan& p) {
 
 // make_plan, once per device and shape: its occupancy queries stay off the
 // launches that follow.
-int cached_plan(int B, int T, int C, int L, int K, Plan& p) {
+int cached_plan(int B, int T, int C, int L, int K, int bf, Plan& p) {
   struct Entry {
-    int dev, B, T, C, L, K;
+    int dev, B, T, C, L, K, bf;
     Plan p;
   };
   static std::mutex mutex;
@@ -741,20 +981,20 @@ int cached_plan(int B, int T, int C, int L, int K, Plan& p) {
   std::lock_guard<std::mutex> lock(mutex);
   for (int i = 0; i < filled && i < PLANS; ++i) {
     const Entry& e = cache[i];
-    if (e.dev == dev && e.B == B && e.T == T && e.C == C && e.L == L && e.K == K) {
+    if (e.dev == dev && e.B == B && e.T == T && e.C == C && e.L == L && e.K == K && e.bf == bf) {
       p = e.p;
       return 0;
     }
   }
-  const int r = make_plan(B, T, C, L, K, p);
-  if (r == 0) cache[filled++ % PLANS] = {dev, B, T, C, L, K, p};
+  const int r = make_plan(B, T, C, L, K, bf, p);
+  if (r == 0) cache[filled++ % PLANS] = {dev, B, T, C, L, K, bf, p};
   return r;
 }
 
-int run(const Args& a, void* stream) {
+int run(const Args& a, int bf, void* stream) {
   if (a.B <= 0 || a.T <= 0) return (int)cudaSuccess;
   Plan p;
-  const int r = cached_plan(a.B, a.T, a.C, a.L, a.K, p);
+  const int r = cached_plan(a.B, a.T, a.C, a.L, a.K, bf, p);
   if (r != 0) return r;
   return (int)dispatch(p, a, (cudaStream_t)stream, nullptr);
 }
@@ -770,17 +1010,28 @@ extern "C" int ddsconv_f32(const float* x, const float* mask, const float* sep_w
                            const float* n1g, const float* n1b, const float* n2g,
                            const float* n2b, float* out, int B, int T, int C, int L, int K,
                            void* stream) {
-  return run({x, mask, sep_w, sep_b, pw_w, pw_b, n1g, n1b, n2g, n2b, out, B, T, C, L, K}, stream);
+  return run({x, mask, sep_w, sep_b, pw_w, pw_b, n1g, n1b, n2g, n2b, out, B, T, C, L, K}, 0,
+             stream);
+}
+
+// The bf16 form: every pointer bf16, shapes as ddsconv_f32. Returns as ddsconv_f32.
+extern "C" int ddsconv_bf16(const bf16* x, const bf16* mask, const bf16* sep_w, const bf16* sep_b,
+                            const bf16* pw_w, const bf16* pw_b, const bf16* n1g, const bf16* n1b,
+                            const bf16* n2g, const bf16* n2b, bf16* out, int B, int T, int C, int L,
+                            int K, void* stream) {
+  return run({x, mask, sep_w, sep_b, pw_w, pw_b, n1g, n1b, n2g, n2b, out, B, T, C, L, K}, 1,
+             stream);
 }
 
 // The launch geometry make_plan gives a shape, into out[0..9]: grid x, grid
 // y, cluster size, dynamic shared bytes, weight stages, halo rows, row
 // tile, the product (1 wgmma, 0 mma.sync), whether the per-channel
 // parameters are staged in shared memory, and how many such clusters the
-// card runs at once (cudaOccupancyMaxActiveClusters). Returns as ddsconv_f32.
-extern "C" int ddsconv_plan(int B, int T, int C, int L, int K, int* out) {
+// card runs at once (cudaOccupancyMaxActiveClusters); bf: the plan of
+// ddsconv_bf16 (1) or of ddsconv_f32 (0). Returns as ddsconv_f32.
+extern "C" int ddsconv_plan(int B, int T, int C, int L, int K, int bf, int* out) {
   Plan p;
-  const int r = cached_plan(B, T, C, L, K, p);
+  const int r = cached_plan(B, T, C, L, K, bf, p);
   if (r != 0) return r;
   const int vals[10] = {p.nc * B, p.tiles, p.nc, (int)p.smem, p.stages, p.halo, p.row_tile,
                         p.wg, p.staged, p.clusters};

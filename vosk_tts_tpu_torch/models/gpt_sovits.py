@@ -115,9 +115,10 @@ def _embed_inputs(params, cfg: ARConfig, x_ids, bert, y_ids):
     return x, y
 
 
-def joint_mask(x_len: int, y_len: int, x_lens, y_lens=None):
-    """(B, 1, T, T) additive bias: x sees x (not y); y is causal over y and
-    sees x; padded keys (x past x_lens, y past y_lens) at -1e9."""
+def joint_mask(x_len: int, y_len: int, x_lens, y_lens=None, dtype=torch.float32):
+    """(B, 1, T, T) additive bias in ``dtype`` (the activations'): x sees x
+    (not y); y is causal over y and sees x; padded keys (x past x_lens, y
+    past y_lens) at -1e9."""
     dev = x_lens.device
     pos = torch.arange(x_len + y_len, device=dev)
     is_y = pos >= x_len
@@ -126,7 +127,7 @@ def joint_mask(x_len: int, y_len: int, x_lens, y_lens=None):
     pad_y = (torch.arange(y_len, device=dev)[None, :] < y_lens[:, None] if y_lens is not None
              else torch.ones(x_lens.shape[0], y_len, dtype=torch.bool, device=dev))
     mask = vis[None] & torch.cat([pad_x, pad_y], dim=1)[:, None, :]
-    return torch.where(mask, 0.0, -1e9)[:, None]
+    return torch.where(mask, 0.0, -1e9).to(dtype)[:, None]
 
 
 def _eos_padded(cfg: ARConfig, y_ids, y_lens):
@@ -145,7 +146,7 @@ def ar_logits(params, cfg: ARConfig, x_ids, x_lens, y_ids, y_lens, bert):
     y_in = _eos_padded(cfg, y_ids, y_lens)[:, :-1]
     x, y = _embed_inputs(params, cfg, x_ids, bert, y_in)
     xy = torch.cat([x, y], dim=1)
-    bias = joint_mask(x_ids.shape[1], t_y, x_lens, y_lens)
+    bias = joint_mask(x_ids.shape[1], t_y, x_lens, y_lens, xy.dtype)
     for layer in params["layers"]:
         xy, _, _ = _layer_full(layer, cfg, xy, bias)
     return F.linear(xy[:, x_ids.shape[1]:], params["predict"]["w"])
@@ -234,7 +235,7 @@ def prefill(params, cfg: ARConfig, x_ids, x_lens, bert, prompts, *, max_new: int
     t0 = t_x + prompts.shape[1]
     x, y = _embed_inputs(params, cfg, x_ids, bert, prompts)
     cur = torch.cat([x, y], dim=1)
-    bias = joint_mask(t_x, prompts.shape[1], x_lens)
+    bias = joint_mask(t_x, prompts.shape[1], x_lens, dtype=cur.dtype)
     h, dk = cfg.num_head, cfg.hidden_dim // cfg.num_head
     shape = (len(params["layers"]), b, h, t0 + max_new + 1, dk)
     cache_k, cache_v = cur.new_zeros(shape), cur.new_zeros(shape)
@@ -333,7 +334,7 @@ class Decode:
         max_t = self.cache_k.shape[3]
         self.x_lens = x_lens.to(torch.int64)
         self.key_idx = torch.arange(max_t, device=dev)
-        self.pe = torch.from_numpy(_sine_pe(max_t, cfg.embedding_dim)).to(dev)
+        self.pe = torch.from_numpy(_sine_pe(max_t, cfg.embedding_dim)).to(dev, self.cache_k.dtype)
         self.gumbel = gumbel((max_new, b, cfg.vocab_size), generator, dev)
         self.prev_mask = torch.zeros(b, cfg.vocab_size, dtype=torch.bool, device=dev)
         if t_p > 0:

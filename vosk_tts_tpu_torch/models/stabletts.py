@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import flash_attention as fa
-from ..ops.commons import generate_path, sequence_mask
+from ..ops.commons import as_dtype, at_least_f32, generate_path, sequence_mask
 from ..ops.conv import conv1d
 from ..parallel.mesh import mean_share, total
 from ..utils.params import LINEARS, from_port_layout, to_port_layout
@@ -334,7 +334,7 @@ def cfm_solve(params, cfg: StableTTSConfig, mu, mask, *, n_timesteps: int,
     b, t_len, _ = mu.shape
     if z is None:
         z = torch.randn((b, t_len, cfg.n_feats), generator=generator, device=mu.device,
-                        dtype=mu.dtype) * temperature
+                        dtype=mu.dtype) * as_dtype(temperature, mu.dtype)
     ts = time_grid(n_timesteps)
     cfg_in = _cfg_inputs(params, cfg, mask, mu, spks, guidance_scale)
     est = lambda x, tv: _estimate_cfg(params, cfg, x, torch.full((b,), tv, device=mu.device),
@@ -374,7 +374,8 @@ def encode_for_synth(params, cfg: StableTTSConfig, x, x_lengths, spks_id, bert, 
     else:
         pde = torch.zeros_like(logw)
     w_round = torch.clamp(torch.round(logw * length_scale), min=1) * x_mask
-    pred = torch.clamp(w_round.sum(dim=(1, 2)), min=1).to(torch.int32)
+    # frame counts past 256 are not bf16's: summed in f32 from a bf16 graph
+    pred = torch.clamp(at_least_f32(w_round).sum(dim=(1, 2)), min=1).to(torch.int32)
     return {"xc": xc, "mu_mel": mu_mel, "x_mask": x_mask, "w_round": w_round, "pde": pde,
             "pred_frames": pred}
 
@@ -390,7 +391,7 @@ def decode_from_durations(params, cfg: StableTTSConfig, enc: dict, spks_id, *, m
     xc, mu_mel, x_mask = enc["xc"], enc["mu_mel"], enc["x_mask"]
     w_round, pde = enc["w_round"], enc["pde"]
 
-    y_lengths = torch.clamp(w_round.sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
+    y_lengths = torch.clamp(at_least_f32(w_round).sum(dim=(1, 2)), 1, max_frames).to(torch.int32)
     y_mask = sequence_mask(y_lengths, max_frames).to(x_mask.dtype)[..., None]
     attn = generate_path(w_round[..., 0], x_mask[..., 0], y_mask[..., 0])  # (B, Ty, Tx)
     mu_y = torch.bmm(attn, xc)

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from ..ops import attention as att
 from ..ops import flows as fl
 from ..ops import wn as wnops
-from ..ops.commons import generate_path, rand_slice_segments, sequence_mask
+from ..ops.commons import (as_dtype, at_least_f32, generate_path, rand_slice_segments,
+                           sequence_mask)
 from ..ops.conv import conv1d
 from ..ops.mas import maximum_path
 from ..ops.pqmf import polyphase_upfir, pqmf_synthesis
@@ -225,7 +226,7 @@ def sdp_reverse(params, cfg: VITS2Config, x, x_mask, g=None, *, generator=None, 
     b, t, _ = x.shape
     if noise is None:
         noise = torch.randn((b, t, 2), generator=generator, device=x.device, dtype=x.dtype)
-    z = noise * noise_scale
+    z = noise * as_dtype(noise_scale, noise.dtype)
     for cf in params["flows"][:0:-1][:-1]:  # CF4, CF3, CF2
         z = fl.flip_flow(z)
         z = fl.convflow_apply(cf, z, x_mask, g=ctx, reverse=True,
@@ -518,7 +519,8 @@ def encode_for_infer(params, cfg: VITS2Config, x_ids, x_lengths, sid=None, *, ge
                            noise_scale=noise_scale_w)
     else:
         logw = dp_apply(params["dp"], cfg, x, x_mask, g)
-    w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
+    # the frame counts in f32 from a bf16 graph too: integers past 256 are not bf16's
+    w_ceil = torch.ceil(torch.exp(at_least_f32(logw)) * x_mask * length_scale)[..., 0]
     pred = w_ceil.sum(dim=-1).clamp(min=1).to(torch.int32)
     return {"m_p": m_p, "logs_p": logs_p, "x_mask": x_mask, "w_ceil": w_ceil,
             "pred_frames": pred}
@@ -533,14 +535,14 @@ def decode_from_durations(params, cfg: VITS2Config, enc: dict, sid=None, *, gene
     (B, 1, 1) tensor."""
     g = _speaker(params, cfg, sid)
     m_p, logs_p, x_mask, w_ceil = enc["m_p"], enc["logs_p"], enc["x_mask"], enc["w_ceil"]
-    y_lengths = w_ceil.sum(dim=-1).clamp(1, max_frames).to(torch.int32)
+    y_lengths = at_least_f32(w_ceil).sum(dim=-1).clamp(1, max_frames).to(torch.int32)
     y_mask = sequence_mask(y_lengths, max_frames).to(x_mask.dtype)[..., None]
     attn = generate_path(w_ceil, x_mask[..., 0], y_mask[..., 0])
 
     m_p = torch.bmm(attn, m_p)
     logs_p = torch.bmm(attn, logs_p)
     noise = torch.randn(m_p.shape, generator=generator, device=m_p.device, dtype=m_p.dtype)
-    z_p = m_p + noise * torch.exp(logs_p) * noise_scale
+    z_p = m_p + noise * torch.exp(logs_p) * as_dtype(noise_scale, m_p.dtype)
     z = flow_block_apply(params["flow"], cfg, z_p, y_mask, g, reverse=True)
     zy = z * y_mask
     if gen_frames is not None and gen_frames < max_frames:

@@ -5,6 +5,17 @@ from __future__ import annotations
 import torch
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 where its dtype is narrower (bf16, f16), else as it is."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+def as_dtype(scale, dtype):
+    """A per-row scale tensor in the activations' dtype (a float as it is),
+    so that an f32 knob does not promote a bf16 graph."""
+    return scale.to(dtype) if isinstance(scale, torch.Tensor) else scale
+
+
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """Boolean mask (B, T): True for positions < length."""
     pos = torch.arange(max_length, dtype=lengths.dtype, device=lengths.device)
@@ -18,15 +29,16 @@ def subsequent_mask(length: int, device=None) -> torch.Tensor:
 
 def generate_path(durations: torch.Tensor, x_mask: torch.Tensor, y_mask: torch.Tensor) -> torch.Tensor:
     """Durations (B, Tx) (integral floats), x_mask (B, Tx), y_mask (B, Ty) ->
-    (B, Ty, Tx) one-hot monotonic path: frame t belongs to token s iff
-    cum[s-1] <= t < cum[s]."""
+    (B, Ty, Tx) one-hot monotonic path in x_mask's dtype: frame t belongs to
+    token s iff cum[s-1] <= t < cum[s]. The running sum is taken in at
+    least f32, where frame counts past 256 are exact (bf16's are not)."""
     t_y = y_mask.shape[1]
-    cum = torch.cumsum(durations * x_mask, dim=-1)
+    cum = torch.cumsum(at_least_f32(durations * x_mask), dim=-1)
     pos = torch.arange(t_y, dtype=cum.dtype, device=cum.device)
     below = pos[None, :, None] < cum[:, None, :]
     prev = torch.nn.functional.pad(below[:, :, :-1], (1, 0))
     path = below & ~prev
-    return path.to(cum.dtype) * x_mask[:, None, :] * y_mask[:, :, None]
+    return path.to(x_mask.dtype) * x_mask[:, None, :] * y_mask[:, :, None]
 
 
 def fused_gate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

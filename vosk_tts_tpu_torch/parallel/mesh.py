@@ -33,6 +33,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..utils.precision import full_float32
+
 #: a collective or a join that waits longer than this raises on every rank
 TIMEOUT = datetime.timedelta(seconds=600)
 #: the size of a bucket of flattened gradients (one collective each)
@@ -59,7 +61,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     ``cuda:(LOCAL_RANK mod the cards)``, set before NCCL starts; CPU ranks,
     and ranks that share a card (LOCAL_WORLD_SIZE larger than the visible
     cards: NCCL refuses them), use gloo. A group that is already up is
-    kept."""
+    kept. Each rank turns TF32 off (utils/precision.py)."""
+    full_float32()
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     if coordinator is None:

@@ -27,6 +27,7 @@ import grpc
 from . import proto
 from .batcher import BatchSynthesizer
 from ..api import Model
+from ..utils.precision import full_float32
 
 CHUNK_SECONDS = 0.5
 
@@ -88,6 +89,7 @@ def make_server(model: Model, interface: str = "0.0.0.0", port: int = 5001, thre
 
 
 def serve():
+    full_float32()
     logging.basicConfig(level=logging.INFO)
     interface = os.environ.get("VOSK_SERVER_INTERFACE", "0.0.0.0")
     port = int(os.environ.get("VOSK_SERVER_PORT", 5001))

@@ -9,10 +9,13 @@ Usage:
 
 import argparse
 
+from ..utils.precision import full_float32
+
 TEXT = "Добрый день, это проверка синтеза речи. Сегодня хорошая погода!"
 
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("bundle")
     ap.add_argument("out")

@@ -21,8 +21,11 @@ import json
 import os
 import shutil
 
+from ..utils.precision import full_float32
+
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("checkpoint")
     ap.add_argument("config")

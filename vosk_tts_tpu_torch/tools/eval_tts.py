@@ -15,8 +15,11 @@ import argparse
 import json
 import os
 
+from ..utils.precision import full_float32
+
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("bundle")
     ap.add_argument("--texts", required=True)

@@ -17,8 +17,11 @@ SoVITS tree of SOVITS_NPZ (bundle layout, ``SoVITSConfig()``; only its
 import argparse
 import os
 
+from ..utils.precision import full_float32
+
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("hubert_bundle")
     ap.add_argument("sovits_npz")

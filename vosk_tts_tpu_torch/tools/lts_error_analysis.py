@@ -25,6 +25,7 @@ import random
 import re
 
 from .train_g2p import read_cmu
+from ..utils.precision import full_float32
 
 VOWELS = {"AA", "AE", "AH", "AO", "AW", "AY", "EH", "ER", "EY", "IH",
           "IY", "OW", "OY", "UH", "UW"}
@@ -124,6 +125,7 @@ def report(a: dict, n: int, top: int) -> None:
 
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("--dict-dir", required=True, help="the directory of cmudict.rep")
     ap.add_argument("--n", type=int, default=3000)

@@ -18,6 +18,8 @@ import dataclasses
 import json
 import os
 
+from ..utils.precision import full_float32
+
 
 def small_config():
     from ..models.vits2 import VITS2Config
@@ -27,6 +29,7 @@ def small_config():
 
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
     ap.add_argument("--full", action="store_true")

@@ -39,6 +39,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.precision import full_float32
+
 
 def compute_stats(cfg_json: dict, device) -> dict:
     """Mel mean and std over the dataset's raw (un-normalised) log-mels."""
@@ -161,6 +163,7 @@ def run_durations(cfg_json: dict, model_dir: str, batch_size: int = 8, bert_fn=N
 
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
     ps = sub.add_parser("stats")

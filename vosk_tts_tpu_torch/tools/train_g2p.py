@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..text import neural_g2p as NG
+from ..utils.precision import full_float32
 
 
 def read_cmu(path) -> dict:
@@ -137,6 +138,7 @@ def train(rows, phones, *, epochs: int, batch: int, lr: float, device,
 
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("--dict-dir", required=True, help="the directory of cmudict.rep")
     ap.add_argument("--epochs", type=int, default=24)

@@ -13,8 +13,11 @@ Without ``--out`` it overwrites the committed artifact
 
 import argparse
 
+from ..utils.precision import full_float32
+
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--seed", type=int, default=0)

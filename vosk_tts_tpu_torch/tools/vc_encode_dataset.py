@@ -14,8 +14,11 @@ kept. HuBERT runs on the card unless ``--device cpu`` is given.
 import argparse
 import os
 
+from ..utils.precision import full_float32
+
 
 def main(argv=None):
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("bundle")
     ap.add_argument("wav_dir")

@@ -40,6 +40,7 @@ from ..models.gpt_sovits import ARConfig, SoVITSConfig
 from ..parallel import mesh as M
 from ..utils import checkpoint as ckpt
 from ..utils import params as P
+from ..utils.precision import full_float32
 from . import gpt_sovits_train as T
 from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
                             resume_state, save_state, train_loop)
@@ -114,6 +115,7 @@ def save_s2(model_dir: str, state: T.S2TrainState, epoch: int) -> None:
 def main(argv=None):
     """Train one stage; returns (the state, the last step's metrics as
     floats, empty where no step ran)."""
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=("s1", "s2"), required=True)
     ap.add_argument("-c", "--config", required=True)

@@ -39,6 +39,7 @@ from ..parallel import mesh as M
 from ..text import WordPieceTokenizer
 from ..utils.checkpoint import load_params
 from ..utils.params import to_port_layout
+from ..utils.precision import full_float32
 from . import stabletts_train as T
 from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
                             resume_state, train_loop)
@@ -103,6 +104,7 @@ def make_bert_fn(bert_dir, device):
 def main(argv=None):
     """Train; returns (the state, the last step's metrics as floats, empty
     where no step ran)."""
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model-dir", required=True)

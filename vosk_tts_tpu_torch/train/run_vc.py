@@ -27,6 +27,7 @@ import torch
 
 from ..models.quickvc import QuickVCConfig
 from ..parallel import mesh as M
+from ..utils.precision import full_float32
 from . import vc_train as T
 from .driver_common import (add_distributed_args, host_shard, join, log, rank_seed,
                             resume_state, train_loop)
@@ -70,6 +71,7 @@ def build_configs(cfg: dict):
 def main(argv=None):
     """Train; returns (the state, the last step's metrics as floats, empty
     where no step ran)."""
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model-dir", required=True)

@@ -57,6 +57,7 @@ from ..parallel import mesh as M
 from ..utils import checkpoint as ckpt
 from ..utils.params import LINEARS, from_port_layout, to_port_layout
 from ..utils.repro import check_git_hash
+from ..utils.precision import full_float32
 from . import vits2_train as T
 from .data import BucketBatcher, DataConfig, TTSDataset
 from .driver_common import (add_distributed_args, host_shard, is_main, join, log,
@@ -118,6 +119,7 @@ def save(model_dir: str, state: T.TrainState, epoch: int) -> None:
 def main(argv=None):
     """Train; returns (the TrainState, the last step's metrics as floats,
     empty where no step ran)."""
+    full_float32()
     ap = argparse.ArgumentParser()
     ap.add_argument("-c", "--config", required=True)
     ap.add_argument("-m", "--model-dir", required=True)
