@@ -33,13 +33,18 @@ result line is printed):
    T2048 and B1 T397 with valid lengths below T);
    3b. bf16 (``[bf16]``): the bf16 entry point of each of the five
    kernels (``*_bf16`` symbols: one bf16 ``mma.sync`` m16n8k16 a fragment
-   in the attention kernels, bf16 ``wgmma`` m64n32k16 in DDSConv; the
-   ``[build]`` line counts the BF16 HMMA/HGMMA in the bf16 functions,
-   which must not be 0) against its plain bf16 version within BF16_TOL
-   x max |out| at the f32 cases' batched shape, a B1/B2 shape and a ragged
-   T=37, timed beside it, its bound (BF16_BOUND_FORMULA: 989 TFLOP/s, the
-   dense bf16 tensor-core peak) and, for kernels 3-5, SDPA in bf16 with a
-   boolean key mask; then bench.py's VITS2 workload (B16 at text buckets
+   in the banded attention, bf16 ``wgmma`` on tiles that TMA loads in the
+   global attention (kernels 3-5), bf16 ``wgmma`` m64n32k16 in DDSConv;
+   the ``[build]`` line counts the BF16 HMMA/HGMMA and the TMA loads
+   (UTMALDG) in the bf16 functions: tensor-core instructions must not be
+   0, and the global attention's must be HGMMA beside UTMALDG) against
+   its plain bf16 version within BF16_TOL x max |out| at the f32 cases'
+   batched shape, a B1/B2 shape and a ragged T=37 (kernels 4-5 also at
+   B2 T512 and B16 T1024 D48), timed beside it (kernels 3-5 also replayed
+   from a CUDA graph, ``graph_ms``: the device's time without the host's),
+   its bound (BF16_BOUND_FORMULA: 989 TFLOP/s, the dense bf16 tensor-core
+   peak) and, for kernels 3-5, SDPA in bf16 with a boolean key mask; then
+   bench.py's VITS2 workload (B16 at text buckets
    64/128/256 with 56/120/250 real tokens) at VITS2Config() from a bf16
    tree (``to_torch(..., dtype=torch.bfloat16)``) and from the f32 one
    through encode_for_infer and decode_from_durations, noise 0: every
@@ -546,7 +551,9 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=tor
     "separate") against its plain version, timed beside it and beside
     scaled_dot_product_attention on the same q, k, v with a boolean key mask
     (for "rope" on q and k rotated beforehand: the rotation is not in the
-    library's time)."""
+    library's time); in bf16 both also replayed from a CUDA graph
+    (``graph_ms``, ``library_graph_ms``), which leaves the host's cost of a
+    call out."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     c, sm = h * d, d**-0.5
@@ -585,25 +592,31 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=tor
         out["library_err"] = float((lib_out.float() - want.float()).abs().max())
         out["library_ms"] = cuda_ms(lib, iters)
         del lib_out
+        if dtype == BF16:  # replayed from a CUDA graph: the device's time without the host's
+            out["graph_ms"] = graph_ms(run, iters)
+            out["library_graph_ms"] = graph_ms(lib, iters)
     return out
 
 
 def tensor_core_instructions(library):
-    """Counts of HMMA and HGMMA instructions in a built library's SASS
-    (cuobjdump), in all its functions and, as "bf16", in the bf16
-    instantiations (function names with bf16 or bfloat16) those whose
-    operands are BF16; None where the toolkit has no cuobjdump."""
+    """Counts of HMMA and HGMMA instructions and of TMA tile loads
+    (UTMALDG) in a built library's SASS (cuobjdump), in all its functions
+    and, as "bf16", in the bf16 instantiations (function names with bf16 or
+    bfloat16): the products whose operands are BF16, and the TMA loads;
+    None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "--dump-sass", str(library)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     counts = {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
+    counts["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", sass))  # TMA tile loads
     # SASS lists each function under "Function : <mangled name>"
     bf16_sass = "".join(part for part in re.split(r"\n\s*Function : ", sass)[1:]
                         if re.match(r"\S*(bf16|bfloat16)", part))
     counts["bf16"] = {name: len(re.findall(rf"\b{name}\.\S*BF16", bf16_sass))
                       for name in ("HMMA", "HGMMA")}
+    counts["bf16"]["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", bf16_sass))
     return counts
 
 
@@ -1276,7 +1289,8 @@ def snr_db(ref, got):
 
 def bf16_kernel_cases():
     """Each bf16 kernel against its plain bf16 version on the card: the f32
-    cases' batched shape, a B1 or B2 shape, and a ragged T=37."""
+    cases' batched shape, a B1 or B2 shape, and a ragged T=37; kernels 4-5
+    also at B2 T512 (a grid of 64-row blocks) and B16 T1024 D48."""
     return {
         "banded_attention_bf16": [
             attention_case(16, 256, [256 - 9 * i for i in range(16)], 50, 20, 41, dtype=BF16),
@@ -1294,11 +1308,14 @@ def bf16_kernel_cases():
         "global_attention_packed_bf16": [
             global_case("packed", 16, 1024, 96, [1024 - 41 * i for i in range(16)], 20, 5, 50,
                         dtype=BF16),
-            global_case("packed", 1, 37, 96, [30], 0, 0, 51, dtype=BF16)],
+            global_case("packed", 1, 37, 96, [30], 0, 0, 51, dtype=BF16),
+            global_case("packed", 2, 512, 96, [437, 437], 50, 20, 54, dtype=BF16)],
         "global_attention_bf16": [
             global_case("separate", 16, 2048, 48, [2048 - 97 * i for i in range(16)], 10, 3, 52,
                         h=2, dtype=BF16),
-            global_case("separate", 1, 397, 48, [355], 50, 20, 53, h=2, dtype=BF16)]}
+            global_case("separate", 1, 397, 48, [355], 50, 20, 53, h=2, dtype=BF16),
+            global_case("separate", 16, 1024, 48, [1024 - 41 * i for i in range(16)], 20, 5, 55,
+                        h=2, dtype=BF16)]}
 
 
 def vits2_bf16_inputs(rng, text_bucket, n_real, cfg, dev):
@@ -4388,6 +4405,9 @@ def main() -> int:
         check(counts["HMMA"] + counts["HGMMA"] > 0, f"{source.name} has no tensor-core instruction")
         check(counts["bf16"]["HMMA"] + counts["bf16"]["HGMMA"] > 0,
               f"{source.name}'s bf16 symbols have no bf16 tensor-core instruction")
+        if source == fa.GLOBAL_KERNEL_BF16.library:  # wgmma on tiles that TMA loads
+            check(counts["bf16"]["HGMMA"] > 0 and counts["bf16"]["UTMALDG"] > 0,
+                  f"global_attention_bf16 has no BF16 HGMMA or no UTMALDG: {counts['bf16']}")
 
     # 3. kernels vs plain on the card
     att_tol, dds_tol = 1e-4, 1e-4
@@ -4644,6 +4664,8 @@ def main() -> int:
                 "rel_err": max(c["rel_err"] for c in bf16_cases[name]),
                 **{key: bf16_cases[name][0][key] for key in ("ms", "plain_ms", "bound_ms",
                                                              "bound_by")},
+                **{key: bf16_cases[name][0][key] for key in ("graph_ms", "library_graph_ms")
+                   if key in bf16_cases[name][0]},
                 "library_ms": bf16_cases[name][0].get("library_ms"),
                 "shape": bf16_cases[name][0]["shape"], "bound_formula": BF16_BOUND_FORMULA,
                 **({"note": notes[name[:-5]]} if name[:-5] in notes else {})}

@@ -10,7 +10,9 @@ score tiles and running max in bf16 (a TPU economy the port leaves out), so
 the two differ by bf16 roundings: each tolerance is about twice the largest
 error measured here, relative to max |out| (bf16's unit roundoff is 2^-8 =
 3.9e-3), and stated beside the case. The wrappers refuse mixed or
-non-floating dtypes.
+non-floating dtypes. The bf16 global kernel's block height
+(``global_block_rows``) is a pure function of the shape and the card's SM
+count, held here to the rule its source states.
 """
 
 import numpy as np
@@ -188,3 +190,16 @@ def test_ddsconv_refuses_mixed_dtypes():
     x, mask = torch.zeros(1, 8, 32, dtype=BF16), torch.ones(1, 8, 1, dtype=BF16)
     with pytest.raises(ValueError, match="dtype"):
         tddf.ddsconv_fused(x, mask, params, kernel_size=3)
+
+
+# (B, H, T, rows) on a 132-SM card: 64-row blocks where twice the 128-row grid
+# fits on the SMs at once (the DiT's one-request shapes, one flow request),
+# else 128 (the batched DiT, the flow batch)
+@pytest.mark.parametrize("b,h,t,rows", [(2, 4, 512, 64), (1, 2, 397, 64), (1, 4, 64, 64),
+                                        (4, 4, 512, 64), (5, 4, 512, 128), (16, 4, 256, 128),
+                                        (16, 4, 1024, 128), (16, 2, 2048, 128), (2, 4, 2048, 128)])
+def test_global_block_rows(b, h, t, rows):
+    assert tfa.global_block_rows(b, h, t, 132) == rows
+    blocks = -(-t // rows) * h * b
+    assert blocks <= 132 if rows == 64 else 2 * -(-t // 128) * h * b > 132
+    assert tfa.global_block_rows(b, h, t, 2 * blocks * (rows // 64)) == 64  # a card twice as wide

@@ -24,7 +24,13 @@ here:
   (with cuDNN's TF32 on in the process, such features read 8.428e-4 x
   peak off the CPU's);
 * the bf16 rows of the kernel table (chip_smoke.bf16_kernel_cases), each
-  kernel within chip_smoke.BF16_TOL of its plain bf16 version.
+  kernel within chip_smoke.BF16_TOL of its plain bf16 version;
+* the bf16 global kernel (TMA and wgmma) against its plain bf16 version
+  within chip_smoke.BF16_TOL in each form (RoPE, packed, separate) at D 48,
+  64 and 96 and T 37, 65 and 129 with kv_len 0, 1, T and ragged in one
+  batch; at grids of 128-row and of 64-row blocks; and a view that TMA
+  cannot load (a start off 16 bytes, a row stride off 8 values) raises
+  ValueError before any launch.
 """
 
 import json
@@ -206,10 +212,81 @@ def test_bf16_kernel_rows(dev):
     """The bf16 rows of PERF.md's kernel table: each bf16 wrapper at the
     main paths' shapes against its plain bf16 version, kernel, plain and
     library (SDPA bf16) ms and the bound."""
-    print("\n| kernel | shape | rel err | kernel ms | plain ms | library ms | bound ms | by |")
+    print("\n| kernel | shape | rel err | kernel ms | graph ms | plain ms | library ms | "
+          "library graph ms | bound ms | by |")
     for name, cases in chip_smoke.bf16_kernel_cases().items():
         for c in cases:
             print(f"| {name} | {c['shape']} | {c['rel_err']:.3e} | {c.get('ms', 'n/a')} | "
-                  f"{c.get('plain_ms', 'n/a')} | {c.get('library_ms')} | {c.get('bound_ms')} | "
-                  f"{c.get('bound_by')} |")
+                  f"{c.get('graph_ms')} | {c.get('plain_ms', 'n/a')} | {c.get('library_ms')} | "
+                  f"{c.get('library_graph_ms')} | {c.get('bound_ms')} | {c.get('bound_by')} |")
             assert c["rel_err"] <= chip_smoke.BF16_TOL, (name, c)
+
+
+def _global_inputs(dev, b, t, h, d, lengths, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device=dev).to(BF16)
+    return qkv, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _run_global(form, qkv, kv_len, h, d):
+    """The form's wrapper and the plain bf16 version on the same q, k, v."""
+    c, sm = h * d, d**-0.5
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    d_rope = stabletts.d_rope_of(d) if form == "rope" else 0
+    if form == "rope":
+        got = fa.global_flash_attention_rope(qkv, kv_len, n_heads=h, sm_scale=sm, d_rope=d_rope)
+    elif form == "packed":
+        got = fa.global_flash_attention_packed(qkv, kv_len, n_heads=h, sm_scale=sm)
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        got = fa.global_flash_attention(q, k, v, kv_len, n_heads=h, sm_scale=sm)
+    want = fa.global_attention_plain(q, k, v, kv_len, n_heads=h, sm_scale=sm, d_rope=d_rope)
+    return got, want
+
+
+# kv_len 0, 1, T and ragged in one batch; T ragged against the 64-key tiles and
+# the 64- and 128-row blocks; the three head widths the port serves (D48 the
+# flow attention, D64 and D96 the DiT)
+@pytest.mark.parametrize("t", [37, 65, 129])
+@pytest.mark.parametrize("d", [48, 64, 96])
+@pytest.mark.parametrize("form", ["rope", "packed", "separate"])
+def test_global_bf16_kernel_matches_plain(dev, form, d, t):
+    h = 2
+    qkv, kv_len = _global_inputs(dev, 4, t, h, d, [0, 1, t, 2 * t // 3], 60 + t + d)
+    got, want = _run_global(form, qkv, kv_len, h, d)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    print(f"[cuda bf16] global {form} B4 H{h} T{t} D{d}: {err:.3e} x max|out|")
+    assert err <= chip_smoke.BF16_TOL
+
+
+# grids of 128-row blocks (two consumer warpgroups), one with a block whose
+# second warpgroup's rows all lie past T, and a small grid of 64-row blocks
+@pytest.mark.parametrize("form,b,h,t,d", [("rope", 16, 4, 256, 64), ("packed", 32, 4, 129, 96),
+                                         ("separate", 16, 2, 1000, 48), ("rope", 2, 4, 512, 96)])
+def test_global_bf16_kernel_block_rows(dev, form, b, h, t, d):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = fa.global_block_rows(b, h, t, sms)
+    lengths = [t - (7 * i) % t for i in range(b)]
+    qkv, kv_len = _global_inputs(dev, b, t, h, d, lengths, 70 + b)
+    got, want = _run_global(form, qkv, kv_len, h, d)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    print(f"[cuda bf16] global {form} B{b} H{h} T{t} D{d}, {rows}-row blocks: {err:.3e}")
+    assert err <= chip_smoke.BF16_TOL
+
+
+@pytest.mark.parametrize("fault", ["start", "stride"])
+def test_global_bf16_kernel_refuses_what_tma_cannot_load(dev, fault):
+    """A view that does not start on 16 bytes, or whose row stride is not a
+    multiple of 8 values: ValueError, before any launch."""
+    h, d, t = 2, 64, 64
+    c = h * d
+    wide = torch.zeros(2, t, 3 * c + 8 if fault == "start" else 3 * c + 1, dtype=BF16, device=dev)
+    qkv = wide[..., 1:1 + 3 * c] if fault == "start" else wide[..., :3 * c]
+    kv_len = torch.tensor([t, t], dtype=torch.int32, device=dev)
+    before = fa.GLOBAL_PACKED_KERNEL_BF16.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.global_flash_attention_packed(qkv, kv_len, n_heads=h, sm_scale=d**-0.5)
+    assert fa.GLOBAL_PACKED_KERNEL_BF16.launches == before

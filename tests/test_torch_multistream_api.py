@@ -20,6 +20,7 @@ import pytest
 import jax
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu import api as japi
 from vosk_tts_tpu.models import bert as jbert
 from vosk_tts_tpu.models import stabletts as jst
@@ -60,7 +61,14 @@ def _torch_threads():
 
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
-    out = tmp_path_factory.mktemp("msbundle") / "multistream-v3-port-test"
+    """A multistream_v3 bundle from the JAX inits (op by op: most of the
+    file's time), written once a run and read by every xdist worker
+    (tests/torch_shared.py)."""
+    return shared(tmp_path_factory, "msbundle", _write_bundle)[0] / "multistream-v3-port-test"
+
+
+def _write_bundle(root):
+    out = root / "multistream-v3-port-test"
     (out / "bert").mkdir(parents=True)
     cfg = jst.StableTTSConfig(**MS_CFG)
     matcha = perturb_matcha_zero_init(jax.device_get(jst.matcha_init(jax.random.PRNGKey(0), cfg)),
@@ -78,7 +86,6 @@ def bundle(tmp_path_factory):
                    "phoneme_id_map": j_ms_map(), "inference": {"n_timesteps": 3},
                    "model": dataclasses.asdict(cfg)}, f, ensure_ascii=False)
     (out / "dictionary").write_text("привет 1.0 p rj i0 vj e1 t\n", encoding="utf-8")
-    return out
 
 
 @pytest.mark.parametrize("adaptive", ["1", "0"])

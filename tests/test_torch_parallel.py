@@ -61,6 +61,7 @@ import torch
 from jax.sharding import Mesh
 
 import torch_parallel_worker as W
+from torch_shared import shared
 from vosk_tts_tpu.models import vits2 as jv
 from vosk_tts_tpu.parallel import tp as jtp
 from vosk_tts_tpu.train import vits2_train as jt
@@ -218,15 +219,18 @@ def runs(tmp_path_factory):
     """The JAX step (in a process of its own, so that its compile's memory
     goes with it), then the 1-process reference, then the 2-rank job, then
     the 4-rank job: one at a time, so that the file's memory peak is one
-    job's."""
-    root = tmp_path_factory.mktemp("parallel")
-    noise = _jax_noise(jax.random.PRNGKey(1), jv.VITS2Config(**W.VITS2))
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        jax_step = pool.submit(_jax_step, 1).result(timeout=JOB_TIMEOUT)
-    _join(_start(root / "ref", None, (*TWO_RANKS, "dptp"), noise))
-    _join(_start(root / "two", 2, TWO_RANKS, noise))
-    _join(_start(root / "four", 4, ("dptp",), noise))
-    return Runs(root, jax_step)
+    job's. Built once a run and read by every xdist worker
+    (tests/torch_shared.py)."""
+    def build(root):
+        noise = _jax_noise(jax.random.PRNGKey(1), jv.VITS2Config(**W.VITS2))
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            jax_step = pool.submit(_jax_step, 1).result(timeout=JOB_TIMEOUT)
+        _join(_start(root / "ref", None, (*TWO_RANKS, "dptp"), noise))
+        _join(_start(root / "two", 2, TWO_RANKS, noise))
+        _join(_start(root / "four", 4, ("dptp",), noise))
+        return jax_step
+
+    return Runs(*shared(tmp_path_factory, "parallel", build))
 
 
 def _check_dp(got, ref, name):

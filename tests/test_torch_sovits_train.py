@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import gpt_sovits as jg
 from vosk_tts_tpu.ops import rvq as jrvq
 from vosk_tts_tpu.train import gpt_sovits_data as jdata
@@ -222,7 +223,9 @@ def _recording(make):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
+    """The JAX S2 step and the forward on its own (their outputs built once
+    a run and read by every xdist worker: tests/torch_shared.py)."""
     jcfg, jtcfg = jg.SoVITSConfig(**SOVITS), jtrain.S2TrainConfig(**TRAIN)
     mcfg = tg.SoVITSConfig(**SOVITS)
     trees = {"g": P.perturb_zero_init(P.sovits_init(mcfg, 0), seed=1), "d": P.mpd_init(2)}
@@ -230,38 +233,44 @@ def setup():
     assert jax.tree.structure(trees["g"]) == jax.tree.structure(want)
     assert jax.tree.map(np.shape, trees["g"]) == jax.tree.map(lambda a: a.shape, want)
     batch = _batch()
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
     key = jax.random.PRNGKey(12)
-    make = jtrain.make_optimizer
-    jtrain.make_optimizer = _recording(make)
-    try:
-        step, opt = jtrain.make_s2_step(jcfg, jtcfg), jtrain.make_optimizer(jtcfg)
+    fkey = jax.random.PRNGKey(13)
 
-        def run(params, batch, key):
-            state = {"step": jnp.zeros((), jnp.int32), "params_g": params["g"],
-                     "params_d": params["d"], "opt_g": opt.init(params["g"]),
-                     "opt_d": opt.init(params["d"]), "vq": jrvq.state_init(16, 16)}
-            new_state, metrics = step(state, batch, key)
-            return metrics, {"g": new_state["opt_g"][1], "d": new_state["opt_d"][1]}, \
-                new_state["vq"]
+    def build(_):
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        make = jtrain.make_optimizer
+        jtrain.make_optimizer = _recording(make)
+        try:
+            step, opt = jtrain.make_s2_step(jcfg, jtcfg), jtrain.make_optimizer(jtcfg)
 
-        metrics, grads, vq = jax.device_get(jax.jit(run)(
-            {"g": trees["g"], "d": step_disc(trees["d"])}, jb, key))
-    finally:
-        jtrain.make_optimizer = make
+            def run(params, batch, key):
+                state = {"step": jnp.zeros((), jnp.int32), "params_g": params["g"],
+                         "params_d": params["d"], "opt_g": opt.init(params["g"]),
+                         "opt_d": opt.init(params["d"]), "vq": jrvq.state_init(16, 16)}
+                new_state, metrics = step(state, batch, key)
+                return metrics, {"g": new_state["opt_g"][1], "d": new_state["opt_d"][1]}, \
+                    new_state["vq"]
+
+            metrics, grads, vq = jax.device_get(jax.jit(run)(
+                {"g": trees["g"], "d": step_disc(trees["d"])}, jb, key))
+        finally:
+            jtrain.make_optimizer = make
+        # the forward on its own, from the step's pre-update codebook
+        fwd = jax.device_get(jax.jit(lambda g, b, k: jg.sovits_forward_train(
+            g, jcfg, b["ssl"], b["spec"], b["spec_lengths"], b["text"], b["text_lengths"],
+            rng=k))(trees["g"], jb, fkey))
+        jax.clear_caches()
+        return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads, "vq": vq,
+                "forward": fwd}
+
+    ref = shared(tmp_path_factory, "sovits_train_setup", build)[1]
     # the step's draws: k-means rows from r_init, then the forward's
     rng, r_vq = jax.random.split(key)
     r_init, _ = jax.random.split(r_vq)
     step_noise = {"kmeans_ids": _t(_sample_ids(r_init, B * TF // 2, 16)), **_jax_noise(rng)}
-    # the forward on its own, from the step's pre-update codebook
-    fkey = jax.random.PRNGKey(13)
-    fwd = jax.device_get(jax.jit(lambda g, b, k: jg.sovits_forward_train(
-        g, jcfg, b["ssl"], b["spec"], b["spec_lengths"], b["text"], b["text_lengths"], rng=k))(
-        trees["g"], jb, fkey))
-    jax.clear_caches()
     return {"mcfg": mcfg, "tcfg": ttrain.S2TrainConfig(**TRAIN), "trees": trees, "batch": batch,
-            "metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads, "vq": vq,
-            "step_noise": step_noise, "forward": fwd, "forward_noise": _jax_noise(fkey)}
+            "metrics": ref["metrics"], "grads": ref["grads"], "vq": ref["vq"],
+            "step_noise": step_noise, "forward": ref["forward"], "forward_noise": _jax_noise(fkey)}
 
 
 def test_sovits_forward_train(setup):

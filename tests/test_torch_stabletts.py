@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import stabletts as jst
 from vosk_tts_tpu_torch.models import stabletts as tst
 from vosk_tts_tpu_torch.utils.params import perturb_matcha_zero_init, to_port_layout, to_torch
@@ -43,11 +44,13 @@ def _torch_threads():
 
 
 @pytest.fixture(scope="module")
-def model():
-    """(jax cfg, port cfg, jax tree (numpy), port tree (tensors))."""
+def model(tmp_path_factory):
+    """(jax cfg, port cfg, jax tree (numpy), port tree (tensors)); the tree,
+    from the JAX init op by op, is built once a run and read by every xdist
+    worker (tests/torch_shared.py)."""
     jcfg = jst.StableTTSConfig(**CFG)
-    tree = perturb_matcha_zero_init(jax.device_get(jst.matcha_init(jax.random.PRNGKey(0), jcfg)),
-                                    seed=1)
+    tree = shared(tmp_path_factory, "stabletts_model", lambda _: perturb_matcha_zero_init(
+        jax.device_get(jst.matcha_init(jax.random.PRNGKey(0), jcfg)), seed=1))[1]
     return jcfg, tst.StableTTSConfig(**CFG), tree, to_torch(tst.port_layout(tree), "cpu")
 
 

@@ -46,6 +46,7 @@ import jax.numpy as jnp
 import optax
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import bert as jbert
 from vosk_tts_tpu.models import stabletts as jst
 from vosk_tts_tpu.ops import commons as jcommons
@@ -136,7 +137,9 @@ def _port_batch(batch):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
+    """One accumulation cycle of the JAX step (its outputs built once a run
+    and read by every xdist worker: tests/torch_shared.py)."""
     jcfg = jst.StableTTSConfig(**CFG)
     tree = P.perturb_matcha_zero_init(P.matcha_init(tst.StableTTSConfig(**CFG), 0), seed=1)
     want = jax.eval_shape(lambda k: jst.matcha_init(k, jcfg), jax.random.PRNGKey(0))
@@ -147,29 +150,35 @@ def setup():
     noise = _jax_noise(keys[0])
     u = noise["cfg"][:, 0]
     cfg_dropout = float(u.min() + u.max()) / 2  # one row keeps its speaker, one takes the fakes
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
     # one accumulation cycle of the JAX step (4 micro-steps, one key each) as
     # one compiled scan, the gradient each micro-step gave the optimizer recorded
-    tcfg = jtrain.StableTrainConfig(cfg_dropout=cfg_dropout)
-    make = jtrain.make_optimizer
-    jtrain.make_optimizer = _recording(make)
-    try:
-        step, opt = jtrain.make_train_step(jcfg, tcfg), jtrain.make_optimizer(tcfg)
+    def build(_):
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        tcfg = jtrain.StableTrainConfig(cfg_dropout=cfg_dropout)
+        make = jtrain.make_optimizer
+        jtrain.make_optimizer = _recording(make)
+        try:
+            step, opt = jtrain.make_train_step(jcfg, tcfg), jtrain.make_optimizer(tcfg)
 
-        def run(params, batch, keys):
-            state = {"step": jnp.zeros((), jnp.int32), "params": params, "opt": opt.init(params)}
+            def run(params, batch, keys):
+                state = {"step": jnp.zeros((), jnp.int32), "params": params,
+                         "opt": opt.init(params)}
 
-            def body(state, key):
-                state, metrics = step(state, batch, key)
-                return state, (metrics, state["opt"][1])
-            state, (metrics, grads) = jax.lax.scan(body, state, keys)
-            return state["params"], metrics, jax.tree.map(lambda g: g[0], grads)
+                def body(state, key):
+                    state, metrics = step(state, batch, key)
+                    return state, (metrics, state["opt"][1])
+                state, (metrics, grads) = jax.lax.scan(body, state, keys)
+                return state["params"], metrics, jax.tree.map(lambda g: g[0], grads)
 
-        params, metrics, grads = jax.jit(run)(tree, jb, keys)
-    finally:
-        jtrain.make_optimizer = make
-    metrics = jax.device_get(metrics)
+            params, metrics, grads = jax.jit(run)(tree, jb, keys)
+        finally:
+            jtrain.make_optimizer = make
+        return {"params": jax.device_get(params), "metrics": jax.device_get(metrics),
+                "grads": jax.device_get(grads)}
+
+    ref = shared(tmp_path_factory, "stabletts_train_setup", build)[1]
+    metrics = ref["metrics"]
     x_mask = (np.arange(TX)[None] < np.asarray(X_LENGTHS)[:, None]).astype(np.float32)
     y_mask = (np.arange(TF)[None] < np.asarray(MEL_LENGTHS)[:, None]).astype(np.float32)
     attn = jcommons.generate_path(batch["durations"].astype(np.float32), x_mask, y_mask)
@@ -177,8 +186,7 @@ def setup():
             "noise": noise, "cfg_dropout": cfg_dropout,
             "forward": {"diff_loss": metrics["diff_loss"][0], "dur_loss": metrics["dur_loss"][0],
                         "attn": np.asarray(attn)},
-            "grads": jax.device_get(grads), "cycle_keys": keys,
-            "cycle_params": jax.device_get(params),
+            "grads": ref["grads"], "cycle_keys": keys, "cycle_params": ref["params"],
             "cycle_metrics": [{k: float(v[i]) for k, v in metrics.items()} for i in range(4)]}
 
 

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import optax
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import discriminators as jd
 from vosk_tts_tpu.models import vits2 as jv
 from vosk_tts_tpu.ops import mas as jmas
@@ -150,36 +151,43 @@ def _trees(jcfg, tcfg):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     """The JAX step and forward_train from the same key, compiled as one
     function with the state's construction inside: the metrics, the
-    gradients each optimizer was given, and forward_train's outputs."""
+    gradients each optimizer was given, and forward_train's outputs (built
+    once a run and read by every xdist worker: tests/torch_shared.py)."""
     jcfg, tcfg_j = jv.VITS2Config(**CFG), jt.TrainConfig(**TRAIN)
     trees = _trees(jcfg, tcfg_j)
     batch = _batch()
     key = jax.random.PRNGKey(1)
-    make = jt.make_optimizer
-    jt.make_optimizer = _recording(make)
-    try:
-        step, opt = jt.make_train_step(jcfg, tcfg_j), jt.make_optimizer(tcfg_j)
 
-        def run(params, batch, key):
-            state = {"step": jnp.zeros((), jnp.int32),
-                     **{f"params_{k}": v for k, v in params.items()},
-                     **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
-            new_state, metrics = step(state, batch, key)
-            fwd = jv.forward_train(params["g"], jcfg, batch["x"], batch["x_lengths"], batch["mel"],
-                                   batch["mel_lengths"], batch["sid"], rng=key)
-            return metrics, {k: new_state[f"opt_{k}"][1] for k in params}, fwd
+    def build(_):
+        make = jt.make_optimizer
+        jt.make_optimizer = _recording(make)
+        try:
+            step, opt = jt.make_train_step(jcfg, tcfg_j), jt.make_optimizer(tcfg_j)
 
-        metrics, grads, fwd = jax.jit(run)(trees, {k: jnp.asarray(v) for k, v in batch.items()},
-                                           key)
-    finally:
-        jt.make_optimizer = make
+            def run(params, batch, key):
+                state = {"step": jnp.zeros((), jnp.int32),
+                         **{f"params_{k}": v for k, v in params.items()},
+                         **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
+                new_state, metrics = step(state, batch, key)
+                fwd = jv.forward_train(params["g"], jcfg, batch["x"], batch["x_lengths"],
+                                       batch["mel"], batch["mel_lengths"], batch["sid"], rng=key)
+                return metrics, {k: new_state[f"opt_{k}"][1] for k in params}, fwd
+
+            metrics, grads, fwd = jax.jit(run)(trees, {k: jnp.asarray(v)
+                                                       for k, v in batch.items()}, key)
+        finally:
+            jt.make_optimizer = make
+        return {"noise": _jax_noise(key, jcfg),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": jax.device_get(grads), "forward": jax.device_get(fwd)}
+
+    ref = shared(tmp_path_factory, "train_setup", build)[1]
     return {"jcfg": jcfg, "tcfg": tt.TrainConfig(**TRAIN), "trees": trees, "batch": batch,
-            "noise": _jax_noise(key, jcfg), "key": key,
-            "metrics": {k: float(v) for k, v in metrics.items()}, "grads": jax.device_get(grads),
-            "forward": jax.device_get(fwd)}
+            "noise": ref["noise"], "key": key, "metrics": ref["metrics"], "grads": ref["grads"],
+            "forward": ref["forward"]}
 
 
 def _port_state(setup):

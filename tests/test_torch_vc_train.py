@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import discriminators as jd
 from vosk_tts_tpu.models import quickvc as jq
 from vosk_tts_tpu.train import gpt_sovits_data as jgd
@@ -238,7 +239,9 @@ def test_driver_needs_cuda_without_device(vc_corpus, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
+    """The JAX VC step, forward_train and mpd_apply (their outputs built
+    once a run and read by every xdist worker: tests/torch_shared.py)."""
     jcfg, jtcfg = jq.QuickVCConfig(**CFG), jtrain.VCTrainConfig(**TRAIN)
     mcfg = tq.QuickVCConfig(**CFG)
     trees = {"g": P.perturb_zero_init(P.quickvc_init(mcfg, 0), seed=3), "d": P.mpd_init(1)}
@@ -250,31 +253,37 @@ def setup():
     rng = np.random.default_rng(5)
     y, y_hat = (rng.standard_normal((B, 700)).astype(np.float32) * 0.3 for _ in range(2))
     key = jax.random.PRNGKey(1)
-    make = jtrain.make_optimizer
-    jtrain.make_optimizer = _recording(make)
-    try:
-        step, opt = jtrain.make_train_step(jcfg, jtcfg), jtrain.make_optimizer(jtcfg)
 
-        def run(params, batch, key):
-            state = {"step": jnp.zeros((), jnp.int32),
-                     **{f"params_{k}": v for k, v in params.items()},
-                     **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
-            new_state, metrics = step(state, batch, key)
-            return metrics, {k: new_state[f"opt_{k}"][1] for k in params}
+    def build(_):
+        make = jtrain.make_optimizer
+        jtrain.make_optimizer = _recording(make)
+        try:
+            step, opt = jtrain.make_train_step(jcfg, jtcfg), jtrain.make_optimizer(jtcfg)
 
-        jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        metrics, grads = jax.device_get(jax.jit(run)(
-            {"g": trees["g"], "d": step_disc(trees["d"])}, jb, key))
-    finally:
-        jtrain.make_optimizer = make
-    fwd = jax.device_get(jax.jit(lambda g, b, k: jq.forward_train(g, jcfg, b["c"], b["spec"],
-                                                                    b["mel"], rng=k))(
-        trees["g"], jb, key))
-    mpd = jax.device_get(jax.jit(jd.mpd_apply)(trees["d"], y, y_hat))
-    jax.clear_caches()
+            def run(params, batch, key):
+                state = {"step": jnp.zeros((), jnp.int32),
+                         **{f"params_{k}": v for k, v in params.items()},
+                         **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
+                new_state, metrics = step(state, batch, key)
+                return metrics, {k: new_state[f"opt_{k}"][1] for k in params}
+
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            metrics, grads = jax.device_get(jax.jit(run)(
+                {"g": trees["g"], "d": step_disc(trees["d"])}, jb, key))
+        finally:
+            jtrain.make_optimizer = make
+        fwd = jax.device_get(jax.jit(lambda g, b, k: jq.forward_train(g, jcfg, b["c"], b["spec"],
+                                                                        b["mel"], rng=k))(
+            trees["g"], jb, key))
+        mpd = jax.device_get(jax.jit(jd.mpd_apply)(trees["d"], y, y_hat))
+        jax.clear_caches()
+        return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+                "forward": fwd, "mpd": mpd}
+
+    ref = shared(tmp_path_factory, "vc_train_setup", build)[1]
     return {"mcfg": mcfg, "tcfg": ttrain.VCTrainConfig(**TRAIN), "trees": trees, "batch": batch,
-            "noise": _jax_noise(key), "metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": grads, "forward": fwd, "mpd": (y, y_hat, mpd)}
+            "noise": _jax_noise(key), "metrics": ref["metrics"], "grads": ref["grads"],
+            "forward": ref["forward"], "mpd": (y, y_hat, ref["mpd"])}
 
 
 def test_mpd_apply(setup):

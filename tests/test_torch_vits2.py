@@ -23,6 +23,7 @@ import pytest
 import jax
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu import api as japi
 from vosk_tts_tpu.models import vits2 as jv
 from vosk_tts_tpu.text import plain_symbol_map
@@ -45,11 +46,13 @@ def _torch_threads():
 
 
 @pytest.fixture(scope="module")
-def model():
-    """(jax cfg, port cfg, jax tree (numpy), port tree (tensors))."""
+def model(tmp_path_factory):
+    """(jax cfg, port cfg, jax tree (numpy), port tree (tensors)); the tree,
+    from the JAX init op by op, is built once a run and read by every xdist
+    worker (tests/torch_shared.py)."""
     jcfg = jv.VITS2Config(**CFG)
-    tree = perturb_zero_init(jax.device_get(jv.synthesizer_init(jax.random.PRNGKey(0), jcfg)),
-                             seed=1)
+    tree = shared(tmp_path_factory, "vits2_model", lambda _: perturb_zero_init(
+        jax.device_get(jv.synthesizer_init(jax.random.PRNGKey(0), jcfg)), seed=1))[1]
     return jcfg, tv.VITS2Config(**CFG), tree, to_torch(to_port_layout(tree), "cpu")
 
 

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import optax
 import torch
 
+from torch_shared import shared
 from vosk_tts_tpu.models import vits2 as jv
 from vosk_tts_tpu.models import wavlm as jw
 from vosk_tts_tpu.train import vits2_train as jt
@@ -157,11 +158,13 @@ def _recording(make):
 _RUNS = {}
 
 
-def _run(flow):
+def _run(flow, tmp_path_factory):
     """The JAX side of a variant, once a module: its trees (bundle layout),
     the batch, the draws, ``forward_train``'s outputs and, for the STEPS
     variants, one step's metrics and the gradients each optimizer was given
-    (the step and forward_train compiled as one function)."""
+    (the step and forward_train compiled as one function). The JAX outputs
+    are built once a run and read by every xdist worker
+    (tests/torch_shared.py)."""
     if flow in _RUNS:
         return _RUNS[flow]
     cfg = _cfg(flow)
@@ -170,12 +173,13 @@ def _run(flow):
     trees = {"g": P.perturb_zero_init(P.synthesizer_init(mcfg, 10 + i), 20 + i)}
     batch = _batch()
     key = jax.random.PRNGKey(1 + i)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     out = {"cfg": cfg, "trees": trees, "batch": batch, "noise": _jax_noise(key, jcfg)}
     fwd = lambda g, b, k: jv.forward_train(g, jcfg, b["x"], b["x_lengths"], b["mel"],
                                            b["mel_lengths"], b["sid"], rng=k)
+    jbatch = lambda: {k: jnp.asarray(v) for k, v in batch.items()}
     if flow not in STEPS:
-        out["forward"] = jax.device_get(jax.jit(fwd)(trees["g"], jbatch, key))
+        out.update(shared(tmp_path_factory, f"variants_train_{flow}", lambda _: {
+            "forward": jax.device_get(jax.jit(fwd)(trees["g"], jbatch(), key))})[1])
         _RUNS[flow] = out
         return out
 
@@ -191,24 +195,28 @@ def _run(flow):
                                         SLM_INITIAL)
         slm = {"params": out["wavlm"], "cfg": jw.WavLMConfig(**WAVLM)}
     tcfg = jt.TrainConfig(**TRAIN, use_dur_disc=use_dur, use_slm=use_slm)
-    make = jt.make_optimizer
-    jt.make_optimizer = _recording(make)
-    try:
-        step, opt = jt.make_train_step(jcfg, tcfg, slm=slm), jt.make_optimizer(tcfg)
 
-        def run(params, batch, key):
-            state = {"step": jnp.zeros((), jnp.int32),
-                     **{f"params_{k}": v for k, v in params.items()},
-                     **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
-            new_state, metrics = step(state, batch, key)
-            return (metrics, {k: new_state[f"opt_{k}"][1] for k in params},
-                    fwd(params["g"], batch, key))
+    def build(_):
+        make = jt.make_optimizer
+        jt.make_optimizer = _recording(make)
+        try:
+            step, opt = jt.make_train_step(jcfg, tcfg, slm=slm), jt.make_optimizer(tcfg)
 
-        metrics, grads, forward = jax.jit(run)(trees, jbatch, key)
-    finally:
-        jt.make_optimizer = make
-    out.update(metrics={k: float(v) for k, v in metrics.items()}, grads=jax.device_get(grads),
-               forward=jax.device_get(forward),
+            def run(params, batch, key):
+                state = {"step": jnp.zeros((), jnp.int32),
+                         **{f"params_{k}": v for k, v in params.items()},
+                         **{f"opt_{k}": opt.init(v) for k, v in params.items()}}
+                new_state, metrics = step(state, batch, key)
+                return (metrics, {k: new_state[f"opt_{k}"][1] for k in params},
+                        fwd(params["g"], batch, key))
+
+            metrics, grads, forward = jax.jit(run)(trees, jbatch(), key)
+        finally:
+            jt.make_optimizer = make
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": jax.device_get(grads), "forward": jax.device_get(forward)}
+
+    out.update(shared(tmp_path_factory, f"variants_train_{flow}", build)[1],
                tcfg=tt.TrainConfig(**TRAIN, use_dur_disc=use_dur, use_slm=use_slm))
     _RUNS[flow] = out
     return out
@@ -231,8 +239,8 @@ def _port_step(run, compute_dtype=None):
 
 
 @pytest.mark.parametrize("flow", list(BUNDLES))
-def test_forward_train(flow):
-    run = _run(flow)
+def test_forward_train(flow, tmp_path_factory):
+    run = _run(flow, tmp_path_factory)
     want = run["forward"]
     pb = _port_batch(run["batch"])
     with torch.no_grad():
@@ -257,8 +265,8 @@ def test_forward_train(flow):
 
 
 @pytest.mark.parametrize("flow", list(STEPS))
-def test_train_step_losses_and_grads(flow):
-    run = _run(flow)
+def test_train_step_losses_and_grads(flow, tmp_path_factory):
+    run = _run(flow, tmp_path_factory)
     state, step = _port_step(run)
     metrics = step(state, _port_batch(run["batch"]),
                    noise={k: _t(v) for k, v in run["noise"].items()})
@@ -286,10 +294,10 @@ def test_train_step_losses_and_grads(flow):
               f"of {len(want)} tensors held to the floor {floor:.3e}")
 
 
-def test_bf16_slm_step_is_finite():
+def test_bf16_slm_step_is_finite(tmp_path_factory):
     """``compute_dtype`` covers the WavLM, its discriminator and the
     resampler: a bf16 SLM step (no JAX counterpart) gives finite losses."""
-    run = _run("mono_layer_inter_residual")
+    run = _run("mono_layer_inter_residual", tmp_path_factory)
     state, step = _port_step(run, compute_dtype=torch.bfloat16)
     metrics = step(state, _port_batch(run["batch"]),
                    noise={k: _t(v) for k, v in run["noise"].items()})

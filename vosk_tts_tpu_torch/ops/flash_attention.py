@@ -38,8 +38,11 @@ or separate (B, T, C) tensors, read through strides. The TPU version's
 Both kernels take float32 or bfloat16 (every tensor in one dtype, as the
 JAX gates ``supported``/``global_supported`` admit both), each dtype a
 symbol of its own and a launch count of its own. In bf16 the products take
-bf16 operands and accumulate in f32 (one ``mma.sync`` m16n8k16 a fragment
-where f32 takes three 3xTF32 products); the scores, the running max, the
+bf16 operands and accumulate in f32 (banded: one ``mma.sync`` m16n8k16 a
+fragment where f32 takes three 3xTF32 products; global: ``wgmma`` on
+tiles that TMA loads, so bf16 q, k and v must start on 16 bytes and have
+batch and row strides of multiples of 8 values, else ValueError); the
+scores, the running max, the
 row sums and the output accumulator are f32; p is rounded to bf16 before
 p.v (and before p.rel_v); RoPE rotates in f32 from the f32 tables and
 rounds the rotated q and k to bf16; the output is bf16. The JAX kernels
@@ -64,14 +67,17 @@ KERNEL = CudaKernel("banded_attention.cu", "banded_attention_f32", _BANDED_ARGS)
 KERNEL_BF16 = CudaKernel("banded_attention.cu", "banded_attention_bf16", _BANDED_ARGS)
 
 _GLOBAL_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, L, L, F, P]
+_GLOBAL_ARGS_BF16 = _GLOBAL_ARGS[:-1] + [I, P]  # + the query rows a block
 #: one source, three wrappers a dtype, each with its own launch count
 GLOBAL_ROPE_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
 GLOBAL_PACKED_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
 GLOBAL_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
-GLOBAL_ROPE_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16", _GLOBAL_ARGS)
+GLOBAL_ROPE_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16",
+                                     _GLOBAL_ARGS_BF16)
 GLOBAL_PACKED_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16",
-                                       _GLOBAL_ARGS)
-GLOBAL_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16", _GLOBAL_ARGS)
+                                       _GLOBAL_ARGS_BF16)
+GLOBAL_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16", _GLOBAL_ARGS_BF16)
+TMA_ENCODE_ERROR = 100000  # global_attention_bf16's code for a refused tensor map
 
 
 def check_dtypes(what: str, *tensors) -> torch.dtype:
@@ -233,14 +239,26 @@ def global_attention_plain(q, k, v, kv_len, *, n_heads: int, sm_scale: float, d_
     return torch.matmul(p, v).transpose(1, 2).reshape(b, t, c).to(dtype)
 
 
-def _launch_global(kernels, q, k, v, kv_len, *, n_heads, sm_scale, d_rope, stride_b, stride_t):
+_SMS: dict = {}  # device -> its streaming multiprocessors
+
+
+def global_block_rows(b: int, h: int, t: int, n_sm: int) -> int:
+    """Query rows a block of the bf16 global kernel takes (a block an SM):
+    64 (one consumer warpgroup) where twice the blocks of 128 rows still
+    fit on the card's ``n_sm`` SMs at once, which spreads a small grid over
+    twice the SMs; else 128 (two consumer warpgroups)."""
+    return 64 if 2 * -(-t // 128) * h * b <= n_sm else 128
+
+
+def _launch_global(kernels, inputs, ptrs, kv_len, *, b, t, c, n_heads, sm_scale, d_rope,
+                   stride_b, stride_t):
     """Check the arguments of the global kernel and launch the one of
-    ``kernels`` (float32, bfloat16) for their dtype; q, k, v are views that
-    share (stride_b, stride_t) and have unit feature stride. Returns (the
-    output, the kernel launched)."""
-    kernel = kernel_for("global attention kernel", check_dtypes("global attention kernel", q, k, v),
-                        *kernels)
-    b, t, c = q.shape
+    ``kernels`` (float32, bfloat16) for the dtype of ``inputs`` (qkv, or q,
+    k and v, as the caller took them and checked their shapes): q, k and v
+    are (B, T, C) at the addresses ``ptrs``, with strides (stride_b,
+    stride_t, 1). Returns (the output, the kernel launched)."""
+    dtype = check_dtypes("global attention kernel", *inputs)
+    kernel = kernel_for("global attention kernel", dtype, *kernels)
     if n_heads <= 0 or c % n_heads:
         raise ValueError(f"global attention kernel: {c} channels do not split into {n_heads} heads")
     d = c // n_heads
@@ -248,29 +266,45 @@ def _launch_global(kernels, q, k, v, kv_len, *, n_heads, sm_scale, d_rope, strid
         raise ValueError(f"global attention kernel: head dim {d} > 128")
     if d_rope < 0 or d_rope % 2 or d_rope > d:
         raise ValueError(f"global attention kernel: d_rope {d_rope} must be even and <= {d}")
-    if q.dtype == torch.bfloat16 and d % 8:
-        raise ValueError(f"global attention kernel: bf16 head dim {d} is not a multiple of 8")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if not a.is_cuda or a.device != q.device:
-            raise ValueError(f"global attention kernel: {name} must be on {q.device}")
-        if tuple(a.shape) != (b, t, c) or a.stride() != (stride_b, stride_t, 1):
-            raise ValueError(f"global attention kernel: {name} must be a ({b}, {t}, {c}) tensor "
-                             f"with strides ({stride_b}, {stride_t}, 1)")
-    if kv_len.device != q.device or kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,) \
+    device = inputs[0].device
+    if any(a.device != device for a in inputs[1:]):
+        raise ValueError(f"global attention kernel: q, k and v must be on {device}")
+    if kv_len.device != device or kv_len.dtype != torch.int32 or kv_len.shape != (b,) \
             or not kv_len.is_contiguous():
         raise ValueError("global attention kernel: kv_len must be a contiguous (B,) int32 "
-                         f"tensor on {q.device}")
+                         f"tensor on {device}")
+    block = ()
+    if dtype == torch.bfloat16:  # q, k and v arrive by TMA
+        if d % 8:
+            raise ValueError(f"global attention kernel: bf16 head dim {d} is not a multiple of 8")
+        stride_b = t * stride_t if b == 1 else stride_b  # never read for one item
+        for name, ptr in zip("qkv", ptrs):
+            if ptr % 16:
+                raise ValueError(f"global attention kernel: bf16 {name} starts at {ptr:#x}, "
+                                 "not on 16 bytes, so TMA cannot load it")
+        if stride_b % 8 or stride_t % 8:
+            raise ValueError(f"global attention kernel: bf16 strides ({stride_b}, {stride_t}) "
+                             "are not multiples of 8 values (16 bytes), so TMA cannot load them")
+        if device not in _SMS:
+            _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        block = (global_block_rows(b, n_heads, t, _SMS[device]),)
     cos = sin = None
     if d_rope:
-        cos, sin = _cached_rope_tables(t, d_rope, q.device)
-    out = torch.empty(b, t, c, dtype=q.dtype, device=q.device)
-    fn = kernel.fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 cos.data_ptr() if d_rope else None, sin.data_ptr() if d_rope else None,
-                 kv_len.data_ptr(), out.data_ptr(), b, n_heads, t, d, d_rope, stride_b, stride_t,
-                 sm_scale, ctypes.c_void_p(stream))
+        cos, sin = _cached_rope_tables(t, d_rope, device)
+    out = torch.empty(b, t, c, dtype=dtype, device=device)
+    args = (*ptrs, cos.data_ptr() if d_rope else None, sin.data_ptr() if d_rope else None,
+            kv_len.data_ptr(), out.data_ptr(), b, n_heads, t, d, d_rope, stride_b, stride_t,
+            sm_scale, *block)
+    # the launch on device's current stream with device current (the context
+    # switch, a few microseconds, only where it is not)
+    if device.index == torch.cuda.current_device():
+        err = kernel.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = kernel.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err >= TMA_ENCODE_ERROR:
+        raise RuntimeError(f"{kernel.symbol}: cuTensorMapEncodeTiled refused a TMA tensor map "
+                           f"(CUresult {err - TMA_ENCODE_ERROR}; 0: it was not found)")
     kernel.check(err)
     return out, kernel
 
@@ -280,6 +314,17 @@ def _split_packed(qkv):
         raise ValueError(f"packed attention: qkv must be (B, T, 3C), got {tuple(qkv.shape)}")
     c = qkv.shape[-1] // 3
     return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+
+
+def _launch_packed(kernels, qkv, kv_len, **kw):
+    """_launch_global on the q, k and v sections of a (B, T, 3C) qkv."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or qkv.stride(2) != 1:
+        raise ValueError("packed attention: qkv must be (B, T, 3C) with unit feature stride, "
+                         f"got {tuple(qkv.shape)} with strides {qkv.stride()}")
+    b, t, c3 = qkv.shape
+    p, step = qkv.data_ptr(), c3 // 3 * qkv.element_size()
+    return _launch_global(kernels, (qkv,), (p, p + step, p + 2 * step), kv_len, b=b, t=t,
+                          c=c3 // 3, stride_b=qkv.stride(0), stride_t=qkv.stride(1), **kw)
 
 
 def global_flash_attention_rope(qkv, kv_len, *, n_heads: int, sm_scale: float, d_rope: int):
@@ -292,9 +337,8 @@ def global_flash_attention_rope(qkv, kv_len, *, n_heads: int, sm_scale: float, d
     if not qkv.is_cuda:
         return global_attention_plain(*_split_packed(qkv), kv_len, n_heads=n_heads,
                                       sm_scale=sm_scale, d_rope=d_rope)
-    out, kernel = _launch_global((GLOBAL_ROPE_KERNEL, GLOBAL_ROPE_KERNEL_BF16),
-                                 *_split_packed(qkv), kv_len, n_heads=n_heads, sm_scale=sm_scale,
-                                 d_rope=d_rope, stride_b=qkv.stride(0), stride_t=qkv.stride(1))
+    out, kernel = _launch_packed((GLOBAL_ROPE_KERNEL, GLOBAL_ROPE_KERNEL_BF16), qkv, kv_len,
+                                 n_heads=n_heads, sm_scale=sm_scale, d_rope=d_rope)
     kernel.launches += 1
     return out
 
@@ -308,9 +352,8 @@ def global_flash_attention_packed(qkv, kv_len, *, n_heads: int, sm_scale: float)
     if not qkv.is_cuda:
         return global_attention_plain(*_split_packed(qkv), kv_len, n_heads=n_heads,
                                       sm_scale=sm_scale)
-    out, kernel = _launch_global((GLOBAL_PACKED_KERNEL, GLOBAL_PACKED_KERNEL_BF16),
-                                 *_split_packed(qkv), kv_len, n_heads=n_heads, sm_scale=sm_scale,
-                                 d_rope=0, stride_b=qkv.stride(0), stride_t=qkv.stride(1))
+    out, kernel = _launch_packed((GLOBAL_PACKED_KERNEL, GLOBAL_PACKED_KERNEL_BF16), qkv, kv_len,
+                                 n_heads=n_heads, sm_scale=sm_scale, d_rope=0)
     kernel.launches += 1
     return out
 
@@ -324,8 +367,13 @@ def global_flash_attention(q, k, v, kv_len, *, n_heads: int, sm_scale: float):
     if not q.is_cuda:
         return global_attention_plain(q, k, v, kv_len, n_heads=n_heads, sm_scale=sm_scale)
     b, t, c = q.shape
-    out, kernel = _launch_global((GLOBAL_KERNEL, GLOBAL_KERNEL_BF16), q, k, v, kv_len,
-                                 n_heads=n_heads, sm_scale=sm_scale, d_rope=0, stride_b=t * c,
-                                 stride_t=c)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.shape != q.shape or a.stride() != (t * c, c, 1):
+            raise ValueError(f"global attention kernel: {name} must be a contiguous ({b}, {t}, "
+                             f"{c}) tensor")
+    out, kernel = _launch_global((GLOBAL_KERNEL, GLOBAL_KERNEL_BF16), (q, k, v),
+                                 (q.data_ptr(), k.data_ptr(), v.data_ptr()), kv_len, b=b, t=t,
+                                 c=c, n_heads=n_heads, sm_scale=sm_scale, d_rope=0,
+                                 stride_b=t * c, stride_t=c)
     kernel.launches += 1
     return out
