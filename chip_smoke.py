@@ -30,7 +30,13 @@ result line is printed):
    resident at once, waves), and a single request's shapes must spread
    over 16 SMs or more; kernel 5 (global attention over separate q, k, v)
    also at the windowless flow attention's shapes (C 96 = 2 heads x 48, B16
-   T2048 and B1 T397 with valid lengths below T);
+   T2048 and B1 T397 with valid lengths below T). The f32 global attention
+   (kernels 3-5) takes its TMA route (3xTF32 ``wgmma`` on tiles that TMA
+   loads) at every case, a strided view of the packed projection too; its
+   times are also replayed from a CUDA graph (``graph_ms``, SDPA's
+   ``library_graph_ms``); the ``[build]`` line counts the TF32 HGMMA and
+   the UTMALDG in its functions, neither may be 0. Every launch check below
+   holds the f32 general route's count (layouts TMA cannot load) at 0;
    3b. bf16 (``[bf16]``): the bf16 entry point of each of the five
    kernels (``*_bf16`` symbols: one bf16 ``mma.sync`` m16n8k16 a fragment
    in the banded attention, bf16 ``wgmma`` on tiles that TMA loads in the
@@ -231,7 +237,8 @@ result line is printed):
    (MAS once a step), peak memory; G_2.npz served through
    Model/Synth with per_synthesis_call's launches of kernels 1, 2 and 5
    and the CPU's length; ``[... parity]``: one B2 step card vs CPU (every
-   lr but G's 0): losses 1e-3 relative, and for the ``dp_apply`` variants
+   lr but G's 0; the card, as in every VITS2 parity step, in deterministic
+   algorithms: ROADMAP C.4): losses 1e-3 relative, and for the ``dp_apply`` variants
    the G, D and durD gradients against a CPU f64 step, 1e-2 relative L2;
 15. the WavLM/SLM loss (``[train-slm]``): a WavLMConfig() directory
    (base-plus 12 x 768, 94 M parameters, from wavlm_init; config.json in
@@ -547,19 +554,24 @@ def ddsconv_case(b, t, lengths, iters, plain_iters, seed, dtype=torch.float32):
 
 def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=torch.float32):
     """The global attention kernel in one of its forms ("rope": the DiT's
-    fused projection with RoPE on d_rope = (d//2)//2*2 features; "packed";
+    fused projection with RoPE on d_rope = (d//2)//2*2 features; "strided":
+    the same as a view into wider rows, 16-byte aligned; "packed";
     "separate") against its plain version, timed beside it and beside
     scaled_dot_product_attention on the same q, k, v with a boolean key mask
     (for "rope" on q and k rotated beforehand: the rotation is not in the
-    library's time); in bf16 both also replayed from a CUDA graph
-    (``graph_ms``, ``library_graph_ms``), which leaves the host's cost of a
-    call out."""
+    library's time), both also replayed from a CUDA graph (``graph_ms``,
+    ``library_graph_ms``), which leaves the host's cost of a call out. In
+    f32 the route the wrapper took ("tma" or "general", by the general
+    route's launch count)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     c, sm = h * d, d**-0.5
-    d_rope = stabletts.d_rope_of(d) if form == "rope" else 0
+    d_rope = stabletts.d_rope_of(d) if form in ("rope", "strided") else 0
     kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    qkv = torch.randn(b, t, 3 * c, generator=g, device=dev).to(dtype)
+    if form == "strided":  # the packed projection 8 values into rows 40 values wider
+        qkv = torch.randn(b, t, 3 * c + 40, generator=g, device=dev).to(dtype)[..., 8:8 + 3 * c]
+    else:
+        qkv = torch.randn(b, t, 3 * c, generator=g, device=dev).to(dtype)
     q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
     if form == "separate":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -571,11 +583,14 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=tor
                                                      d_rope=d_rope)
     plain = lambda: fa.global_attention_plain(q, k, v, kv_len, n_heads=h, sm_scale=sm,
                                               d_rope=d_rope)
+    general = fa.GLOBAL_GENERAL_KERNEL.launches
     got, want = run(), plain()
     torch.cuda.synchronize()
     check(got.dtype == dtype, f"global attention returned {got.dtype} for {dtype}")
     out = {"shape": f"B{b} H{h} T{t} D{d} d_rope{d_rope}", "dtype": str(dtype)[6:],
            **errors(got, want, dtype)}
+    if dtype == torch.float32:
+        out["route"] = "general" if fa.GLOBAL_GENERAL_KERNEL.launches > general else "tma"
     if iters:
         out["ms"] = cuda_ms(run, iters)
         out["plain_ms"] = cuda_ms(plain, plain_iters)
@@ -592,9 +607,9 @@ def global_case(form, b, t, d, lengths, iters, plain_iters, seed, h=4, dtype=tor
         out["library_err"] = float((lib_out.float() - want.float()).abs().max())
         out["library_ms"] = cuda_ms(lib, iters)
         del lib_out
-        if dtype == BF16:  # replayed from a CUDA graph: the device's time without the host's
-            out["graph_ms"] = graph_ms(run, iters)
-            out["library_graph_ms"] = graph_ms(lib, iters)
+        # replayed from a CUDA graph: the device's time without the host's
+        out["graph_ms"] = graph_ms(run, iters)
+        out["library_graph_ms"] = graph_ms(lib, iters)
     return out
 
 
@@ -602,8 +617,10 @@ def tensor_core_instructions(library):
     """Counts of HMMA and HGMMA instructions and of TMA tile loads
     (UTMALDG) in a built library's SASS (cuobjdump), in all its functions
     and, as "bf16", in the bf16 instantiations (function names with bf16 or
-    bfloat16): the products whose operands are BF16, and the TMA loads;
-    None where the toolkit has no cuobjdump."""
+    bfloat16): the products whose operands are BF16, and the TMA loads; as
+    "tf32", the HGMMA with TF32 operands and the UTMALDG of the f32 global
+    attention's TMA route (global_attention_tf32_kernel); None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -617,6 +634,10 @@ def tensor_core_instructions(library):
     counts["bf16"] = {name: len(re.findall(rf"\b{name}\.\S*BF16", bf16_sass))
                       for name in ("HMMA", "HGMMA")}
     counts["bf16"]["UTMALDG"] = len(re.findall(r"\bUTMALDG\b", bf16_sass))
+    tf32_sass = "".join(part for part in re.split(r"\n\s*Function : ", sass)[1:]
+                        if re.match(r"\S*global_attention_tf32_kernel", part))
+    counts["tf32"] = {"HGMMA": len(re.findall(r"\bHGMMA\.\S*TF32", tf32_sass)),
+                      "UTMALDG": len(re.findall(r"\bUTMALDG\b", tf32_sass))}
     return counts
 
 
@@ -748,7 +769,8 @@ def profile_requests(runs):
             continue
         print(f"[profile] {name}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
               f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kern)} kernel launches")
-        for kname in ("banded_attention_kernel", "global_attention_kernel", "ddsconv_kernel"):
+        for kname in ("banded_attention_kernel", "global_attention_tf32_kernel",
+                      "global_attention_kernel", "ddsconv_kernel"):
             att = [e for e in kern if kname in e.key]
             if att:
                 us = sum(e.self_device_time_total for e in att)
@@ -2044,6 +2066,46 @@ def grad_errors(a, ref):
 PARITY_GRAD_L2 = 1e-2
 
 
+def parity_noise(mcfg, pair, seed):
+    """The noise of one parity step of the B2 batch ``pair``, drawn from
+    ``seed`` (CPU tensors)."""
+    t_x, t_y = pair["x"].shape[1], pair["mel"].shape[1]
+    rng = np.random.default_rng(seed)
+    noise = {"posterior": rng.standard_normal((2, t_y, mcfg.inter_channels)),
+             "e_q": rng.standard_normal((2, t_x, 2)), "z": rng.standard_normal((2, t_x, 2))}
+    noise = {k: torch.tensor(v.astype(np.float32)) for k, v in noise.items()}
+    noise["ids_slice"] = torch.tensor(
+        (rng.uniform(size=2) * np.maximum(pair["mel_lengths"] - mcfg.segment_size + 1, 1)
+         ).astype(np.int32))
+    return noise
+
+
+def parity_step(mcfg, tcfg, trees, pair, noise, device, dtype=None, slm=None, attn=None):
+    """One train step of ``pair`` from ``trees`` on ``device`` (every lr but
+    G's 0; ``dtype`` the compute dtype, ``slm`` as train_parity's), fed the
+    alignment ``attn``, or with none found first with no gradient and the
+    step left to find its own. Returns (the state, its gradients kept; the
+    losses; the alignment on the CPU)."""
+    state = tt.init_train_state(mcfg, tcfg, device=device, trees=trees)
+    for k, opt in state.opt.items():
+        if k != "g":
+            for group in opt.param_groups:
+                group["lr"] = 0.0
+    batch = to_device(pair, device)
+    nz = {k: v.to(device) for k, v in noise.items()}
+    if attn is None:
+        with torch.no_grad():
+            attn = vits2.forward_train(state.params["g"].params, mcfg, batch["x"],
+                                       batch["x_lengths"], batch["mel"], batch["mel_lengths"],
+                                       batch["sid"], noise=nz)["attn"]
+    else:
+        nz["attn"] = attn.to(device)
+    wl = None if slm is None else wavlm.WavLM(*slm).to(device)
+    step = tt.make_train_step(mcfg, tcfg, compute_dtype=dtype, slm=wl)
+    losses = {k: float(v) for k, v in step(state, batch, noise=nz).items()}
+    return state, losses, attn.cpu()
+
+
 def train_parity(mcfg, tcfg, trees, pair, seed, dev, tag="train-parity", f64=True, slm=None):
     """One train step of the B2 batch ``pair`` (numpy) in f32 on the card, in
     f32 on the CPU and (with ``f64``) in f64 on the CPU (a differentiable
@@ -2055,6 +2117,12 @@ def train_parity(mcfg, tcfg, trees, pair, seed, dev, tag="train-parity", f64=Tru
     float noise in a near-zero D gradient would become a D parameter that
     differs by ~lr).
 
+    The card steps in deterministic algorithms, so that its gradients from
+    given trees are the same in every run: in torch's default ones their
+    last bits change from step to step (train_parity_probe.py). One run
+    read D gradients 1.153e-2 relative L2 off the f64 step where others
+    read ~1e-5 (ROADMAP C.4, not explained).
+
     Checks the card's losses against the CPU's f32 ones (1e-3 relative), and
     each network's gradients, all together, against the f64 step
     (PARITY_GRAD_L2). A single tensor is not held to a limit: the f32 step
@@ -2063,36 +2131,15 @@ def train_parity(mcfg, tcfg, trees, pair, seed, dev, tag="train-parity", f64=Tru
     1e-2 of its own max on either f32 side; each network's worst tensor is
     printed."""
     t_x, t_y = pair["x"].shape[1], pair["mel"].shape[1]
-    rng = np.random.default_rng(seed)
-    noise = {"posterior": rng.standard_normal((2, t_y, mcfg.inter_channels)),
-             "e_q": rng.standard_normal((2, t_x, 2)), "z": rng.standard_normal((2, t_x, 2))}
-    noise = {k: torch.tensor(v.astype(np.float32)) for k, v in noise.items()}
-    noise["ids_slice"] = torch.tensor(
-        (rng.uniform(size=2) * np.maximum(pair["mel_lengths"] - mcfg.segment_size + 1, 1)
-         ).astype(np.int32))
+    noise = parity_noise(mcfg, pair, seed)
     sides, t0 = {}, time.perf_counter()
     cpu = torch.device("cpu")
-    for name, device, dtype in (("card", dev, None), ("CPU", cpu, None),
-                                ("CPU f64", cpu, torch.float64))[:3 if f64 else 2]:
-        state = tt.init_train_state(mcfg, tcfg, device=device, trees=trees)
-        for k, opt in state.opt.items():
-            if k != "g":
-                for group in opt.param_groups:
-                    group["lr"] = 0.0
-        batch = to_device(pair, device)
-        nz = {k: v.to(device) for k, v in noise.items()}
-        if name == "card":
-            with torch.no_grad():
-                attn = vits2.forward_train(state.params["g"].params, mcfg, batch["x"],
-                                           batch["x_lengths"], batch["mel"],
-                                           batch["mel_lengths"], batch["sid"], noise=nz)["attn"]
-        else:
-            nz["attn"] = attn.cpu()
-        wl = None if slm is None else wavlm.WavLM(*slm).to(device)
-        step = tt.make_train_step(mcfg, tcfg, compute_dtype=dtype, slm=wl)
-        sides[name] = (state, {k: float(v) for k, v in step(state, batch, noise=nz).items()})
-        del wl
-    (card, got), (ref, want) = sides["card"], sides["CPU"]
+    with deterministic():
+        sides["card"] = parity_step(mcfg, tcfg, trees, pair, noise, dev, slm=slm)
+    for name, dtype in (("CPU", None), ("CPU f64", torch.float64))[:2 if f64 else 1]:
+        sides[name] = parity_step(mcfg, tcfg, trees, pair, noise, cpu, dtype, slm,
+                                  attn=sides["card"][2])
+    (card, got, _), (ref, want, _) = sides["card"], sides["CPU"]
     exact = sides["CPU f64"][1] if f64 else "not run"
     rel = {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()}
     lr0 = ", ".join(k for k in card.opt if k != "g")
@@ -4374,7 +4421,8 @@ def main() -> int:
     print("[device] TF32 off for matmul and cuDNN convolutions (utils/precision.full_float32, "
           "as every entry point of the port sets it)")
 
-    # 2. build; the f32 and the bf16 wrappers: every launch check below holds all ten
+    # 2. build; the f32 and the bf16 wrappers and the f32 global attention's
+    # general route: every launch check below holds all eleven counts
     f32_kernels = {"banded_attention": fa.KERNEL, "ddsconv": ddf.KERNEL,
                    "global_attention_rope": fa.GLOBAL_ROPE_KERNEL,
                    "global_attention_packed": fa.GLOBAL_PACKED_KERNEL,
@@ -4383,7 +4431,7 @@ def main() -> int:
                     "global_attention_rope_bf16": fa.GLOBAL_ROPE_KERNEL_BF16,
                     "global_attention_packed_bf16": fa.GLOBAL_PACKED_KERNEL_BF16,
                     "global_attention_bf16": fa.GLOBAL_KERNEL_BF16}
-    kernels = {**f32_kernels, **bf16_kernels}
+    kernels = {**f32_kernels, **bf16_kernels, "global_attention_general": fa.GLOBAL_GENERAL_KERNEL}
     t0 = time.perf_counter()
     cuda_build.build(list(kernels.values()) + [mas.KERNEL])
     print(f"[build] {len({k.source for k in kernels.values()}) + 1} sources for "
@@ -4408,6 +4456,8 @@ def main() -> int:
         if source == fa.GLOBAL_KERNEL_BF16.library:  # wgmma on tiles that TMA loads
             check(counts["bf16"]["HGMMA"] > 0 and counts["bf16"]["UTMALDG"] > 0,
                   f"global_attention_bf16 has no BF16 HGMMA or no UTMALDG: {counts['bf16']}")
+            check(counts["tf32"]["HGMMA"] > 0 and counts["tf32"]["UTMALDG"] > 0,
+                  f"global_attention_f32 has no TF32 HGMMA or no UTMALDG: {counts['tf32']}")
 
     # 3. kernels vs plain on the card
     att_tol, dds_tol = 1e-4, 1e-4
@@ -4435,7 +4485,9 @@ def main() -> int:
                global_case("rope", 2, 512, 96, [437, 437], 50, 20, 13),
                global_case("rope", 2, 2048, 96, [1436, 1436], 20, 5, 18),
                global_case("rope", 1, 64, 64, [53], 50, 20, 14),
-               global_case("rope", 2, 37, 96, [37, 20], 0, 0, 15)],
+               global_case("rope", 2, 37, 96, [37, 20], 0, 0, 15),
+               # a view into wider rows, 16-byte aligned: TMA's edge of layouts
+               global_case("strided", 2, 512, 96, [437, 300], 0, 0, 24)],
            "global_attention_packed": [global_case("packed", 16, 1024, 96,
                                                    [1024 - 41 * i for i in range(16)], 20, 5, 16),
                                        # the decoder's shape without RoPE: what the rotation costs
@@ -4455,6 +4507,7 @@ def main() -> int:
             print(f"[kernel] {name} {json.dumps(c)} tol {tol}")
             check(np.isfinite(c["max_abs_err"]) and c["max_abs_err"] <= tol,
                   f"{name} at {c['shape']} disagrees with its plain version: {c['max_abs_err']}")
+            check(c.get("route", "tma") == "tma", f"{name} at {c['shape']} took the general route")
 
     # 3b. the bf16 kernels and bf16 serving (the JAX package's bench.py precision)
     bf16_cases, bf16_launches, bf16_check_launches = bf16_phase(kernels, smi)
@@ -4549,6 +4602,8 @@ def main() -> int:
     print(f"[kernel] global_attention (variants vc) {json.dumps(var_case)} tol {glo_tol}")
     check(np.isfinite(var_case["max_abs_err"]) and var_case["max_abs_err"] <= glo_tol,
           f"global_attention at {var_case['shape']} disagrees with its plain version")
+    check(var_case["route"] == "tma", f"global_attention at {var_case['shape']} took the "
+          "general route")
     glo["global_attention"].append(var_case)
 
     # 5d. the multistream bundle with the Vocos and BigVGAN vocoders
@@ -4645,6 +4700,8 @@ def main() -> int:
                "tools_durations_launches": tools_launches["durations"][name],
                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                **{key: main_case[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               **{key: main_case[name][key] for key in ("graph_ms", "library_graph_ms")
+                  if key in main_case[name]},
                "library_ms": main_case[name].get("library_ms"), "shape": main_case[name]["shape"],
                "bound_formula": BOUND_FORMULA,
                **({"note": notes[name]} if name in notes else {})}

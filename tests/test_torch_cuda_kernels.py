@@ -9,8 +9,13 @@ relative tables, windows 0 to 64, narrower DDSConv channels; the global
 attention kernel in its RoPE, packed (also as a strided view) and separate
 forms with d_rope 0 to 64; T and kv_len at the edges of the key tiles, the
 copy ring and the query tiles, kv_len 0, and inputs off the 16-byte grid
-(the kernels' 4-byte copy path). f32; tolerance 1e-4 absolute (other
-summation orders, values of order 1).
+(the kernels' 4-byte copy path). The f32 global kernel's two routes: TMA
+(tiles of 32 keys, a ring of 2-4 stages, blocks of 64 rows, D 8 to 128,
+RoPE tables by TMA where d_rope / 2 is a multiple of 4) and general (inputs off the 16-byte grid, odd D), each case checking
+which ran; its 3xTF32 ``wgmma`` product alone against f64; each global
+kernel (both f32 routes, bf16) writing its whole output and nothing
+around it. f32; tolerance 1e-4 absolute (other summation orders, values
+of order 1).
 """
 
 import pytest
@@ -18,6 +23,10 @@ import torch
 
 from vosk_tts_tpu_torch.ops import ddsconv_fused as ddf
 from vosk_tts_tpu_torch.ops import flash_attention as fa
+from vosk_tts_tpu_torch.utils.cuda_build import CudaKernel, I, P
+
+#: the f32 global kernel's 3xTF32 wgmma product alone: c (64 x n) = a (64 x 96) . b (n x 96)^T
+TF32X3_TILE = CudaKernel("global_attention.cu", "tf32x3_wgmma_tile", [P, P, P, I, P])
 
 
 @pytest.fixture
@@ -196,7 +205,19 @@ def test_ddsconv_refuses_a_window_beyond_shared_memory(dev, c, n_layers, k):
     ("rope", 2, 130, 4, 40, 20, [130, 64]), ("rope", 1, 90, 2, 72, 36, [90]),  # D 8k, not 32k
     ("separate", 2, 77, 3, 72, 0, [77, 32]),
     ("separate", 1, 50, 2, 37, 0, [50]),  # odd D: 4-byte copies
-    ("misaligned", 2, 130, 4, 96, 48, [130, 65]), ("misaligned", 2, 70, 4, 72, 36, [70, 9])])
+    ("misaligned", 2, 130, 4, 96, 48, [130, 65]), ("misaligned", 2, 70, 4, 72, 36, [70, 9]),
+    # the TMA route: T and kv_len at the edges of its 32-key tiles and its ring
+    # (3 stages at D96, 2 at D128, 4 at D64 and below), D 8 and 48 (d_rope / 2
+    # 2 and 10: tables from global memory, not by TMA)
+    ("rope", 2, 31, 4, 96, 48, [31, 30]), ("rope", 2, 32, 4, 96, 48, [32, 31]),
+    ("rope", 2, 33, 4, 96, 48, [33, 32]), ("rope", 2, 97, 4, 96, 48, [97, 96]),
+    ("rope", 1, 700, 4, 96, 48, [650]), ("rope", 1, 300, 2, 128, 64, [290]),
+    ("rope", 2, 33, 4, 64, 32, [33, 1]), ("rope", 2, 33, 2, 8, 4, [33, 31]),
+    ("separate", 1, 31, 4, 8, 0, [31]), ("separate", 2, 97, 2, 48, 0, [97, 96]),
+    ("separate", 2, 65, 2, 48, 0, [0, 64]),
+    # grids of more blocks than SMs, rows past T in the last block
+    ("rope", 9, 129, 4, 96, 48, [129, 128, 127, 65, 64, 63, 33, 1, 0]),
+    ("packed", 9, 190, 4, 64, 0, [190, 129, 128, 96, 64, 32, 31, 2, 0])])
 def test_global_attention_kernel(dev, monkeypatch, form, b, t, h, d, d_rope, lengths):
     g = torch.Generator(device=dev).manual_seed(t + d)
     c = h * d
@@ -222,12 +243,72 @@ def test_global_attention_kernel(dev, monkeypatch, form, b, t, h, d, d_rope, len
             run, kernel = lambda: fa.global_flash_attention_packed(
                 qkv, kv_len, n_heads=h, sm_scale=sm), fa.GLOBAL_PACKED_KERNEL
     monkeypatch.setattr(fa, "global_attention_plain", _refuse)
-    n = kernel.launches
+    n, n_general = kernel.launches, fa.GLOBAL_GENERAL_KERNEL.launches
     got = run()
     torch.cuda.synchronize()
+    general = form == "misaligned" or d % 4 != 0  # the layouts TMA cannot load
     assert kernel.launches == n + 1
+    assert fa.GLOBAL_GENERAL_KERNEL.launches == n_general + general
     assert got.shape == (b, t, c)
     assert (got - want).abs().max().item() <= 1e-4  # every row, past kv_len too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 96])
+def test_tf32x3_wgmma_product_meets_f64(dev, n):
+    """The f32 global kernel's product (a split in registers, b as hi and lo
+    tiles, three TF32 wgmma a k-step) at S's shape (n 32) and P.V's at D96
+    (n 96): within 1e-6 of an f64 product, relative to its largest value,
+    where one TF32 product alone keeps ~1e-3."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    a = torch.randn(64, 96, generator=g, device=dev)
+    b = torch.randn(n, 96, generator=g, device=dev)
+    c = torch.full((64, n), float("nan"), device=dev)
+    TF32X3_TILE.check(TF32X3_TILE.fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
+                                       torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    want = a.double() @ b.double().T
+    assert (c.double() - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,dtype,b,t,h,d,lengths", [
+    ("rope", torch.float32, 2, 65, 4, 96, [65, 33]), ("separate", torch.float32, 1, 33, 2, 48, [31]),
+    ("misaligned", torch.float32, 2, 70, 4, 72, [70, 9]),  # the general route
+    ("rope", torch.bfloat16, 2, 129, 4, 96, [129, 64])])
+def test_global_attention_writes_only_its_output(dev, monkeypatch, form, dtype, b, t, h, d,
+                                                 lengths):
+    """Each global kernel writes every value of its (B, T, C) output and
+    nothing around it: the output is a view into a buffer 16384 values wider
+    on either side, all of it a sentinel (7.0, beyond what a convex
+    combination of these v rows reaches), and the sentinel must survive
+    around the output and nowhere inside it."""
+    g = torch.Generator(device=dev).manual_seed(t)
+    c, pad = h * d, 1 << 14
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if form == "separate":
+        q, k, v = (torch.randn(b, t, c, generator=g, device=dev) for _ in range(3))
+        run = lambda: fa.global_flash_attention(q, k, v, kv_len, n_heads=h, sm_scale=d**-0.5)
+    else:
+        qkv = torch.randn(b, t, 3 * c + 40, generator=g, device=dev)
+        qkv = (qkv[..., 1:1 + 3 * c] if form == "misaligned" else qkv[..., :3 * c]).to(dtype)
+        run = lambda: fa.global_flash_attention_rope(qkv, kv_len, n_heads=h, sm_scale=d**-0.5,
+                                                     d_rope=d // 2)
+    buf = torch.full((2 * pad + b * t * c,), 7.0, dtype=dtype, device=dev)
+    empty = torch.empty
+
+    def output_in_buf(*shape, **kw):
+        return buf[pad:pad + b * t * c].view(b, t, c) if shape == (b, t, c) else empty(*shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", output_in_buf)
+    n_general = fa.GLOBAL_GENERAL_KERNEL.launches
+    got = run()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert got.data_ptr() == buf[pad:].data_ptr()
+    assert fa.GLOBAL_GENERAL_KERNEL.launches == n_general + (form == "misaligned")
+    assert bool((buf[:pad] == 7.0).all()) and bool((buf[pad + b * t * c:] == 7.0).all())
+    assert bool(got.isfinite().all()) and not bool((got == 7.0).any())
 
 
 @pytest.mark.cuda

@@ -103,9 +103,11 @@ def test_eval_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No source of the port, and not chip_smoke.py, imports JAX or the JAX
-    package (also where an import sits inside a function)."""
-    files = sorted((ROOT / "vosk_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No source of the port, and not chip_smoke.py or train_parity_probe.py,
+    imports JAX or the JAX package (also where an import sits inside a
+    function)."""
+    files = sorted((ROOT / "vosk_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 ROOT / "train_parity_probe.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
             if isinstance(node, ast.Import):
@@ -174,9 +176,10 @@ def test_converters_and_tools_import_no_jax_transformers_or_safetensors():
 
 
 def test_port_sources_name_no_transformers_or_safetensors():
-    """No source of the port, and not chip_smoke.py, imports ``transformers``
-    or ``safetensors`` (also inside a function)."""
-    files = sorted((ROOT / "vosk_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No source of the port, and not chip_smoke.py or train_parity_probe.py,
+    imports ``transformers`` or ``safetensors`` (also inside a function)."""
+    files = sorted((ROOT / "vosk_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                 ROOT / "train_parity_probe.py"]
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
             if isinstance(node, ast.Import):

@@ -18,41 +18,57 @@
 // out is (B, T, C), the o projection's input.
 //
 // What bounds it on Hopper: 4*H*D*T*sum(kv_len) operations, done on the
-// tensor cores in 3xTF32 (attention_mma.cuh): three TF32 products per
-// fragment pair keep f32 accuracy, so the ceiling is 495/3 = 165 TFLOP/s,
-// against 67 TFLOP/s for f32 FMA on the CUDA cores. q, k, v and out
-// (16*B*T*C bytes) are small next to that at the DiT shapes: it is bound by
-// operations.
+// tensor cores in 3xTF32 (attention_mma.cuh's split: three TF32 products a
+// pair of operands keep f32 accuracy), so the ceiling is 495/3 = 165
+// TFLOP/s; q, k, v and out (16*B*T*C bytes) are small next to that at the
+// DiT shapes. What holds it below that: the CUDA-core work that turns each
+// f32 K and V tile into TF32 operands (the split, V's transpose, RoPE).
 //
-// Design:
-//  * grid (ceil(T/64), H, B); one warpgroup (4 warps) per 64-row query
-//    tile, each warp owning 16 rows; a warp's q rows are rotated and scaled
-//    by sm_scale as they are read and stay in registers in the A-fragment
-//    layout, split into hi/lo at each use (holding both halves would take
-//    twice the registers and cost the third block on the SM);
-//  * K and V tiles of 32 keys arrive through a two-stage cp.async ring
-//    (tile j+1 loads while tile j computes), 16-byte copies where D, the
-//    strides and the pointers allow, else 4-byte copies; D is zero-padded
-//    to DW (a multiple of 32) and rows sit at strides that keep the
-//    16-byte fragment reads free of bank conflicts (attention_mma.cuh).
-//    Two stages take 54,272 bytes at D = 96, so three blocks (12 warps)
-//    fit on an SM;
-//  * with RoPE (a template flag, so the d_rope = 0 forms carry none of it),
-//    each k tile is rotated in place in shared memory once it has landed
-//    (one pass over 32 x d_rope between two barriers); cos/sin come from
-//    the wrapper's table (the plain version's formula), not from __sinf,
-//    and a warp issues all its table reads of the pass before the first
-//    write, so the pass waits on one memory round trip, not eight;
-//  * S = Q.K^T and O += P.V run as mma.m16n8k8 in 3xTF32 (attention_mma.cuh:
-//    the split costs three integer/f32 operations per operand, no cvt),
-//    S and O stay in registers in the C-fragment layout, the online softmax
-//    (expf) reduces each row over the 4 lanes of a quad, and P feeds the
-//    second product from its registers; a tile whose keys are all valid
-//    skips the mask;
+// global_attention_f32, the TMA route (global_attention_tf32_kernel<DP>, DP
+// = D rounded up to 16), for q, k and v that start on 16 bytes with batch
+// and row strides and D multiples of 4 values (every serving path's):
+//  * grid (ceil(T/64), H, B); a block is a producer warpgroup and one
+//    consumer warpgroup of 64 query rows, one block an SM (256 threads;
+//    the consumer keeps q, O, S and P in ~225 registers at D96, which two
+//    consumer warpgroups under a 384-thread block's 168 would spill);
+//  * warp 0 of the producer: one lane loads the block's q rows once, then K
+//    and V tiles of 32 keys, by TMA (f32 tensor maps viewing q, k and v as
+//    (D, H, T, B) through their strides; boxes of 32 features, one 128-byte
+//    swizzle atom, zero-filled past D and T). K lands in a ring of stages
+//    (3 at D96, 2 at D112-128, 4 below), V in 4 landing buffers, the
+//    tile's cos/sin rows (RoPE where d_rope / 2 is a multiple of 4) in the
+//    stage's K-lo tile; a stage completes on a "landed" mbarrier and is
+//    refilled once the consumers have "released" it (and the V landing
+//    once the helpers have read it);
+//  * warps 1-3, the helpers, make each landed tile the two TF32 operands of
+//    wgmma, which are both K-major for TF32: K rotated (RoPE) and split
+//    into hi (rounded, in place) and lo = x - hi (exact in f32); V
+//    transposed into V^T hi and lo, keys contiguous, in each 8-key group
+//    the keys in the order 0 2 4 6 1 3 5 7, so that P's accumulator
+//    registers are P.V's A fragment as they stand (k index t = key 2t,
+//    t + 4 = key 2t + 1). A helper's items are the same every tile (offsets
+//    computed once a block), the loads of several issued before the first
+//    use; then fence.proxy.async and a "ready" mbarrier release the stage to
+//    the consumer, so that the consumer's path holds no CUDA-core
+//    preparation. q is rotated once in place; the consumer splits it into
+//    registers;
+//  * the consumer: S = Q.K^T as 3 wgmma m64n32k8 a k-step of 8 features (q
+//    hi/lo from registers, K hi/lo from the stage: q_lo.K_hi + q_hi.K_lo +
+//    q_hi.K_hi), O += P.V as 3 wgmma m64nDPk8 a step of 8 keys (P split in
+//    registers, V^T hi/lo), all accumulating in f32; S of tile j is issued
+//    with P.V of tile j - 1 and its online softmax (sm_scale x log2 e in
+//    one FFMA, one ex2 a score, the mask at -30000 on the scaled score)
+//    runs while that product does;
 //  * the walk stops after the last tile holding a key below kv_len: every
 //    later key scores -30000 and gets p = 0 exactly in f32, so skipping is
 //    exact; keys past T do not exist and get p = 0; any T >= 1 works.
-// wgmma (TF32 operands K-major, so V^T in shared memory) is the next step.
+// The general route (global_attention_f32_general, the kernel
+// global_attention_kernel<NC, VEC, ROPE>) takes the layouts TMA cannot load
+// (a start off the 16-byte grid, an odd stride or D): one warpgroup per 64
+// rows, K/V tiles of 32 keys through a two-stage cp.async ring (16- or
+// 4-byte copies), RoPE in place in shared memory, both products as 3xTF32
+// mma.sync m16n8k8 (attention_mma.cuh). The wrapper chooses the route from
+// the layout alone (ops/flash_attention.global_f32_route).
 //
 // global_attention_bf16 (the JAX kernels in bf16) is written for Hopper's
 // TMA and wgmma. Same walk and arithmetic as above, over bf16 q, k, v in the
@@ -76,10 +92,10 @@
 //    are 64 features (128 bytes, the 128-byte swizzle; D96 takes two). V
 //    boxes are W = 64, 32 or 16 features, the widest dividing DP (D rounded
 //    up to 16), so that each V box is one swizzle atom of the transposed
-//    operand and DP is a whole number of atoms. The maps are encoded for
-//    each call on the host
-//    (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint: the
-//    build links no libcuda) and passed as __grid_constant__ parameters.
+//    operand and DP is a whole number of atoms. The maps are encoded on the
+//    host (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint:
+//    the build links no libcuda; `encode` keeps the last 32 by their
+//    arguments, as for f32) and passed as __grid_constant__ parameters.
 //  * Warps 1-3 of the producer (RoPE only) rotate the landed q rows once and
 //    each landed K tile in place, in f32 from the f32 tables, rounded to
 //    bf16. They then fence.proxy.async and release the tile to the
@@ -107,6 +123,7 @@
 #include <math.h>
 
 #include <atomic>
+#include <mutex>
 
 #include "attention_mma.cuh"
 
@@ -623,6 +640,191 @@ __device__ __forceinline__ void rotate_rows(uint8_t* tile, int stride, int n, in
   }
 }
 
+
+// ---- the f32 kernel's (global_attention_tf32_kernel) 3xTF32 wgmma
+
+// d (64 x N, f32) += a (64 x 8, TF32 in registers) . b (8 x N, TF32 in shared
+// memory, K-major), N = 2 x d's size; scale_d 0 overwrites d. TF32 operands
+// have no transposed form: both are K-major. a's layout is mma.m16n8k8's A
+// for each warp's 16 rows (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8,
+// t+4)), d's that of the bf16 products above.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[56], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+// d += a.b in 3xTF32 (attention_mma.cuh's split): a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi, small terms first; b_hi and b_lo are descriptors of two tiles of
+// one layout; overwrite: the first product replaces d
+template <int R>
+__device__ __forceinline__ void wgmma_3x(float (&d)[R], const uint32_t (&a_hi)[4],
+                                         const uint32_t (&a_lo)[4], uint64_t b_hi, uint64_t b_lo,
+                                         bool overwrite) {
+  wgmma_tf32(d, a_lo, b_hi, overwrite ? 0 : 1);
+  wgmma_tf32(d, a_hi, b_lo, 1);
+  wgmma_tf32(d, a_hi, b_hi, 1);
+}
+
+// barrier 1 among the 96 threads of warps 1-3
+__device__ __forceinline__ void helpers_sync() { asm volatile("bar.sync 1, 96;\n" ::: "memory"); }
+
+// Byte offset of feature f of row r in a 128-byte-swizzled K-major f32 tile:
+// boxes of 32 features (128-byte rows), box bytes apart; 16-byte chunks XORed
+// with the row mod 8, as TMA writes them and wgmma reads them.
+__device__ __forceinline__ int swz(int r, int f, int box) {
+  return (f >> 5) * box + r * 128 + ((((f >> 2) & 7) ^ (r & 7)) << 4) + ((f & 3) << 2);
+}
+
+// x split into hi (rounded to TF32) at hi and lo = x - hi at lo: 16 bytes each
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo, float4 x) {
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
 }  // namespace hop
 
 // One block: a producer warpgroup (warp 0 loads, warps 1-3 rotate) and nwg =
@@ -860,20 +1062,79 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (D, H, T, B) view of q, k or v at ptr (row and batch strides in values),
-// boxes of box_w features x 64 rows under the (2 box_w)-byte swizzle.
-CUresult encode(CUtensorMap* map, const bf16* ptr, int B, int H, int T, int D,
-                long long stride_b, long long stride_t, int box_w) {
+// The (D, H, T, B) view of q, k or v at ptr (row and batch strides in values
+// of elem bytes), boxes of box_w features x box_rows rows; swizzled: the
+// swizzle of the box's row width (128, 64 or 32 bytes), else none.
+CUresult encode_uncached(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem,
+                         int B, int H, int T, int D, long long stride_b, long long stride_t,
+                         int box_w, int box_rows, bool swizzled) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)stride_t * 2,
-                                 (cuuint64_t)stride_b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box_w, 1, 64, 1}, unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[3] = {(cuuint64_t)D * elem, (cuuint64_t)stride_t * elem,
+                                 (cuuint64_t)stride_b * elem};
+  const cuuint32_t box[4] = {(cuuint32_t)box_w, 1, (cuuint32_t)box_rows, 1}, unit[4] = {1, 1, 1, 1};
+  const int row = box_w * elem;
+  const CUtensorMapSwizzle swizzle = !swizzled    ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                     : row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled()(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// encode_uncached, remembered, for the f32 and bf16 launchers alike: a map is
+// a function of these arguments alone, so the one encoded before for the same
+// arguments is the same map. Each encode costs a few microseconds of the
+// host's time a call, and the caching allocator hands a layer's projection
+// the same address call after call.
+CUresult encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem, int B,
+                int H, int T, int D, long long stride_b, long long stride_t, int box_w,
+                int box_rows, bool swizzled) {
+  struct Entry {
+    const void* ptr;
+    long long stride_b, stride_t;
+    int type, B, H, T, D, box_w, box_rows, swizzled;
+    CUtensorMap map;
+  };
+  constexpr int N = 32;
+  static std::mutex lock;
+  static Entry cache[N];
+  static int filled = 0, next = 0;
+  const Entry key{ptr, stride_b, stride_t, (int)type, B, H, T, D, box_w, box_rows, swizzled, {}};
+  auto same = [&](const Entry& e) {
+    return e.ptr == key.ptr && e.stride_b == key.stride_b && e.stride_t == key.stride_t &&
+           e.type == key.type && e.B == key.B && e.H == key.H && e.T == key.T && e.D == key.D &&
+           e.box_w == key.box_w && e.box_rows == key.box_rows && e.swizzled == key.swizzled;
+  };
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < filled; ++i)
+    if (same(cache[i])) {
+      *map = cache[i].map;
+      return CUDA_SUCCESS;
+    }
+  const CUresult r =
+      encode_uncached(map, ptr, type, elem, B, H, T, D, stride_b, stride_t, box_w, box_rows,
+                      swizzled);
+  if (r == CUDA_SUCCESS) {
+    cache[next] = key;
+    cache[next].map = *map;
+    next = (next + 1) % N;
+    filled = filled < N ? filled + 1 : N;
+  }
+  return r;
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem) once a device
+// (a bit a device in sized: the attribute is set)
+cudaError_t allow_smem(const void* kernel, int smem, std::atomic<unsigned long long>& sized) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (sized.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) sized.fetch_or(bit);
+  return err;
 }
 
 template <int DP>
@@ -882,33 +1143,564 @@ cudaError_t launch_h(const CUtensorMap& qm, const CUtensorMap& km, const CUtenso
                      int H, int T, int D, int d_rope, float sm_scale, int nwg,
                      cudaStream_t stream) {
   constexpr int smem = hop::smem_bytes(DP);
-  static std::atomic<unsigned long long> sized{0};  // a bit a device: the attribute is set
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<unsigned long long> sized{0};
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(global_attention_bf16_kernel<DP>), smem, sized);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(sized.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(global_attention_bf16_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    sized.fetch_or(bit);
-  }
   const dim3 grid((T + 64 * nwg - 1) / (64 * nwg), H, B);
   global_attention_bf16_kernel<DP><<<grid, 128 * (nwg + 1), smem, stream>>>(
       qm, km, vm, cos_t, sin_t, kv_len, out, H, T, D, d_rope, sm_scale);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// global_attention_f32 on Hopper: the bf16 kernel's roles and ring, f32
+// tiles, 3xTF32 wgmma, one consumer warpgroup.
+
+namespace tf {
+
+constexpr int BN = 32;            // keys a tile
+constexpr int QBOX = 64 * 128;    // bytes of a q box: 64 rows of 32 features
+constexpr int KBOX = BN * 128;    // bytes of a K or V box: BN rows of 32 features
+constexpr int NL = 4;             // V landing buffers
+constexpr int U = 4;              // items a helper thread has in flight at once
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have
+
+__host__ __device__ constexpr int boxes(int dp) { return (dp + 31) / 32; }
+// a stage: K hi and K lo (boxes of KBOX), then V^T hi and V^T lo (dp rows of 128 bytes)
+__host__ __device__ constexpr int stage_bytes(int dp) {
+  return 2 * boxes(dp) * KBOX + 2 * dp * 128;
+}
+// alignment slack, q, the V landings, the mbarriers
+__host__ __device__ constexpr int fixed_bytes(int dp) {
+  return 1024 + boxes(dp) * QBOX + NL * boxes(dp) * KBOX + 256;
+}
+// ring stages: as many as fit, at most 4 (3 at D96, 2 at D112-128)
+__host__ __device__ constexpr int ring(int dp) {
+  return (SMEM_MAX - fixed_bytes(dp)) / stage_bytes(dp) < 4
+             ? (SMEM_MAX - fixed_bytes(dp)) / stage_bytes(dp)
+             : 4;
+}
+__host__ __device__ constexpr int smem_bytes(int dp) {
+  return fixed_bytes(dp) + ring(dp) * stage_bytes(dp);
+}
+
+// Rotate the first 2 d2 features of rows [0, n) (n <= 64) in place
+// (rotate-half RoPE in f32 from the f32 tables in global memory): row r of a
+// swizzled tile of boxes `box` bytes apart, at position pos0 + r; rows at or
+// past T are skipped. Thread i of n_thr; 16-byte items (4 features and their
+// partners d2 further) where d2 is a multiple of 4, else one feature. Used
+// once a block for q, and for K tiles where d2 is not a multiple of 4.
+__device__ __forceinline__ void rotate(uint8_t* tile, int box, int n, int pos0, int T, int d2,
+                                       const float* __restrict__ cos_t,
+                                       const float* __restrict__ sin_t, int i, int n_thr) {
+  using hop::swz;
+  if (d2 % 4) {
+    for (int e = i; e < n * d2; e += n_thr) {
+      const int r = e / d2, c = e - r * d2, pos = pos0 + r;
+      if (pos >= T) continue;
+      float* p0 = reinterpret_cast<float*>(tile + swz(r, c, box));
+      float* p1 = reinterpret_cast<float*>(tile + swz(r, c + d2, box));
+      const float cv = __ldg(cos_t + (size_t)pos * d2 + c);
+      const float sv = __ldg(sin_t + (size_t)pos * d2 + c);
+      const float x0 = *p0, x1 = *p1;
+      *p0 = x0 * cv + (-x1) * sv;
+      *p1 = x1 * cv + x0 * sv;
+    }
+    return;
+  }
+  const int per_row = d2 >> 2;
+  for (int e = i; e < n * per_row; e += n_thr) {
+    const int r = e / per_row, c = (e - r * per_row) * 4, pos = pos0 + r;
+    if (pos >= T) continue;
+    float4* p0 = reinterpret_cast<float4*>(tile + swz(r, c, box));
+    float4* p1 = reinterpret_cast<float4*>(tile + swz(r, c + d2, box));
+    const float4 cv = __ldg(reinterpret_cast<const float4*>(cos_t + (size_t)pos * d2 + c));
+    const float4 sv = __ldg(reinterpret_cast<const float4*>(sin_t + (size_t)pos * d2 + c));
+    const float4 x0 = *p0, x1 = *p1;
+    *p0 = make_float4(x0.x * cv.x + (-x1.x) * sv.x, x0.y * cv.y + (-x1.y) * sv.y,
+                      x0.z * cv.z + (-x1.z) * sv.z, x0.w * cv.w + (-x1.w) * sv.w);
+    *p1 = make_float4(x1.x * cv.x + x0.x * sv.x, x1.y * cv.y + x0.y * sv.y,
+                      x1.z * cv.z + x0.z * sv.z, x1.w * cv.w + x0.w * sv.w);
+  }
+}
+
+// A helper thread's share of every tile (the same items each tile, so their
+// offsets are computed once a block). K: the landed tile (BN rows, DP
+// features in boxes of KBOX) becomes the two TF32 operands, hi in place and
+// lo at the same offset of the lo tile; the first 2 d2 features rotated on
+// the way where d2 is a multiple of 4 (pair items: 4 features below d2 and
+// their partners d2 further, from the tile's cos rows at the lo tile and its
+// sin rows BN * d2 further, d2 values a row, zero past T as the K rows are),
+// the rest split as they are (single items of 4 features). V: the landed
+// tile (BN keys x 32 features a box, KBOX bytes apart, unswizzled) to V^T hi
+// and lo, DP rows (features) of BN keys, 128-byte swizzled, K-major for P.V.
+// In each 8-key group of V^T the keys sit in the order 0 2 4 6 1 3 5 7: k
+// index u of a step stands for key 2u (u < 4) or 2u - 7, the keys that P's
+// accumulator registers hold for lane t at u = t and t + 4, so P is the A
+// operand as it stands. A V item is 4 keys of the warp's 32 features (lane =
+// feature), one 16-byte chunk of each of 32 V^T rows.
+template <int DP>
+struct Helper {
+  static constexpr int PMAX = (BN * (DP / 8) + 95) / 96;  // pair items (d2 <= DP / 2)
+  static constexpr int SMAX = (BN * (DP / 4) + 95) / 96;  // single items
+  static constexpr int VMAX = (boxes(DP) * 8 + 2) / 3;    // V items a warp
+  int np = 0, ns = 0, nv = 0;
+  int p0[PMAX], p1[PMAX], pt[PMAX];  // a pair's offsets, its partners', its table values'
+  int s0[SMAX];
+  int vs[VMAX], vd[VMAX];  // a V item's first value in the landing, its V^T chunk
+
+  // helper thread i of 96 (warp w of 3, lane), rotating pairs = d2 / 4 pairs a row
+  __device__ __forceinline__ Helper(int i, int w, int lane, int pairs, int d2) {
+    using hop::swz;
+#pragma unroll
+    for (int u = 0; u < PMAX; ++u) {
+      const int e = i + 96 * u;
+      if (e >= BN * pairs) break;
+      const int r = e / pairs, c = 4 * (e - r * pairs);
+      p0[u] = swz(r, c, KBOX);
+      p1[u] = swz(r, c + d2, KBOX);
+      pt[u] = r * d2 + c;
+      np = u + 1;
+    }
+    const int lead = 2 * pairs, rest = DP / 4 - lead;
+#pragma unroll
+    for (int u = 0; u < SMAX; ++u) {
+      const int e = i + 96 * u;
+      if (e >= BN * rest) break;
+      const int r = e / rest;
+      s0[u] = swz(r, 4 * (lead + e - r * rest), KBOX);
+      ns = u + 1;
+    }
+#pragma unroll
+    for (int u = 0; u < VMAX; ++u) {
+      const int e = w + 3 * u, a = e >> 3, c = e & 7, n = 32 * a + lane;
+      if (e >= boxes(DP) * 8) break;
+      const int k0 = 8 * (c >> 1) + (c & 1);  // keys k0, k0 + 2, k0 + 4, k0 + 6
+      vs[u] = a * KBOX + k0 * 128 + lane * 4;
+      vd[u] = n < DP ? n * 128 + ((c ^ (n & 7)) << 4) : -1;
+      nv = u + 1;
+    }
+  }
+
+  // K of the tile at kt (hi) and kl (lo); every load of a group is issued
+  // before the first use; with pairs, every table value is read before lo is
+  // written over the tables
+  __device__ __forceinline__ void k_tile(uint8_t* kt, uint8_t* kl, int d2) const {
+    using hop::store_split;
+    if (np) {
+      float4 cv[PMAX], sv[PMAX], x0[PMAX], x1[PMAX];
+      const float* tab = reinterpret_cast<const float*>(kl);
+#pragma unroll
+      for (int u = 0; u < PMAX; ++u) {
+        if (u >= np) break;
+        cv[u] = *reinterpret_cast<const float4*>(tab + pt[u]);
+        sv[u] = *reinterpret_cast<const float4*>(tab + BN * d2 + pt[u]);
+        x0[u] = *reinterpret_cast<const float4*>(kt + p0[u]);
+        x1[u] = *reinterpret_cast<const float4*>(kt + p1[u]);
+      }
+      hop::helpers_sync();
+#pragma unroll
+      for (int u = 0; u < PMAX; ++u) {
+        if (u >= np) break;
+        const float4 a = x0[u], b = x1[u], cs = cv[u], sn = sv[u];
+        store_split(kt + p0[u], kl + p0[u],
+                    make_float4(a.x * cs.x + (-b.x) * sn.x, a.y * cs.y + (-b.y) * sn.y,
+                                a.z * cs.z + (-b.z) * sn.z, a.w * cs.w + (-b.w) * sn.w));
+        store_split(kt + p1[u], kl + p1[u],
+                    make_float4(b.x * cs.x + a.x * sn.x, b.y * cs.y + a.y * sn.y,
+                                b.z * cs.z + a.z * sn.z, b.w * cs.w + a.w * sn.w));
+      }
+    } else if (d2 > 0) {
+      hop::helpers_sync();  // the caller rotated apart
+    }
+#pragma unroll
+    for (int u0 = 0; u0 < SMAX; u0 += U) {
+      float4 x[U];
+#pragma unroll
+      for (int u = u0; u < u0 + U && u < SMAX; ++u)
+        if (u < ns) x[u - u0] = *reinterpret_cast<const float4*>(kt + s0[u]);
+#pragma unroll
+      for (int u = u0; u < u0 + U && u < SMAX; ++u)
+        if (u < ns) store_split(kt + s0[u], kl + s0[u], x[u - u0]);
+    }
+  }
+
+  // V of the landing at land to V^T hi at vh and lo at vl
+  __device__ __forceinline__ void v_tile(const uint8_t* land, uint8_t* vh, uint8_t* vl) const {
+#pragma unroll
+    for (int u0 = 0; u0 < VMAX; u0 += U) {
+      float4 x[U];
+#pragma unroll
+      for (int u = u0; u < u0 + U && u < VMAX; ++u) {
+        if (u >= nv) break;
+        const float* src = reinterpret_cast<const float*>(land + vs[u]);
+        x[u - u0] = make_float4(src[0], src[64], src[128], src[192]);
+      }
+#pragma unroll
+      for (int u = u0; u < u0 + U && u < VMAX; ++u)
+        if (u < nv && vd[u] >= 0) hop::store_split(vh + vd[u], vl + vd[u], x[u - u0]);
+    }
+  }
+};
+
+}  // namespace tf
+
+// One block: a producer warpgroup (warp 0 loads; warps 1-3 rotate, split and
+// transpose) and one consumer warpgroup of the 64 query rows from
+// blockIdx.x * 64 of item blockIdx.z, head blockIdx.y. DP: D rounded up to 16.
+// cmap and smap: the cos and sin tables as (d2, 1, T, 1), read where d2 is a
+// multiple of 4 (else the tables are read from cos_t, sin_t).
+template <int DP>
+__global__ void __launch_bounds__(256, 1)
+global_attention_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap cmap,
+                             const __grid_constant__ CUtensorMap smap,
+                             const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                             const int* __restrict__ kv_len, float* __restrict__ out, int H,
+                             int T, int D, int d_rope, float sm_scale) {
+  using namespace hop;
+  using tf::BN;
+  using tf::KBOX;
+  constexpr int NB = tf::boxes(DP), RING = tf::ring(DP), SB = tf::stage_bytes(DP);
+  constexpr int KT = NB * KBOX;  // bytes of a K tile (hi or lo), of a V landing
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);  // 1024-byte aligned
+  uint8_t* ring = qs + NB * tf::QBOX;
+  uint8_t* land = ring + RING * SB;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(land + tf::NL * KT);
+  uint64_t* qready = qfull + 1;
+  uint64_t* full = qfull + 2;      // stage s: K (and its tables) and V have landed
+  uint64_t* ready = full + RING;   // ... and are rotated, split and transposed
+  uint64_t* empty = ready + RING;  // the consumers have read stage s
+  uint64_t* vfree = empty + RING;  // V landing l is read
+
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int len = kv_len[b];
+  const int kv_end = len > 0 ? min(len, T) : T;    // no valid key: every key counts
+  const int unmasked = len > 0 ? min(len, T) : 0;  // keys below it need no mask
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d2 = d_rope >> 1;
+  const bool tables = d2 > 0 && d2 % 4 == 0;  // the tile's tables arrive by TMA
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qready, 96);
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);
+      mbar_init(empty + s, 1);
+    }
+    for (int l = 0; l < tf::NL; ++l) mbar_init(vfree + l, 96);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {  // the producer warp: one lane issues every load
+    if (lane == 0) {
+      mbar_expect_tx(qfull, NB * tf::QBOX);
+      for (int c = 0; c < NB; ++c) tma_load(qs + c * tf::QBOX, &qmap, qfull, 32 * c, h, q0, b);
+      const int tab_bytes = tables ? BN * d2 * 4 : 0;  // one table's rows of a tile
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % RING, l = it % tf::NL;
+        if (it >= RING) mbar_wait(empty + s, (it / RING + 1) & 1);     // tile it - RING is read
+        if (it >= tf::NL) mbar_wait(vfree + l, (it / tf::NL + 1) & 1);  // and it - NL transposed
+        uint8_t* st = ring + s * SB;
+        mbar_expect_tx(full + s, 2 * KT + 2 * tab_bytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(st + c * KBOX, &kmap, full + s, 32 * c, h, it * BN, b);
+          tma_load(land + l * KT + c * KBOX, &vmap, full + s, 32 * c, h, it * BN, b);
+        }
+        if (tables) {  // into the K lo tile, which the helpers write once they have read them
+          tma_load(st + KT, &cmap, full + s, 0, 0, it * BN, 0);
+          tma_load(st + KT + tab_bytes, &smap, full + s, 0, 0, it * BN, 0);
+        }
+      }
+    }
+    return;
+  }
+  if (warp < 4) {  // warps 1-3: rotate q once; each tile: K to its hi and lo, V to V^T
+    const int i = tid - 32;
+    if (d2 > 0) {
+      mbar_wait(qfull, 0);
+      tf::rotate(qs, tf::QBOX, 64, q0, T, d2, cos_t, sin_t, i, 96);
+      mbar_arrive(qready);
+    }
+    const tf::Helper<DP> part(i, warp - 1, lane, tables ? d2 >> 2 : 0, d2);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % RING, l = it % tf::NL;
+      mbar_wait(full + s, (it / RING) & 1);
+      uint8_t* st = ring + s * SB;
+      if (d2 > 0 && !tables)  // rotated apart, from the tables in global memory
+        tf::rotate(st, KBOX, BN, it * BN, T, d2, cos_t, sin_t, i, 96);
+      part.k_tile(st, st + KT, d2);
+      part.v_tile(land + l * KT, st + 2 * KT, st + 2 * KT + DP * 128);
+      mbar_arrive(vfree + l);
+      fence_async_shared();
+      mbar_arrive(ready + s);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows q0 + 16 wq + g (+ 8) of its warps. S of tile
+  // it is issued with P.V of tile it - 1 and its softmax runs while that
+  // product does; a lane's score e is row g + 8 ((e >> 1) & 1), key j0 + 8 (e
+  // >> 2) + 2t + (e & 1)
+  const int wq = warp & 3, g = lane >> 2, t = lane & 3;
+  mbar_wait(d2 > 0 ? qready : qfull, 0);
+  // q of this warp's rows as A fragments, split once: k-step kk is features 8kk .. 8kk + 7
+  uint32_t qh[DP / 8][4], ql[DP / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * wq + g + 8 * (e & 1), f = 8 * kk + t + 4 * (e >> 1);
+      split(*reinterpret_cast<const float*>(qs + swz(r, f, tf::QBOX)), qh[kk][e], ql[kk][e]);
+    }
+  const float sl = sm_scale * LOG2E;
+  const float masked_raw = MASK_VALUE / sm_scale;  // a raw score that scales to -30000
+  float o[DP / 2];  // O: 64 rows x DP features, element e at column 8 (e >> 2) + 2t + (e & 1)
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) o[e] = 0.f;
+  float m_i[2] = {NEG_INIT, NEG_INIT}, l_i[2] = {0.f, 0.f}, alpha[2];
+  float sc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) sc[e] = 0.f;
+  uint32_t ph[BN / 8][4], pl[BN / 8][4];  // p of the previous tile: the A operand of its P.V
+
+  // S = Q.K^T of tile it (64 rows x BN keys): DP/8 k-steps of 8 features (box
+  // kk / 4, 32 bytes a step in it), three wgmma m64n32k8 each; committed
+  auto issue_scores = [&](int it) {
+    const uint8_t* st = ring + (it % RING) * SB;
+    const uint64_t kh = desc_k(st), kl = desc_k(st + KT);
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const uint64_t off = (uint64_t)(((kk >> 2) * KBOX + (kk & 3) * 32) >> 4);
+      wgmma_3x(sc, qh[kk], ql[kk], kh + off, kl + off, kk == 0);
+    }
+    wg_commit();
+  };
+  // O += P.V of tile it: BN/8 k-steps of 8 keys, three wgmma m64nDPk8 each
+  // (V^T hi and lo the B operands); committed
+  auto issue_pv = [&](int it) {
+    const uint8_t* vt = ring + (it % RING) * SB + 2 * KT;
+    const uint64_t vh = desc_k(vt), vl = desc_k(vt + DP * 128);
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) wgmma_3x(o, ph[kk], pl[kk], vh + 2 * kk, vl + 2 * kk, false);
+    wg_commit();
+  };
+  // the key mask and the online softmax of tile it on the raw scores sc (rows
+  // g, g + 8, reduced over the quad; the running max m_i in log2 units): sc
+  // becomes p = 2^(sc sl - m_i), l_i and m_i move, alpha is O's scale
+  auto softmax = [&](int it) {
+    const int j0 = it * BN;
+    if (j0 + BN > unmasked) {  // a key of this tile is masked or past T
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int j = j0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (j >= len) sc[e] = masked_raw;
+        if (j >= T) sc[e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * hr], sc[4 * i + 2 * hr + 1]));
+      const float m_new = fmaxf(m_i[hr], quad_max(mx) * sl);  // sl > 0: the max commutes
+      alpha[hr] = ex2(m_i[hr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(fmaf(sc[4 * i + 2 * hr + e], sl, -m_new));
+          sc[4 * i + 2 * hr + e] = p;
+          sum += p;
+        }
+      l_i[hr] = l_i[hr] * alpha[hr] + sum;
+      m_i[hr] = m_new;
+    }
+  };
+  // O *= alpha; p split into the A fragments of P.V: step kk is keys 8kk ..
+  // 8kk + 7, its k index t key 2t (registers 4kk, 4kk + 2: rows g, g + 8) and
+  // t + 4 key 2t + 1 (4kk + 1, 4kk + 3), as V^T orders them
+  auto rescale_and_split = [&]() {
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      const float pa[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1], sc[4 * kk + 3]};
+      split4(pa, ph[kk], pl[kk]);
+    }
+  };
+  // the consumers are done with the stage of tile it
+  auto release = [&](int it) {
+    if (wq == 0 && lane == 0) mbar_arrive(empty + it % RING);
+  };
+
+  mbar_wait(ready, 0);
+  wg_fence();
+  issue_scores(0);
+  wg_wait<0>();
+  keep(sc);
+  softmax(0);
+  rescale_and_split();
+  for (int it = 1; it < n_tiles; ++it) {
+    mbar_wait(ready + it % RING, (it / RING) & 1);
+    wg_fence();
+    issue_scores(it);
+    issue_pv(it - 1);
+    wg_wait<1>();  // S of tile it is in; P.V of tile it - 1 may still run
+    keep(sc);
+    softmax(it);
+    wg_wait<0>();
+    keep(o);
+    release(it - 1);
+    rescale_and_split();
+  }
+  wg_fence();
+  issue_pv(n_tiles - 1);
+  wg_wait<0>();
+  keep(o);
+  release(n_tiles - 1);
+
+  const size_t C = (size_t)H * D;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float inv = 1.f / quad_sum(l_i[hr]);
+    const int row = q0 + 16 * wq + g + 8 * hr;
+    if (row >= T) continue;
+    float* orow = out + ((size_t)b * T + row) * C + (size_t)h * D;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int col = 8 * i + 2 * t;  // D is a multiple of 4: col + 1 < D too
+      if (col < D)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[4 * i + 2 * hr] * inv, o[4 * i + 2 * hr + 1] * inv);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_tf(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                      const CUtensorMap& cm, const CUtensorMap& sm, const float* cos_t,
+                      const float* sin_t, const int* kv_len, float* out, int B, int H, int T,
+                      int D, int d_rope, float sm_scale, cudaStream_t stream) {
+  constexpr int smem = tf::smem_bytes(DP);
+  static_assert(smem <= tf::SMEM_MAX, "the f32 kernel's shared memory");
+  static std::atomic<unsigned long long> sized{0};
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(global_attention_tf32_kernel<DP>), smem, sized);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + 63) / 64, H, B);
+  global_attention_tf32_kernel<DP><<<grid, 256, smem, stream>>>(
+      qm, km, vm, cm, sm, cos_t, sin_t, kv_len, out, H, T, D, d_rope, sm_scale);
+  return cudaGetLastError();
+}
+
+// c (64 x N) = a (64 x 96) . b (N x 96)^T, both row-major f32, by the f32
+// kernel's product: a split into hi and lo in registers, b as hi and lo tiles
+// in its swizzled K-major layout, three wgmma m64nNk8 a k-step. N = 32 is S's
+// shape, N = 96 P.V's at D96. One warpgroup, a check of the product alone.
+template <int N>
+__global__ void __launch_bounds__(128)
+tf32x3_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ c) {
+  using namespace hop;
+  constexpr int K = 96, BOXB = N * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* bh = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
+  uint8_t* bl = bh + (K / 32) * BOXB;
+  const int tid = threadIdx.x, wq = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  for (int e = tid; e < N * K / 4; e += 128) {
+    const int r = e / (K / 4), f = 4 * (e - r * (K / 4));
+    const int off = swz(r, f, BOXB);
+    store_split(bh + off, bl + off, *reinterpret_cast<const float4*>(b + r * K + f));
+  }
+  fence_async_shared();
+  __syncthreads();
+  uint32_t ah[K / 8][4], al[K / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split(a[(16 * wq + g + 8 * (e & 1)) * K + 8 * kk + t + 4 * (e >> 1)], ah[kk][e], al[kk][e]);
+  float d[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) d[e] = 0.f;
+  const uint64_t dh = desc_k(bh), dl = desc_k(bl);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const uint64_t off = (uint64_t)(((kk >> 2) * BOXB + (kk & 3) * 32) >> 4);
+    wgmma_3x(d, ah[kk], al[kk], dh + off, dl + off, kk == 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  keep(d);
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e)
+    c[(16 * wq + g + 8 * ((e >> 1) & 1)) * N + 8 * (e >> 2) + 2 * t + (e & 1)] = d[e];
+}
+
 }  // namespace
 
 // q, k, v: head h of row t of item b at ptr + b*stride_b + t*stride_t + h*D
 // (f32); cos_t, sin_t: (T, d_rope/2) f32, unused when d_rope = 0; kv_len: (B,)
-// int32; out: (B, T, H*D) contiguous f32. Returns a cudaError_t (0 on success).
+// int32; out: (B, T, H*D) contiguous f32. The TMA route: q, k and v start on 16
+// bytes, stride_b, stride_t and D are multiples of 4 (cudaErrorMisalignedAddress
+// otherwise: the general route takes those). Returns a cudaError_t (0 on
+// success), or TMA_ENCODE_ERROR + the CUresult with which
+// cuTensorMapEncodeTiled refused a tensor map.
 extern "C" int global_attention_f32(const float* q, const float* k, const float* v,
                                     const float* cos_t, const float* sin_t, const int* kv_len,
                                     float* out, int B, int H, int T, int D, int d_rope,
                                     long long stride_b, long long stride_t, float sm_scale,
                                     void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaSuccess;
+  if (D <= 0 || D > 128 || d_rope < 0 || d_rope > D || (d_rope & 1) ||
+      (d_rope > 0 && (cos_t == nullptr || sin_t == nullptr)) || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || stride_b % 4 || stride_t % 4 || D % 4)
+    return (int)cudaErrorMisalignedAddress;
+  if (encode_tiled() == nullptr) return TMA_ENCODE_ERROR;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int d2 = d_rope / 2;
+  CUtensorMap qm, km, vm, cm, sm;
+  CUresult r = encode(&qm, q, F32, 4, B, H, T, D, stride_b, stride_t, 32, 64, true);
+  if (r == CUDA_SUCCESS)
+    r = encode(&km, k, F32, 4, B, H, T, D, stride_b, stride_t, 32, tf::BN, true);
+  if (r == CUDA_SUCCESS)
+    r = encode(&vm, v, F32, 4, B, H, T, D, stride_b, stride_t, 32, tf::BN, false);
+  if (d2 > 0 && d2 % 4 == 0) {  // the tables as (d2, 1, T, 1): a tile's BN rows a box
+    const long long n = (long long)T * d2;
+    if (r == CUDA_SUCCESS)
+      r = encode(&cm, cos_t, F32, 4, 1, 1, T, d2, n, d2, d2, tf::BN, false);
+    if (r == CUDA_SUCCESS)
+      r = encode(&sm, sin_t, F32, 4, 1, 1, T, d2, n, d2, d2, tf::BN, false);
+  } else {
+    cm = sm = km;  // not read
+  }
+  if (r != CUDA_SUCCESS) return TMA_ENCODE_ERROR + (int)r;
+  static constexpr decltype(&launch_tf<16>) by_width[] = {
+      launch_tf<16>, launch_tf<32>, launch_tf<48>, launch_tf<64>,
+      launch_tf<80>, launch_tf<96>, launch_tf<112>, launch_tf<128>};
+  return (int)by_width[(D + 15) / 16 - 1](qm, km, vm, cm, sm, cos_t, sin_t, kv_len, out, B, H, T,
+                                          D, d_rope, sm_scale, (cudaStream_t)stream);
+}
+
+// The general route: global_attention_f32's arguments in any layout (4-byte
+// copies where a start, a stride or D is off the 16-byte grid).
+extern "C" int global_attention_f32_general(const float* q, const float* k, const float* v,
+                                            const float* cos_t, const float* sin_t,
+                                            const int* kv_len, float* out, int B, int H, int T,
+                                            int D, int d_rope, long long stride_b,
+                                            long long stride_t, float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return (int)cudaSuccess;
   if (D <= 0 || D > 128 || d_rope < 0 || d_rope > D || (d_rope & 1) ||
       (d_rope > 0 && (cos_t == nullptr || sin_t == nullptr)) || B > 65535 || H > 65535)
@@ -923,6 +1715,24 @@ extern "C" int global_attention_f32(const float* q, const float* k, const float*
     case 3: return (int)launch_nc<3>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
     default: return (int)launch_nc<4>(vec, q, k, v, cos_t, sin_t, kv_len, out, B, H, T, D, d_rope, stride_b, stride_t, sm_scale, s);
   }
+}
+
+// c (64 x n) = a (64 x 96) . b (n x 96)^T through the f32 kernel's 3xTF32
+// wgmma product alone, n 32 or 96 (contiguous f32; one warpgroup): a check of
+// the product's accuracy. Returns a cudaError_t.
+extern "C" int tf32x3_wgmma_tile(const float* a, const float* b, float* c, int n, void* stream) {
+  if (n != 32 && n != 96) return (int)cudaErrorInvalidValue;
+  const int smem = 1024 + 2 * 3 * n * 128;
+  const void* kernel = n == 32 ? reinterpret_cast<const void*>(tf32x3_tile_kernel<32>)
+                               : reinterpret_cast<const void*>(tf32x3_tile_kernel<96>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 32)
+    tf32x3_tile_kernel<32><<<1, 128, smem, (cudaStream_t)stream>>>(a, b, c);
+  else
+    tf32x3_tile_kernel<96><<<1, 128, smem, (cudaStream_t)stream>>>(a, b, c);
+  return (int)cudaGetLastError();
 }
 
 // The bf16 form: q, k, v as above in bf16 (D a multiple of 8, at most 128;
@@ -947,9 +1757,11 @@ extern "C" int global_attention_bf16(const bf16* q, const bf16* k, const bf16* v
   if (encode_tiled() == nullptr) return TMA_ENCODE_ERROR;
   const int dp = (D + 15) / 16 * 16;
   CUtensorMap qm, km, vm;
-  CUresult r = encode(&qm, q, B, H, T, D, stride_b, stride_t, 64);
-  if (r == CUDA_SUCCESS) r = encode(&km, k, B, H, T, D, stride_b, stride_t, 64);
-  if (r == CUDA_SUCCESS) r = encode(&vm, v, B, H, T, D, stride_b, stride_t, hop::v_width(dp));
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = encode(&qm, q, BF16, 2, B, H, T, D, stride_b, stride_t, 64, 64, true);
+  if (r == CUDA_SUCCESS) r = encode(&km, k, BF16, 2, B, H, T, D, stride_b, stride_t, 64, 64, true);
+  if (r == CUDA_SUCCESS)
+    r = encode(&vm, v, BF16, 2, B, H, T, D, stride_b, stride_t, hop::v_width(dp), 64, true);
   if (r != CUDA_SUCCESS) return TMA_ENCODE_ERROR + (int)r;
   static constexpr decltype(&launch_h<16>) by_width[] = {
       launch_h<16>, launch_h<32>, launch_h<48>, launch_h<64>,

@@ -37,11 +37,17 @@ or separate (B, T, C) tensors, read through strides. The TPU version's
 
 Both kernels take float32 or bfloat16 (every tensor in one dtype, as the
 JAX gates ``supported``/``global_supported`` admit both), each dtype a
-symbol of its own and a launch count of its own. In bf16 the products take
-bf16 operands and accumulate in f32 (banded: one ``mma.sync`` m16n8k16 a
-fragment where f32 takes three 3xTF32 products; global: ``wgmma`` on
-tiles that TMA loads, so bf16 q, k and v must start on 16 bytes and have
-batch and row strides of multiples of 8 values, else ValueError); the
+symbol of its own and a launch count of its own. The global kernel runs
+``wgmma`` on tiles that TMA loads (3xTF32 in f32). In f32 the route follows
+the layout alone (``global_f32_route``): q, k and v that start on 16 bytes
+with batch and row strides and D multiples of 4 values (every serving
+path's) take the TMA kernel; any other layout the general kernel
+(``cp.async`` tiles, 3xTF32 ``mma.sync``), which counts its launches in
+``GLOBAL_GENERAL_KERNEL`` beside the wrapper's count. bf16 has the TMA
+kernel only: bf16 q, k and v must start on 16 bytes and have batch and row
+strides of multiples of 8 values, else ValueError. In bf16 the products
+take bf16 operands and accumulate in f32 (banded: one ``mma.sync``
+m16n8k16 a fragment where f32 takes three 3xTF32 products); the
 scores, the running max, the
 row sums and the output accumulator are f32; p is rounded to bf16 before
 p.v (and before p.rel_v); RoPE rotates in f32 from the f32 tables and
@@ -72,12 +78,16 @@ _GLOBAL_ARGS_BF16 = _GLOBAL_ARGS[:-1] + [I, P]  # + the query rows a block
 GLOBAL_ROPE_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
 GLOBAL_PACKED_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
 GLOBAL_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32", _GLOBAL_ARGS)
+#: the f32 general route (layouts TMA cannot load), for all three f32 wrappers:
+#: its count is of those launches alone, which the wrapper's count includes
+GLOBAL_GENERAL_KERNEL = CudaKernel("global_attention.cu", "global_attention_f32_general",
+                                   _GLOBAL_ARGS)
 GLOBAL_ROPE_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16",
                                      _GLOBAL_ARGS_BF16)
 GLOBAL_PACKED_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16",
                                        _GLOBAL_ARGS_BF16)
 GLOBAL_KERNEL_BF16 = CudaKernel("global_attention.cu", "global_attention_bf16", _GLOBAL_ARGS_BF16)
-TMA_ENCODE_ERROR = 100000  # global_attention_bf16's code for a refused tensor map
+TMA_ENCODE_ERROR = 100000  # the TMA kernels' code for a refused tensor map
 
 
 def check_dtypes(what: str, *tensors) -> torch.dtype:
@@ -242,6 +252,17 @@ def global_attention_plain(q, k, v, kv_len, *, n_heads: int, sm_scale: float, d_
 _SMS: dict = {}  # device -> its streaming multiprocessors
 
 
+def global_f32_route(ptrs, stride_b: int, stride_t: int, d: int) -> str:
+    """Which f32 global kernel takes q, k and v at the addresses ``ptrs``
+    with batch and row strides ``stride_b``, ``stride_t`` and head dim
+    ``d`` (values): "tma" where TMA can load them (every start on 16 bytes;
+    the strides and d multiples of 4 values, 16 bytes), else "general".
+    The layout alone decides, never the shape."""
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return "tma" if aligned and stride_b % 4 == 0 and stride_t % 4 == 0 and d % 4 == 0 \
+        else "general"
+
+
 def global_block_rows(b: int, h: int, t: int, n_sm: int) -> int:
     """Query rows a block of the bf16 global kernel takes (a block an SM):
     64 (one consumer warpgroup) where twice the blocks of 128 rows still
@@ -273,11 +294,14 @@ def _launch_global(kernels, inputs, ptrs, kv_len, *, b, t, c, n_heads, sm_scale,
             or not kv_len.is_contiguous():
         raise ValueError("global attention kernel: kv_len must be a contiguous (B,) int32 "
                          f"tensor on {device}")
-    block = ()
-    if dtype == torch.bfloat16:  # q, k and v arrive by TMA
+    stride_b = t * stride_t if b == 1 else stride_b  # never read for one item
+    launched, block = kernel, ()
+    if dtype == torch.float32:
+        if global_f32_route(ptrs, stride_b, stride_t, d) == "general":
+            launched = GLOBAL_GENERAL_KERNEL
+    else:  # bf16: q, k and v arrive by TMA
         if d % 8:
             raise ValueError(f"global attention kernel: bf16 head dim {d} is not a multiple of 8")
-        stride_b = t * stride_t if b == 1 else stride_b  # never read for one item
         for name, ptr in zip("qkv", ptrs):
             if ptr % 16:
                 raise ValueError(f"global attention kernel: bf16 {name} starts at {ptr:#x}, "
@@ -298,14 +322,16 @@ def _launch_global(kernels, inputs, ptrs, kv_len, *, b, t, c, n_heads, sm_scale,
     # the launch on device's current stream with device current (the context
     # switch, a few microseconds, only where it is not)
     if device.index == torch.cuda.current_device():
-        err = kernel.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
+        err = launched.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
     else:
         with torch.cuda.device(device):
-            err = kernel.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
+            err = launched.fn()(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err >= TMA_ENCODE_ERROR:
-        raise RuntimeError(f"{kernel.symbol}: cuTensorMapEncodeTiled refused a TMA tensor map "
+        raise RuntimeError(f"{launched.symbol}: cuTensorMapEncodeTiled refused a TMA tensor map "
                            f"(CUresult {err - TMA_ENCODE_ERROR}; 0: it was not found)")
-    kernel.check(err)
+    launched.check(err)
+    if launched is GLOBAL_GENERAL_KERNEL:
+        launched.launches += 1
     return out, kernel
 
 
